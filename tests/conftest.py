@@ -11,3 +11,7 @@ def pytest_configure(config):
         "markers",
         "slow: multi-second training / interpret-mode sweeps (nightly tier; "
         "tier-1 runs -m 'not slow')")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA card and nvcc (the repro_torch kernels); "
+        "skips without one")
