@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA card and check it.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA card
+and check them.
 
     python3 chip_smoke.py [--seed N]
 
-Phases:
+Serving phases:
   1. build the CUDA kernels from ``src/repro_torch/csrc`` (set-up) and
      print the card's name and power limit;
   2. make the four paper models (MNIST and KWS-6, CoTM and Vanilla, at
@@ -24,10 +25,44 @@ Phases:
      wrapper's time per call issued back to back, flush and request
      latency with the host clock, and one flush under torch.profiler.
 
-Prints the card line, a ``serving`` JSON line, a ``kernels`` JSON line
-and, last, ``{"ok": true, "device": {...}}``.  Any failed check raises,
-and the exit code is then non-zero.  Without a CUDA card, or without the
-repository beside it, it exits non-zero and prints no result.
+Training phases (the paper's MNIST CoTM at full width, L=1664, R=2048,
+H=16, W=52, on the MNIST-like synthetic set: 2048 training and 512
+held-out rows):
+  7. main fit: ``TM(spec, lfsr PRNG).fit(epochs=2, batch=32)`` with the
+     compacted TA update, then the same fit with the engine's skip off
+     (dense update); both under ``torch.cuda.set_sync_debug_mode("error")``
+     between each epoch's plan upload and stats fetch.  The two final
+     programs and PRNGs must be equal, and the first two steps, replayed
+     on a CPU engine, must give the card's programs, PRNGs and stats;
+  8. edge: 8 ``partial_fit`` steps at B=1 (counter PRNG), each checked
+     against the CPU engine;
+  9. bank: one ``ProgramBank.train`` step of MNIST CoTM and MNIST Vanilla
+     (K=2, 32 rows each, counter PRNGs), checked against the CPU engine;
+ 10. the training kernels against their plain versions at the path's
+     shapes (fused_step K=1 B=32; ta_update K=1 and K=2 with 2B=64;
+     ta_update_sparse at the fit's last step), timed as in phase 6; the
+     in-place sparse update on those inputs with 1, 2, 4, ... of the
+     listed groups, beside the dense kernel on them; and one step under
+     torch.profiler.
+
+Bounds: bytes over 3.35 TB/s; integer operations over 64 per clock per
+SM (the CUDA guide's rate for 32-bit integer add, logic, shift, compare
+and multiply-add on compute capability 9.0) × the SM count × the card's
+maximum SM clock (``nvidia-smi --query-gpu=clocks.max.sm``).  Operations
+are the fewest 32-bit integer instructions the function needs on this
+run's inputs: one three-input logic op per word pair of a clause
+evaluation (``acc | (inc & ~lit)`` is one LOP3) and one zero test per
+clause output; one multiply-add per clause and class of a class sum
+(one add per fired clause and class in ``fused_step``); three per
+clause, batch row and round of the Alg-3 selection; and, for the TA
+update, the ``TA_*`` counts below per seed, stream step and delta, from
+this run's feedback bits.  No kernel here does float work.
+
+Prints the card line, ``serving`` and ``training`` JSON lines, a
+``kernels`` JSON line and, last, ``{"ok": true, "device": {...}}``.  Any
+failed check raises, and the exit code is then non-zero.  Without a CUDA
+card, or without the repository beside it, it exits non-zero and prints
+no result.
 """
 from __future__ import annotations
 
@@ -39,10 +74,21 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
-ALU_OPS_PER_S = 67e12        # H100 SXM non-tensor-core rate (float32 row)
+INT_OPS_PER_CLOCK_PER_SM = 64  # 32-bit integer add/logic/shift/compare/IMAD, cc 9.0
+# Integer operations of the TA update, from csrc/ta_update.cu's arithmetic:
+TA_SEED_OPS = {"counter": 11,  # key (multiply-add, add) and splitmix32 (9)
+               "lfsr": 13}     # ... and the lane mask and nonzero select
+TA_STEP_OPS = {"counter": 7,   # xorshift32 (3 shifts, 3 xors), the shift out
+               "lfsr": 5}      # Galois shift (shift, bit test, xor, select), shift out
+TA_REFRESH_OPS = 2             # lfsr with seed_refresh: cycle count add, compare
+TA_DELTA_OPS = 6               # rand < p_ta, literal bit, Type I select and add,
+                               # Type II test and add, per (TA, row with feedback)
+TA_CLIP_OPS = 3                # clip to [0, n_states - 1], the include compare
 ROUNDS = 4                   # stacked flushes, each 4 tenants x 32 requests
 EDGE = 4                     # single-datapoint requests per tenant
 ITERS = 200                  # kernel calls per timing graph
+N_TRAIN, N_TEST = 2048, 512  # MNIST-like rows for the training phases
+EDGE_STEPS = 8               # partial_fit steps at B=1
 
 
 def check(ok, what: str) -> None:
@@ -50,12 +96,44 @@ def check(ok, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
-def card_line() -> str:
-    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+def smi(query: str) -> str:
+    r = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
                         "--format=csv,noheader"], capture_output=True,
                        text=True, timeout=60)
     check(r.returncode == 0, f"nvidia-smi: {r.stderr.strip()}")
     return r.stdout.strip().splitlines()[0]
+
+
+def card_line() -> str:
+    return smi("name,power.limit")
+
+
+def int_ops_per_s(torch) -> float:
+    """64 integer operations per clock per SM × SMs × the max SM clock."""
+    mhz = float(smi("clocks.max.sm").split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return INT_OPS_PER_CLOCK_PER_SM * sms * mhz * 1e6
+
+
+class Capture:
+    """Within the block, record the arguments of the last call of
+    ``module.name`` (a kernel wrapper as the ops module calls it); the
+    wrapper itself still runs and counts its launches."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name = module, name
+        self.fn = getattr(module, name)
+        self.args = None
+
+    def __enter__(self):
+        def record(*a, **kw):
+            self.args = (a, kw)
+            return self.fn(*a, **kw)
+        setattr(self.module, self.name, record)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
 
 
 def motif_program(engine, spec, task, rng, datasets, n_inc=3, w_max=4):
@@ -156,10 +234,24 @@ def profile_flush(torch, fn) -> dict:
                         for k in top]}
 
 
-def bound(nbytes: int, ops: int):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ALU_OPS_PER_S
+def bound(nbytes: int, ops: int, int_rate: float):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / int_rate
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def same_state(torch, a, b) -> bool:
+    """Leaf-for-leaf equality of two programs or two PRNGs."""
+    return all(torch.equal(x.cpu(), y.cpu())
+               for x, y in zip(a.leaves(), b.leaves()))
+
+
+def paper_spec(api, cfg, backend: str):
+    return api.TMSpec(kind=cfg.tm_type, features=cfg.features,
+                      clauses=cfg.clauses, classes=cfg.classes, T=cfg.T,
+                      s=cfg.s, ta_bits=cfg.ta_bits,
+                      weight_bits=cfg.weight_bits, prng_backend=backend,
+                      lfsr_bits=cfg.lfsr_bits)
 
 
 def main(argv=None) -> int:
@@ -187,6 +279,11 @@ def main(argv=None) -> int:
     from repro_torch.kernels.packed_clause import (
         packed_clause_eval, packed_clause_eval_plain, packed_clause_tile,
         packed_clause_tile_plain)
+    from repro_torch.core.dtm import STAT_KEYS
+    from repro_torch.core.prng import PRNG
+    from repro_torch.kernels.fused_step import fused_step, fused_step_plain
+    from repro_torch.kernels.ta_update import (
+        ta_update, ta_update_plain, ta_update_sparse, ta_update_sparse_plain)
     from repro_torch.launch.serve_tm import TMServer
 
     # ---- 1. build -----------------------------------------------------------
@@ -195,6 +292,7 @@ def main(argv=None) -> int:
     build_s = time.perf_counter() - t0
     card = card_line()
     print(card)
+    int_rate = int_ops_per_s(torch)
     print(f"build: {build_s:.1f} s, {sorted(p.name for p in libs.values())}")
 
     # ---- 2. programs --------------------------------------------------------
@@ -309,6 +407,170 @@ def main(argv=None) -> int:
     fired = float(cl.sum()) / float(B * rows.sum())
     check(fired > 0, "no clause fired")
 
+    # ---- 7. training: the main fit, compacted and dense ---------------------
+    spec = paper_spec(api, tm_paper.TM_MNIST_COTM, "lfsr")
+    spec_c = paper_spec(api, tm_paper.TM_MNIST_COTM, "counter")
+    spec_v = paper_spec(api, tm_paper.TM_MNIST_VANILLA, "counter")
+    ttile = api.tile_for(spec)
+    eng = api.compile(ttile, device="cuda")
+    eng_dense = api.compile(ttile, device="cuda", skip=False)
+    eng_cpu = api.compile(ttile, device="cpu")
+    geo = (eng.L, eng.R, eng.H, eng.W)
+    check(geo == (1664, 2048, 16, 52), f"training engine geometry {geo}")
+    task = datasets.MNIST_LIKE
+    x_tr, y_tr = datasets.make_bool_dataset(task, N_TRAIN, seed=args.seed + 100)
+    x_te, y_te = datasets.make_bool_dataset(task, N_TEST, seed=args.seed + 200)
+    tm_a = api.TM(spec, engine=eng, seed=args.seed)
+    tm_b = api.TM(spec, engine=eng_dense, seed=args.seed)
+    p0, r0 = tm_a.program.to("cpu"), tm_a.prng.to("cpu")
+    check(same_state(torch, tm_a.program, tm_b.program)
+          and same_state(torch, tm_a.prng, tm_b.prng),
+          "the two fits start from different states")
+
+    def fit(tm):
+        t = time.perf_counter()
+        hist = tm.fit(x_tr, y_tr, epochs=2, batch=32,
+                      rng=np.random.default_rng(args.seed), sync_guard=True)
+        torch.cuda.synchronize()
+        return hist, time.perf_counter() - t
+
+    ops.reset_launch_counts()
+    with Capture(ops, "fused_step") as cap_front, \
+            Capture(ops, "ta_update_sparse") as cap_sparse:
+        hist, fit_s = fit(tm_a)
+    counts_fit = ops.launch_counts()
+    ops.reset_launch_counts()
+    with Capture(ops, "ta_update") as cap_dense1:
+        hist_d, fit_d_s = fit(tm_b)
+    counts_dense = ops.launch_counts()
+    steps = 2 * (N_TRAIN // 32)
+    check(counts_fit["fused_step"] == steps
+          and counts_fit["ta_update_sparse"] == steps
+          and counts_fit["ta_update"] == 0,
+          f"the compacted fit launched {counts_fit}")
+    check(counts_dense["fused_step"] == steps
+          and counts_dense["ta_update"] == steps
+          and counts_dense["ta_update_sparse"] == 0,
+          f"the dense fit launched {counts_dense}")
+    check(hist == hist_d, "compacted and dense fits give other histories")
+    check(same_state(torch, tm_a.program, tm_b.program)
+          and same_state(torch, tm_a.prng, tm_b.prng),
+          "compacted and dense fits end in other programs or PRNGs")
+    check(hist[-1]["train_acc"] > 1.0 / spec.classes,
+          f"last epoch train accuracy {hist[-1]['train_acc']}")
+    test_acc = tm_a.score(x_te, y_te)
+
+    # the first two steps of the fit, on the card and on the CPU engine
+    plan = np.random.default_rng(args.seed).permutation(N_TRAIN).reshape(
+        -1, 32)
+    pg, rg, pc, rc = p0.to("cuda"), r0.to("cuda"), p0, r0
+    cpu_s = 0.0
+    for s_ in range(2):
+        xb, lab = x_tr[plan[s_]], spec.encode_labels(y_tr[plan[s_]])
+        pg, rg, sg = eng.train_step(pg, rg, eng.encode(spec, xb),
+                                    lab.cuda())
+        t = time.perf_counter()
+        pc, rc, sc = eng_cpu.train_step(pc, rc, eng_cpu.encode(spec, xb), lab)
+        cpu_s += time.perf_counter() - t
+        check(same_state(torch, pg, pc) and same_state(torch, rg, rc)
+              and all(int(sg[k]) == int(sc[k]) for k in STAT_KEYS),
+              f"fit step {s_} on the card differs from the CPU engine")
+
+    # ---- 8. edge training: partial_fit at B=1 --------------------------------
+    tm_e = api.TM(spec_c, engine=eng, seed=args.seed + 1)
+    pc, rc = tm_e.program.to("cpu"), tm_e.prng.to("cpu")
+    ops.reset_launch_counts()
+    edge_train_s = []
+    for i in range(EDGE_STEPS):
+        xb, yb = x_tr[i:i + 1], y_tr[i:i + 1]
+        t = time.perf_counter()
+        sg = tm_e.partial_fit(xb, yb)
+        torch.cuda.synchronize()
+        edge_train_s.append(time.perf_counter() - t)
+        pc, rc, sc = eng_cpu.train_step(pc, rc, eng_cpu.encode(spec_c, xb),
+                                        spec_c.encode_labels(yb))
+        check(same_state(torch, tm_e.program, pc)
+              and same_state(torch, tm_e.prng, rc)
+              and all(int(sg[k]) == int(sc[k]) for k in STAT_KEYS),
+              f"edge step {i} on the card differs from the CPU engine")
+    counts_edge_train = ops.launch_counts()
+    check(counts_edge_train["packed_clause_eval"] == EDGE_STEPS
+          and counts_edge_train["class_sum"] == EDGE_STEPS
+          and counts_edge_train["ta_update_sparse"] == EDGE_STEPS
+          and counts_edge_train["fused_step"] == 0,
+          f"edge training launched {counts_edge_train}")
+
+    # ---- 9. bank training: MNIST CoTM + MNIST Vanilla, K=2 -------------------
+    gen = torch.Generator()
+    b_progs = [eng.lower(sp, gen.manual_seed(args.seed + 2 + k))
+               for k, sp in enumerate((spec_c, spec_v))]
+    b_prngs = [PRNG.create(sp.tm_config(), args.seed + 4 + k, device="cuda")
+               for k, sp in enumerate((spec_c, spec_v))]
+    bank = api.stack(b_progs, eng, prngs=b_prngs)
+    cpu_bank = api.stack([q.to("cpu") for q in b_progs], eng_cpu,
+                         prngs=[q.to("cpu") for q in b_prngs])
+    b_x = [x_tr[32 * k:32 * (k + 1)] for k in range(2)]
+    b_y = np.stack([y_tr[32 * k:32 * (k + 1)] for k in range(2)])
+    b_lits = torch.stack([eng.encode(sp, xb) for sp, xb in
+                          zip((spec_c, spec_v), b_x)])
+    ops.reset_launch_counts()
+    with Capture(ops, "ta_update") as cap_bank:
+        bst = bank.train(b_lits, b_y)
+    counts_bank = ops.launch_counts()
+    check(counts_bank["fused_step"] == 1 and counts_bank["ta_update"] == 1
+          and counts_bank["ta_update_sparse"] == 0,
+          f"the bank step launched {counts_bank}")
+    t = time.perf_counter()
+    cst = cpu_bank.train(b_lits.cpu(), b_y)
+    cpu_s += time.perf_counter() - t
+    check(same_state(torch, bank.progs, cpu_bank.progs)
+          and same_state(torch, bank.prngs, cpu_bank.prngs)
+          and all(torch.equal(bst[k].cpu(), cst[k]) for k in STAT_KEYS),
+          "the bank step on the card differs from the CPU engine")
+
+    # ---- 10. the training kernels against their plain versions --------------
+    def copies(a):
+        """Copies of a captured call's tensors, so an in-place update
+        changes neither the fit's state nor the other side's inputs."""
+        return tuple(t.clone() if isinstance(t, torch.Tensor) else t
+                     for t in a)
+
+    def compare_all(kernel, plain, a, kw):
+        got, want = kernel(*copies(a), **kw), plain(*copies(a), **kw)
+        torch.cuda.synchronize()
+        err = 0
+        for g, w in zip(got, want):
+            err = max(err, int((g.to(torch.int64)
+                                - w.to(torch.int64)).abs().max()))
+            n_bad = int((g != w).sum())
+            check(n_bad == 0, f"{kernel.__name__}: {n_bad} mismatches")
+        return got, err
+
+    f_a, f_kw = cap_front.args
+    front, err_front = compare_all(fused_step, fused_step_plain, f_a, f_kw)
+    s_a, s_kw = cap_sparse.args       # the fit's last step
+    check(s_kw.get("inplace") is True,
+          "the fit's compacted update did not run in place")
+    s_a = copies(s_a)                 # timed below, in place
+    _, err_sparse = compare_all(ta_update_sparse, ta_update_sparse_plain,
+                                s_a, s_kw)
+    d1_a, d1_kw = cap_dense1.args     # the dense fit's last step (K=1)
+    _, err_d1 = compare_all(ta_update, ta_update_plain, d1_a, d1_kw)
+    d2_a, d2_kw = cap_bank.args       # the bank step (K=2)
+    _, err_d2 = compare_all(ta_update, ta_update_plain, d2_a, d2_kw)
+
+    # step time (host clock) and one profiled step, from the fit's end
+    lits32 = eng.encode(spec, x_tr[:32])
+    lab32 = spec.encode_labels(y_tr[:32]).cuda()
+    step_s = []
+    for _ in range(10):
+        t = time.perf_counter()
+        eng.train_step(tm_a.program, tm_a.prng, lits32, lab32)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+    step_prof = profile_flush(torch, lambda: eng.train_step(
+        tm_a.program, tm_a.prng, lits32, lab32))
+
     # ---- 6. timing -------------------------------------------------------------
     cold = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
     it = ITERS
@@ -317,15 +579,19 @@ def main(argv=None) -> int:
     rows_out = []
 
     def row(name, source, replaces, launches, err, kernel, plain, library,
-            nbytes, nops, shape):
-        b_ms, b_by = bound(nbytes, nops)
+            nbytes, nops, shape, plain_graph=True):
+        """One kernels-line entry.  The plain version is timed by graph
+        replay, or (``plain_graph=False``: it reads the device on the
+        host) with events around back-to-back calls."""
+        b_ms, b_by = bound(nbytes, nops, int_rate)
         rows_out.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "mismatches": 0,
             "max_abs_err": err, "ms": graph_ms(torch, kernel, it),
             "ms_cold_l2": graph_ms(torch, kernel, it // 4, cold),
             "call_ms": call_ms(torch, kernel, it),
-            "plain_ms": graph_ms(torch, plain, max(it // 20, 2)),
+            "plain_ms": (graph_ms(torch, plain, max(it // 20, 2))
+                         if plain_graph else call_ms(torch, plain, 3)),
             "library_ms": (None if library is None
                            else graph_ms(torch, library, it)),
             "bound_ms": b_ms, "bound_by": b_by, "shape": shape})
@@ -336,14 +602,14 @@ def main(argv=None) -> int:
         counts_stacked["packed_clause_tile"], err_tile,
         lambda: packed_clause_tile(lits, inc, True, L),
         lambda: packed_clause_tile_plain(lits, inc, True, L), None,
-        4 * (K * B * W + K * R * W + K * B * R), 2 * K * B * R * W,
+        4 * (K * B * W + K * R * W + K * B * R), K * B * R * W + K * B * R,
         f"K={K} B={B} R={R} W={W}")
     row("packed_clause_eval", cu + "packed_clause.cu",
         "src/repro/kernels/packed_clause.py:107",
         counts_edge["packed_clause_eval"], err_edge,
         lambda: packed_clause_eval(lit1, inc1, True, L),
         lambda: packed_clause_eval_plain(lit1, inc1, True, L), None,
-        4 * (W + R * W + R), 2 * R * W, f"K=1 B=1 R={R} W={W}")
+        4 * (W + R * W + R), R * W + R, f"K=1 B=1 R={R} W={W}")
     row("class_sum", cu + "class_sum.cu",
         "src/repro/kernels/class_sum.py:57",
         counts_stacked["class_sum"] + counts_edge["class_sum"],
@@ -351,12 +617,118 @@ def main(argv=None) -> int:
         lambda: class_sum(cl, weights),
         lambda: class_sum_plain(cl, weights),
         lambda: torch.matmul(clf, wf.transpose(-1, -2)),
-        4 * (K * B * R + K * H * R + K * B * H), 2 * K * B * R * H,
+        4 * (K * B * R + K * H * R + K * B * H), K * B * R * H,
         f"K={K} B={B} R={R} H={H}")
     cs1_ms = graph_ms(torch, lambda: class_sum(cl1, w1), it)
     for n in roster:
         stacked.enqueue(n, reqs[n][:B])
     prof = profile_flush(torch, stacked.flush)
+
+    # training kernels at the path's shapes (bounds from these inputs)
+    fl, fi, fw = f_a[0], f_a[1], f_a[2]
+    fK, fB, fW = fl.shape
+    fR, fH = fi.shape[1], fw.shape[1]
+    fired_front = int(front[0].sum())
+    row("fused_step", cu + "fused_step.cu",
+        "src/repro/kernels/fused_step.py:150",
+        counts_fit["fused_step"] + counts_dense["fused_step"]
+        + counts_bank["fused_step"], err_front,
+        lambda: fused_step(*f_a, **f_kw),
+        lambda: fused_step_plain(*f_a, **f_kw), None,
+        4 * (fK * fB * fW + fK * fR * fW + fK * fH * fR + 2 * fK * fB
+             + 2 * fK * fB * fR + fK * fR + fK * fH + 2 * fK
+             + 3 * fK * fB * fR + fK * fB * fH),
+        fK * fB * fR * fW + fK * fB * fR + fired_front * fH
+        + 2 * 3 * fK * fB * fR,
+        f"K={fK} B={fB} R={fR} W={fW} H={fH}")
+
+    def ta_cost(a, kw_, sparse: bool):
+        """(bytes, operations) of one TA update on this run's inputs.
+        Rows processed: every clause row (dense), or the rows of the
+        128-row groups with feedback (sparse, in place).  Bytes: those
+        rows' states read and written in their dtype, their feedback bytes
+        and include words, the literals and l_mask.  Operations: per TA
+        of a clause row with feedback a seed and 2B stream steps (the
+        kernel skips the stream of the other rows); the delta per (TA,
+        batch row) with feedback; the clip and include test per TA
+        processed (the TA_* counts)."""
+        ta_, lits_, cl_, t1_, t2_ = a[:5]
+        k_, c_, l_ = ta_.shape
+        b2, w_ = lits_.shape[1], lits_.shape[2]
+        fb = (t1_ > 0) | (t2_ > 0)                              # [K, 2B, C]
+        active = fb.any(dim=1)                                  # [K, C]
+        rows_ = k_ * c_
+        if sparse:
+            g_ = -(-c_ // 128)
+            pad = torch.zeros((k_, g_ * 128), dtype=torch.bool,
+                              device=active.device)
+            pad[:, :c_] = active
+            sizes = (c_ - 128 * torch.arange(g_, device=active.device)
+                     ).clamp(max=128)
+            rows_ = int((pad.view(k_, g_, 128).any(dim=-1) * sizes).sum())
+        family = kw_["prng"]
+        step = TA_STEP_OPS[family] + (
+            TA_REFRESH_OPS if family == "lfsr" and kw_["seed_refresh"] else 0)
+        nbytes = (2 * rows_ * l_ * ta_.element_size() + 4 * rows_ * w_
+                  + 3 * b2 * rows_ + 4 * k_ * b2 * w_ + 4 * k_ * l_)
+        nops = (int(active.sum()) * l_ * (TA_SEED_OPS[family] + b2 * step)
+                + int(fb.sum()) * l_ * TA_DELTA_OPS + rows_ * l_ * TA_CLIP_OPS)
+        return nbytes, nops
+
+    for label, a, kw_, err in (("K=1", d1_a, d1_kw, err_d1),
+                               ("K=2", d2_a, d2_kw, err_d2)):
+        k_, c_, l_ = a[0].shape
+        nb, no = ta_cost(a, kw_, sparse=False)
+        row("ta_update", cu + "ta_update.cu",
+            "src/repro/kernels/ta_update.py:285",
+            counts_dense["ta_update"] + counts_bank["ta_update"], err,
+            lambda a=a, kw_=kw_: ta_update(*a, **kw_),
+            lambda a=a, kw_=kw_: ta_update_plain(*a, **kw_), None, nb, no,
+            f"{label} 2B={a[1].shape[1]} C={c_} L={l_} "
+            f"prng={kw_['prng']}", plain_graph=False)
+    k_, c_, l_ = s_a[0].shape
+    n_groups = int(s_a[8].sum())
+    nb, no = ta_cost(s_a, s_kw, sparse=True)
+    row("ta_update_sparse", cu + "ta_update.cu",
+        "src/repro/kernels/ta_update.py:238",
+        counts_fit["ta_update_sparse"]
+        + counts_edge_train["ta_update_sparse"], err_sparse,
+        lambda: ta_update_sparse(*s_a, **s_kw),
+        lambda: ta_update_sparse_plain(*s_a, **s_kw), None, nb, no,
+        f"K=1 2B={s_a[1].shape[1]} C={c_} L={l_} active_groups={n_groups}"
+        f"/{-(-c_ // 128)} prng={s_kw['prng']}", plain_graph=False)
+    # the same inputs with the first n listed groups only, and the dense
+    # kernel on them: the in-place update's time against the active share
+    dense_kw = {k: v for k, v in s_kw.items() if k != "inplace"}
+    ta_ms_by_groups = {"dense": graph_ms(
+        torch, lambda: ta_update(*s_a[:6], *s_a[9:], **dense_kw), it)}
+    for n_ in sorted({max(n_groups >> i, 1) for i in range(5)}):
+        a_ = s_a[:8] + (torch.full_like(s_a[8], n_),) + s_a[9:]
+        ta_ms_by_groups[n_] = graph_ms(
+            torch, lambda a_=a_: ta_update_sparse(*a_, **s_kw), it)
+
+    training = {
+        "card": card, "model": "MNIST CoTM (784 f, 2000 clauses, 10 classes,"
+        " T=500, s=10, ta_bits 8, lfsr_bits 24)",
+        "engine": {"L": eng.L, "R": eng.R, "H": eng.H, "W": eng.W},
+        "rows": {"train": N_TRAIN, "test": N_TEST}, "batch": 32,
+        "epochs": len(hist), "fit_s": {"compact": fit_s, "dense": fit_d_s},
+        "epoch_s": {"compact": tm_a.epoch_seconds,
+                    "dense": tm_b.epoch_seconds},
+        "steps_per_s": {"compact": [(N_TRAIN // 32) / e
+                                    for e in tm_a.epoch_seconds],
+                        "dense": [(N_TRAIN // 32) / e
+                                  for e in tm_b.epoch_seconds]},
+        "step_ms_median": float(np.median(step_s) * 1e3),
+        "edge_step_ms_median": float(np.median(edge_train_s) * 1e3),
+        "skip_frac": tm_a.skip_frac,
+        "ta_ms_by_listed_groups": ta_ms_by_groups,
+        "train_acc": [h["train_acc"] for h in hist],
+        "group_skip_frac": [h["group_skip_frac"] for h in hist],
+        "test_acc": test_acc, "step_profile": step_prof,
+        "cpu_reference_s": cpu_s, "int_ops_per_s": int_rate,
+        "launches": {"fit_compact": counts_fit, "fit_dense": counts_dense,
+                     "edge": counts_edge_train, "bank": counts_bank}}
 
     serving = {
         "card": card, "tenants": list(roster), "batch_slot": B,
@@ -371,6 +743,7 @@ def main(argv=None) -> int:
         "launches": {"stacked": counts_stacked, "edge": counts_edge},
         "build_s": build_s}
     print(json.dumps({"serving": serving}))
+    print(json.dumps({"training": training}))
     print(json.dumps({"kernels": rows_out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,22 +5,23 @@
     prog   = engine.lower(spec, torch.Generator().manual_seed(0))
     sums, clauses = engine.infer(prog, engine.encode(spec, x))
 
-or the estimator shell, ``TM(spec).predict(x)`` / ``.score(x, y)``, and
-:func:`stack` for a :class:`ProgramBank` of K programs served by one
-launch per kernel.  :class:`TMSpec` serialises to the same JSON as the JAX
-package's, so specs cross between the two packages.  This slice serves;
-training and the conv kind come later.
+or the estimator shell, ``TM(spec).fit(x, y)`` / ``.partial_fit`` /
+``.predict(x)`` / ``.score(x, y)``, and :func:`stack` for a
+:class:`ProgramBank` of K programs served and trained by one launch per
+kernel.  :class:`TMSpec` serialises to the same JSON as the JAX package's,
+so specs cross between the two packages.  The conv kind comes later.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.core.booleanize import Booleanizer, fit_thermometer
 from repro_torch.core.dtm import Device, DTMEngine, DTMProgram
+from repro_torch.core.prng import PRNG
 from repro_torch.core.evaluate import accuracy, batched_predict
 from repro_torch.core.types import (COALESCED, PRNG_BACKENDS, TMConfig,
                                     TileConfig, VANILLA)
@@ -194,20 +195,24 @@ def tile_for(*specs: TMSpec, x: int = 128, y: int = 128, m: int = 128,
 
 
 def compile(tile: Optional[TileConfig] = None, device: Device = None,
-            rand_bits: int = 16, kernel_path: Optional[str] = None
-            ) -> DTMEngine:
+            rand_bits: int = 16, kernel_path: Optional[str] = None,
+            skip: bool = True) -> DTMEngine:
     """Build the one engine for a geometry (on the card unless ``device``
-    says otherwise)."""
+    says otherwise).  ``skip=False`` trains with the dense TA update."""
     return DTMEngine(tile or TileConfig(), rand_bits=rand_bits,
-                     device=device, kernel_path=kernel_path)
+                     device=device, kernel_path=kernel_path, skip=skip)
 
 
 class TM:
-    """Estimator shell for one spec: ``predict``, ``class_sums``, ``score``.
+    """Estimator shell for one spec: ``fit``, ``partial_fit``,
+    ``predict``, ``class_sums``, ``score``.
 
     The program is lowered from ``seed`` through a CPU ``torch.Generator``;
     it follows the JAX estimator's construction (TA states at J-1/J, ±1
-    weights) but not its random numbers.  Training comes in a later slice.
+    weights) but not its random numbers.  The PRNG is the spec's backend
+    from ``seed + 1``, as in the JAX estimator (``threefry`` raises).
+    Assigning ``program`` and ``prng`` from the JAX package's (through
+    :mod:`repro_torch.convert`) reproduces its training exactly.
     """
 
     def __init__(self, spec: TMSpec, engine: Optional[DTMEngine] = None,
@@ -218,8 +223,77 @@ class TM:
         self.engine = (engine if engine is not None
                        else compile(tile or tile_for(spec), device=device,
                                     rand_bits=self.cfg.rand_bits))
+        self.prng = PRNG.create(self.cfg, seed + 1, device=self.engine.device)
         self.program: DTMProgram = self.engine.lower(
             spec, torch.Generator().manual_seed(seed))
+        self.steps = 0
+        self._stream = None       # streaming session of partial_fit
+        # lifetime Alg-6 accounting, kept on the device until skip_frac
+        self._skip_active = 0
+        self._skip_total = 0
+        self.epoch_seconds: List[float] = []   # of the last fit
+
+    def _extra_metrics(self) -> Optional[Callable]:
+        if self.spec.kind != "regression":
+            return None
+        return lambda agg, n: {
+            "train_mae": agg.get("abs_err", 0) / max(n * self.cfg.T, 1),
+            "train_acc": None}
+
+    def partial_fit(self, x, y) -> dict:
+        """One engine train step on a batch; returns the stats (0-d int32
+        tensors on the engine device)."""
+        if self._stream is None:
+            self._stream = self.engine.bind(self.program, spec=self.spec,
+                                            prng=self.prng)
+        self._stream.program, self._stream.prng = self.program, self.prng
+        stats = self._stream.step(x, y)
+        self.program, self.prng = self._stream.state()
+        self.steps += 1
+        self._skip_active = self._skip_active + stats["active_groups"]
+        self._skip_total = self._skip_total + stats["total_groups"]
+        return stats
+
+    def fit(self, x, y, epochs: int = 1, batch: int = 32,
+            log_every: int = 0, x_test=None, y_test=None,
+            rng: Optional[np.random.Generator] = None,
+            sync_guard: bool = False) -> list:
+        """Stage (x, y) on the device once, then ``epochs`` epochs of
+        ``batch``-row steps (``TMSession.fit_epochs``); returns the
+        per-epoch records.  ``sync_guard`` raises on a host-device
+        synchronisation inside an epoch's steps."""
+        session = self.engine.bind(self.program, x, y, spec=self.spec,
+                                   prng=self.prng)
+
+        def _score(xt, yt):
+            self.program, self.prng = session.state()
+            return self.score(xt, yt)
+
+        steps_before = session.steps
+        try:
+            history = session.fit_epochs(
+                epochs, batch=batch, rng=rng, log_every=log_every,
+                score_fn=(None if x_test is None else _score),
+                x_test=x_test, y_test=y_test,
+                extra_metrics=self._extra_metrics(), sync_guard=sync_guard)
+        finally:
+            self.program, self.prng = session.unbind()
+            self.steps += session.steps - steps_before
+            self.epoch_seconds = list(session.epoch_s)
+        for rec in history:
+            self._skip_active = self._skip_active + rec["active_groups"]
+            self._skip_total = self._skip_total + rec["total_groups"]
+        return history
+
+    @property
+    def skip_frac(self) -> Optional[float]:
+        """Lifetime Alg-6 clause-skip fraction: the share of 128-row
+        clause groups that got no feedback over all training so far
+        (``None`` before any)."""
+        tot = int(self._skip_total)
+        if tot == 0:
+            return None
+        return 1.0 - int(self._skip_active) / tot
 
     def _infer(self, x):
         lits = self.engine.encode(self.spec, x)
@@ -244,15 +318,17 @@ class TM:
 class ProgramBank:
     """K same-geometry programs stacked on a leading axis.
 
-    :meth:`infer`/:meth:`predict` run all K through one launch per kernel.
-    :meth:`swap_in` writes a slot in place on the device; :meth:`swap_out`
-    returns a copy, never a view, so a later ``swap_in`` cannot change a
-    program that was read out."""
+    :meth:`infer`/:meth:`predict`/:meth:`train` run all K through one
+    launch per kernel.  :meth:`swap_in` writes a slot in place on the
+    device; :meth:`swap_out` returns a copy, never a view, so a later
+    ``swap_in`` or ``train`` cannot change a program that was read out."""
 
-    def __init__(self, engine: DTMEngine, progs: DTMProgram, k: int):
+    def __init__(self, engine: DTMEngine, progs: DTMProgram, k: int,
+                 prngs: Optional[PRNG] = None):
         self.engine = engine
         self.progs = progs          # stacked leaves: [K, ...]
         self.k = k
+        self.prngs = prngs          # stacked PRNG (train-capable banks)
 
     def infer(self, lits):
         """lits [K, B, W] (or K arrays [B, W]) ->
@@ -262,6 +338,19 @@ class ProgramBank:
     def predict(self, lits):
         """-> (argmax preds [K, B] int32, clipped clause votes [K, B] int32)."""
         return self.engine.predict_bank(self.progs, lits)
+
+    def train(self, lits, labels) -> dict:
+        """One stacked train step: program k takes batch k (lits
+        [K, B, W], labels [K, B]).  The bank's programs and PRNGs advance;
+        returns the stats, [K] int32 per key."""
+        if self.prngs is None:
+            raise ValueError("bank built without PRNGs; pass prngs= to "
+                             "api.stack")
+        labels = torch.as_tensor(labels).to(device=self.engine.device,
+                                            dtype=torch.int32)
+        self.progs, self.prngs, stats = self.engine.train_bank(
+            self.progs, self.prngs, lits, labels)
+        return stats
 
     def swap_in(self, k: int, program: DTMProgram) -> None:
         """Overwrite slot ``k`` with ``program`` (in place, on the device)."""
@@ -280,9 +369,11 @@ class ProgramBank:
         return self.progs.nbytes
 
 
-def stack(programs: Sequence[DTMProgram], engine: DTMEngine) -> ProgramBank:
+def stack(programs: Sequence[DTMProgram], engine: DTMEngine,
+          prngs: Optional[Sequence[PRNG]] = None) -> ProgramBank:
     """Stack same-geometry programs (lowered on one engine with uniform
-    ta_bits) into a :class:`ProgramBank` on the engine's device."""
+    ta_bits) into a :class:`ProgramBank` on the engine's device.
+    ``prngs`` (one per program, one configuration) arm it for training."""
     programs = list(programs)
     if not programs:
         raise ValueError("stack() needs at least one program")
@@ -297,4 +388,11 @@ def stack(programs: Sequence[DTMProgram], engine: DTMEngine) -> ProgramBank:
     leaves = zip(*(p.leaves() for p in programs))
     progs = DTMProgram(*(torch.stack([t.to(engine.device) for t in ls])
                          for ls in leaves))
-    return ProgramBank(engine, progs, k=len(programs))
+    stacked = None
+    if prngs is not None:
+        prngs = list(prngs)
+        if len(prngs) != len(programs):
+            raise ValueError(f"{len(prngs)} PRNGs for {len(programs)} "
+                             "programs")
+        stacked = PRNG.stack([p.to(engine.device) for p in prngs])
+    return ProgramBank(engine, progs, k=len(programs), prngs=stacked)

@@ -38,7 +38,7 @@ def pack_literals(literals: torch.Tensor) -> torch.Tensor:
     *lead, n = literals.shape
     pad = (-n) % 32
     bits = torch.nn.functional.pad(literals.to(torch.int64), (0, pad))
-    bits = bits.reshape(*lead, -1, 32)
+    bits = bits.reshape(*lead, (n + pad) // 32, 32)
     weights = torch.tensor([1 << s for s in _SHIFTS], dtype=torch.int64,
                            device=literals.device)
     return words_from_u32((bits * weights).sum(dim=-1))

@@ -1,4 +1,4 @@
-"""Dynamic Tsetlin Machine engine, inference half, in PyTorch.
+"""Dynamic Tsetlin Machine engine in PyTorch: inference and training.
 
 One engine geometry (:class:`~repro_torch.core.types.TileConfig`) runs any
 TM model as *data*: a :class:`DTMProgram` holds the padded TA states,
@@ -10,40 +10,49 @@ The engine keeps the JAX engine's layouts: packed literals ``[B, W]``,
 include bitplane ``[R, W]``, weights ``[H, R]``, sums ``[B, H]`` and
 clauses ``[B, R]``.  A bank of K programs is a :class:`DTMProgram` whose
 leaves carry a leading K axis; the kernels take that axis directly, so
-``infer_bank``/``predict_bank`` launch each kernel once for K programs.
-Every stage runs on the engine's device: the CUDA kernels on the card, or
-their plain versions on the CPU.
+``infer_bank``/``predict_bank``/``train_bank`` launch each kernel once
+for K programs.  Every stage runs on the engine's device: the CUDA
+kernels on the card, or their plain versions on the CPU.
 
-Per stage the engine records the clause kernel it ran in
-``cache_report()["path_per_stage"]``: ``packed_vpu`` (edge kernel, batch
-<= 4) or ``mxu_popcount`` (tile kernel).
+A train step (the paper's Alg 3-6, batched-delta mode) draws its random
+numbers from a :class:`~repro_torch.core.prng.PRNG` in the JAX engine's
+order, runs the front half (clause eval, class sums, Alg-3 selection for
+the target and negated rounds) in one ``fused_step`` launch (or, at
+batch <= 4, the edge clause and class-sum kernels), then the TA update
+over both rounds with in-kernel random streams: the Alg-6 compacted
+update over the clause groups that got feedback (``skip=True``, the
+default) or the dense update (``skip=False``, and always for banks).  The
+update emits the new include bitplane, and the weight nudges are exact
+integer scatter-adds.  Steps return new programs; the inputs are left as
+they were.  No step reads the device from the host.
+
+Per stage the engine records the kernels it ran in
+``cache_report()["path_per_stage"]``: ``packed_vpu``, ``mxu_popcount`` or
+``fused`` for the clause stage, ``<stage>_ta`` = ``compact``/``dense`` and
+``<stage>_prng`` = ``counter-inkernel``/``lfsr-inkernel``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Callable, Optional, Sequence, Tuple, Union
+import time
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.ref import NEG_INF_SUM, pack_include
+from repro_torch.kernels.ref import M32, NEG_INF_SUM, pack_include
 from .booleanize import pack_literals, words_from_u32
+from .device import Device, resolve_device
+from .evaluate import epoch_record
+from .prng import PRNG
 from .types import COALESCED, TMConfig, TileConfig
 
-Device = Union[str, torch.device, None]
-
-
-def resolve_device(device: Device = None) -> torch.device:
-    """The device an entry point runs on: CUDA unless the caller asks for
-    another.  Raises when CUDA is asked for and no card is present; there
-    is no fallback to the CPU."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {dev} requested but CUDA is not available; pass "
-            "device='cpu' to run the plain versions on the CPU")
-    return dev
-
+# A train step returns exactly these int32 stats; fit_epochs sums the
+# per-step values on the host into the plain ints of the epoch records.
+STAT_KEYS = ("selected", "active_groups", "total_groups", "correct",
+             "abs_err")
 
 @dataclasses.dataclass
 class DTMProgram:
@@ -105,20 +114,25 @@ U32_FIELDS = ("p_ta", "inc")    # uint32 in the JAX program, int32 bits here
 
 
 class DTMEngine:
-    """Tiled TM executor for inference on one device.
+    """Tiled TM executor (inference and training) on one device.
 
     ``device`` defaults to CUDA (the kernels); ``device="cpu"`` runs the
     kernels' plain versions.  ``kernel_path`` forces one clause kernel
     (:data:`repro_torch.kernels.ops.PATHS`) instead of the batch-based
-    choice of :func:`repro_torch.kernels.ops.select_path`.
+    choice of :func:`repro_torch.kernels.ops.select_path`.  ``skip``
+    selects the Alg-6 compacted TA update (the JAX package's
+    ``REPRO_SKIP``, as an argument); off, every step runs the dense one.
+    Both give the same states.
     """
 
     def __init__(self, tile: TileConfig, rand_bits: int = 16,
-                 device: Device = None, kernel_path: Optional[str] = None):
+                 device: Device = None, kernel_path: Optional[str] = None,
+                 skip: bool = True):
         self.device = resolve_device(device)
         if kernel_path is not None:
             kops.select_path(1, force=kernel_path)      # validates the name
         self.kernel_path = kernel_path
+        self.skip = skip
         self.tile = tile
         self.rand_bits = rand_bits
         self.L, self.R, self.H = tile.padded_dims()
@@ -310,11 +324,323 @@ class DTMEngine:
         votes = torch.minimum(cl.sum(dim=-1), progs.T[:, None].to(torch.int64))
         return preds, votes.clamp(min=0).to(torch.int32)
 
+    # ------------------------------------------------------------------ #
+    # training (Alg 3-6 on the padded grid, batched-delta mode)           #
+    # ------------------------------------------------------------------ #
+    def _train_front(self, progs: DTMProgram, plits: torch.Tensor,
+                     cls_lab: torch.Tensor, neg: torch.Tensor,
+                     sel_rand: torch.Tensor, stage: str):
+        """Front half (clause eval → class sums → Alg-3 selection, both
+        rounds): ``fused`` in one launch, or the packed stages on the edge
+        (``packed_vpu``) or tile (``mxu_popcount``) clause kernel."""
+        path = kops.select_path(plits.shape[1], force=self.kernel_path,
+                                training=True)
+        self._stage_paths[stage] = path
+        op = (kops.fused_step_op if path == kops.PATH_FUSED
+              else kops.packed_step_op)
+        kw = {} if path == kops.PATH_FUSED else {
+            "mxu": path == kops.PATH_PACKED_MXU}
+        return op(plits, progs.inc, progs.weights, cls_lab, neg,
+                  sel_rand.to(torch.int32), progs.cl_mask, progs.h_mask,
+                  progs.T, progs.w_frozen.to(torch.int32),
+                  rand_bits=self.rand_bits, n_bits=self.L, **kw)
+
+    def _train_impl(self, progs: DTMProgram, prngs: PRNG,
+                    plits: torch.Tensor, labels: torch.Tensor, lanes: int,
+                    stage: str, donate: bool = False):
+        """One batched train step of K programs (bank form: every program
+        leaf and PRNG state leaf has a leading K axis; ``plits`` [K, B, W],
+        ``labels`` [K, B] int32).  Returns (programs, PRNGs, stats [K]).
+        ``donate``: the compacted TA update writes into ``progs.ta`` and
+        ``progs.inc`` in place."""
+        K, B = plits.shape[:2]
+        rb = self.rand_bits
+        n_cls = progs.h_mask.sum(dim=-1)                               # [K]
+        reg = progs.regression                                         # [K]
+
+        # the draws, in the JAX engine's order: one stream position per
+        # datapoint, both selection rounds, then the TA-update seed
+        prngs, c_rand = prngs.bits((B,))
+        prngs, sel_rand = prngs.bits((2, B, self.R))
+        prngs, seed_bits = prngs.bits((2,))
+        ta_seed = ((seed_bits[:, 0] << rb) | seed_bits[:, 1]) & M32
+
+        # regression programs carry a vote target in `labels`; the class
+        # machinery runs on a pinned in-range label
+        labels = labels.to(torch.int32)
+        cls_lab = torch.where(reg[:, None], torch.zeros_like(labels), labels)
+        rn = (c_rand % torch.clamp(n_cls - 1, min=1)[:, None]).to(torch.int32)
+        neg = torch.where(rn < cls_lab, rn, rn + 1)                    # [K, B]
+
+        cl, sums_m, sel_lab, sel_neg = self._train_front(
+            progs, plits, cls_lab, neg, sel_rand, stage)
+        hits = (torch.argmax(sums_m, dim=-1) == labels).sum(
+            dim=-1, dtype=torch.int32)
+        correct = torch.where(reg, torch.zeros_like(hits), hits)
+
+        # Regression TM: clipped vote count against the target; the error
+        # picks Type I (under) or Type II (over) through the same compare
+        T = progs.T[:, None]
+        votes = torch.minimum(cl.sum(dim=-1, dtype=torch.int32).clamp(min=0),
+                              T)
+        err = labels - votes                                           # [K, B]
+        sel_reg = ((sel_rand[:, 0].to(torch.int32) * (2 * T)[..., None])
+                   < (err.abs()[..., None] << rb))
+        sel_reg = sel_reg.to(torch.int32) * progs.cl_mask[:, None, :]
+        abs_err = err.abs().sum(dim=-1, dtype=torch.int32)
+
+        # Type I / II split per round by the sign of the class's weight
+        # row (regression: by the sign of the error)
+        def rows_of(cls):
+            idx = cls.long()[..., None].expand(K, B, self.R)
+            return torch.gather(progs.weights, 1, idx)
+        w_lab, w_neg = rows_of(cls_lab), rows_of(neg)
+        regb = reg[:, None, None]
+        zero = torch.zeros_like(sel_lab)
+        t1_lab = torch.where(regb, sel_reg * (err > 0)[..., None],
+                             sel_lab * (w_lab >= 0))
+        t2_lab = torch.where(regb, sel_reg * (err < 0)[..., None],
+                             sel_lab * (w_lab < 0))
+        t1_neg = torch.where(regb, zero, sel_neg * (w_neg < 0))
+        t2_neg = torch.where(regb, zero, sel_neg * (w_neg >= 0))
+        sel_lab = torch.where(regb, sel_reg, sel_lab)
+        sel_neg = torch.where(regb, zero, sel_neg)
+
+        # TA update over both rounds joined into one 2B batch (target
+        # rows, then negated rows), streams made in the kernel
+        lit2 = torch.cat([plits, plits], dim=1)
+        cl2 = torch.cat([cl, cl], dim=1)
+        t1 = torch.cat([t1_lab, t1_neg], dim=1)
+        t2 = torch.cat([t2_lab, t2_neg], dim=1)
+        ta_path = kops.select_ta_path(lanes, self.skip)
+        family = "lfsr" if prngs.backend == "lfsr" else "counter"
+        self._stage_paths[stage + "_ta"] = ta_path
+        self._stage_paths[stage + "_prng"] = f"{family}-inkernel"
+        kw = dict(seed=ta_seed, p_ta=progs.p_ta, boost=progs.boost,
+                  n_states=progs.n_states, rand_bits=rb, prng=family,
+                  lfsr_bits=prngs.lfsr_bits, seed_refresh=prngs.seed_refresh)
+        if ta_path == kops.TA_COMPACT:
+            new_ta, new_inc = kops.ta_update_compact_op(
+                progs.ta, lit2, cl2, t1, t2, progs.l_mask, progs.inc,
+                inplace=donate, **kw)
+        else:
+            new_ta, new_inc = kops.ta_update_op(
+                progs.ta, lit2, cl2, t1, t2, progs.l_mask, **kw)
+
+        new_w, stats = self._weights_and_stats(
+            progs, cl, sel_lab, sel_neg, cls_lab, neg, correct, abs_err)
+        new = dataclasses.replace(progs, ta=new_ta.to(progs.ta.dtype),
+                                  weights=new_w, inc=new_inc)
+        return new, prngs, stats
+
+    def _weights_and_stats(self, progs: DTMProgram, cl, sel_lab, sel_neg,
+                           lab, neg, correct, abs_err):
+        """Alg-4 weight nudges as exact int32 scatter-adds, and the Alg-6
+        group accounting on the engine's y-tile (128-row) groups."""
+        K, B, R = cl.shape
+        d_w = torch.zeros_like(progs.weights)
+        d_w.scatter_add_(1, lab.long()[..., None].expand(K, B, R),
+                         sel_lab * cl)
+        d_w.scatter_add_(1, neg.long()[..., None].expand(K, B, R),
+                         -(sel_neg * cl))
+        clip = progs.w_clip[:, None, None]
+        new_w = torch.where(progs.w_frozen[:, None, None], progs.weights,
+                            torch.clamp(progs.weights + d_w, -clip, clip))
+        d_sel = (sel_lab + sel_neg).sum(dim=1, dtype=torch.int32)     # [K, R]
+        y = self.tile.y
+        g = (d_sel > 0).to(torch.int32).reshape(K, -1, y).amax(dim=-1)
+        gmask = progs.cl_mask.reshape(K, -1, y).amax(dim=-1)
+        stats = {"selected": d_sel.sum(dim=-1, dtype=torch.int32),
+                 "active_groups": (g * gmask).sum(dim=-1, dtype=torch.int32),
+                 "total_groups": gmask.sum(dim=-1, dtype=torch.int32),
+                 "correct": correct, "abs_err": abs_err}
+        return new_w, stats
+
+    def train_step(self, prog: DTMProgram, prng: PRNG, lits: torch.Tensor,
+                   labels: torch.Tensor, donate: bool = False):
+        """One train step: packed lits [B, W] and labels [B] (class ids, or
+        regression vote targets) on the engine device -> (new program,
+        new PRNG, stats: int32 0-d tensors keyed by :data:`STAT_KEYS`).
+        ``prog`` is left as it was, unless ``donate``: then the caller
+        gives up its ``ta`` and ``inc``, which the compacted TA update
+        writes in place (the new program holds those tensors)."""
+        new, prngs, stats = self._train_impl(
+            prog.map(lambda t: t[None]), prng.map(lambda t: t[None]),
+            lits[None], labels[None], lanes=1, stage="train", donate=donate)
+        return (new.map(lambda t: t[0]), prngs[0],
+                {k: v[0] for k, v in stats.items()})
+
+    def train_bank(self, progs: DTMProgram, prngs: PRNG, lits: torch.Tensor,
+                   labels: torch.Tensor):
+        """Stacked train step: program k takes batch k (lits [K, B, W],
+        labels [K, B]) in one launch per kernel.  Returns (programs,
+        PRNGs, stats [K] per key)."""
+        if not isinstance(lits, torch.Tensor):
+            lits = torch.stack(list(lits))
+        return self._train_impl(progs, prngs, lits, labels,
+                                lanes=lits.shape[0], stage="train_bank")
+
+    def train_fn(self, spec) -> Callable:
+        if getattr(spec, "kind", None) == "conv":
+            raise NotImplementedError("conv training is not ported yet")
+        return self.train_step
+
     def infer_fn(self, spec) -> Callable:
         if getattr(spec, "kind", None) == "conv":
             raise NotImplementedError("the conv kind is not ported yet")
         return self.infer
 
+    def bind(self, program: DTMProgram, x=None, y=None, *, spec=None,
+             prng: Optional[PRNG] = None, seed: int = 0) -> "TMSession":
+        """Open a training session on this engine: the (program, PRNG)
+        pair, with ``x``/``y`` (optional) encoded once and kept on the
+        device for :meth:`TMSession.fit_epochs`.  Without a PRNG one is
+        made from ``seed + 1`` (the spec's backend, or a counter)."""
+        if prng is None:
+            if spec is not None:
+                prng = PRNG.create(spec.tm_config(), seed + 1,
+                                   device=self.device)
+            else:
+                prng = PRNG("counter", 24, self.rand_bits, False,
+                            torch.tensor(((seed + 1) & M32) or 0xC0FFEE,
+                                         dtype=torch.int64,
+                                         device=self.device))
+        session = TMSession(self, program, prng, spec=spec)
+        if x is not None:
+            session.stage(x, y)
+        return session
+
     def cache_report(self) -> dict:
-        """``path_per_stage``: the clause kernel each stage ran last."""
+        """``path_per_stage``: the kernels each stage ran last (the clause
+        datapath per stage; ``<stage>_ta`` and ``<stage>_prng`` for the TA
+        update of the train stages)."""
         return {"path_per_stage": dict(self._stage_paths)}
+
+
+@contextlib.contextmanager
+def _sync_guard(device: torch.device, on: bool):
+    """Raise on any host-device synchronisation inside the block (CUDA)."""
+    if not on or device.type != "cuda":
+        yield
+        return
+    before = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(before)
+
+
+class TMSession:
+    """A (program, PRNG) pair bound to an engine, with optionally staged
+    training data on the device.
+
+    * ``step(x, y)`` — one train step on a fresh batch (the estimator's
+      ``partial_fit`` path).
+    * ``fit_epochs(n)`` — the staged dataset is gathered on the device
+      per the epoch's shuffled index plan: one upload of the plan and one
+      fetch of the stacked per-step stats per epoch, nothing in between.
+      The same PRNG stream, shuffle draws and integer datapath as the
+      JAX session, so the programs and histories are the same.
+    """
+
+    def __init__(self, engine: DTMEngine, program: DTMProgram, prng: PRNG,
+                 spec=None):
+        self.engine = engine
+        self.spec = spec
+        self.program = program
+        self.prng = prng
+        self.steps = 0          # train batches consumed
+        self.epoch_s: list = []  # host seconds per fit_epochs epoch
+        self._lits: Optional[torch.Tensor] = None   # staged [N, W]
+        self._labels: Optional[torch.Tensor] = None  # staged [N]
+        self.n = 0
+
+    def _encode(self, x) -> torch.Tensor:
+        if self.spec is not None:
+            return self.engine.encode(self.spec, x)
+        return self.engine.pad_features(x)
+
+    def _encode_labels(self, y) -> torch.Tensor:
+        lab = (self.spec.encode_labels(y) if self.spec is not None
+               else torch.as_tensor(np.asarray(y)).to(torch.int32))
+        return lab.to(self.engine.device)
+
+    def stage(self, x, y) -> "TMSession":
+        """Encode the whole dataset once and keep it on the device."""
+        self._lits = self._encode(x)
+        self._labels = self._encode_labels(y)
+        self.n = int(self._lits.shape[0])
+        return self
+
+    def step(self, x, y) -> Dict[str, torch.Tensor]:
+        """One engine train step on a fresh (unstaged) batch."""
+        lits, lab = self._encode(x), self._encode_labels(y)
+        fn = self.engine.train_fn(self.spec)
+        self.program, self.prng, stats = fn(self.program, self.prng, lits,
+                                            lab)
+        self.steps += 1
+        return stats
+
+    def fit_epochs(self, epochs: int, batch: int = 32,
+                   rng: Optional[np.random.Generator] = None,
+                   log_every: int = 0, score_fn: Optional[Callable] = None,
+                   x_test=None, y_test=None,
+                   extra_metrics: Optional[Callable] = None,
+                   sync_guard: bool = False) -> list:
+        """Run ``epochs`` epochs over the staged data, ``batch`` rows a
+        step; one ``rng.permutation(n)`` per epoch, as the JAX session
+        draws it.  Returns the per-epoch records of
+        :func:`repro_torch.core.evaluate.epoch_record`.  ``sync_guard``
+        makes any host-device synchronisation between an epoch's plan
+        upload and its stats fetch raise (CUDA only).  ``epoch_s`` gets
+        each epoch's host seconds, from the upload to the fetch."""
+        if self._lits is None:
+            raise RuntimeError("bind data first: engine.bind(p, x, y)")
+        rng = rng or np.random.default_rng(0)
+        n = self.n - self.n % batch
+        steps = n // batch
+        if steps == 0:
+            raise ValueError(f"{self.n} staged rows make no batch of {batch}")
+        dev = self.engine.device
+        # the session's own TA states and include bitplane, which every
+        # step below updates in place: nothing a caller holds changes
+        self.program = dataclasses.replace(
+            self.program, ta=self.program.ta.clone(),
+            inc=self.program.inc.clone())
+        history = []
+        for ep in range(epochs):
+            idx = rng.permutation(self.n)[:n].reshape(steps, batch)
+            t0 = time.perf_counter()
+            plan = torch.from_numpy(idx.astype(np.int64)).to(dev)
+            rows = []
+            with _sync_guard(dev, sync_guard):
+                for s in range(steps):
+                    ib = plan[s]
+                    self.program, self.prng, stats = self.engine.train_step(
+                        self.program, self.prng,
+                        self._lits.index_select(0, ib),
+                        self._labels.index_select(0, ib), donate=True)
+                    rows.append(torch.stack([stats[k] for k in STAT_KEYS]))
+            self.steps += steps
+            # exact integer epoch totals from the per-step stats
+            per_step = torch.stack(rows).cpu().numpy()
+            self.epoch_s.append(time.perf_counter() - t0)
+            agg = {k: int(per_step[:, i].sum(dtype=np.int64))
+                   for i, k in enumerate(STAT_KEYS)}
+            rec = epoch_record(ep, agg, n, extra_metrics)
+            if score_fn is not None and x_test is not None:
+                rec["test_acc"] = score_fn(x_test, y_test)
+            history.append(rec)
+            if log_every and ep % log_every == 0:
+                print(rec)
+        return history
+
+    def state(self) -> Tuple[DTMProgram, PRNG]:
+        """Current (program, PRNG)."""
+        return self.program, self.prng
+
+    def unbind(self) -> Tuple[DTMProgram, PRNG]:
+        """Close the session: release staged data, return final state."""
+        self._lits = self._labels = None
+        return self.program, self.prng

@@ -1,4 +1,4 @@
-// Shared declarations for the DTM inference kernels.
+// Shared declarations for the DTM kernels.
 //
 // Each .cu file under csrc/ is built by nvcc into its own shared library
 // with a plain C interface (no PyTorch headers) and loaded with ctypes.

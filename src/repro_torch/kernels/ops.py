@@ -6,10 +6,15 @@ K; the kernels take K directly, so a bank is one launch per kernel.  On
 CPU tensors each op runs its kernel's plain version; on CUDA tensors it
 launches the kernel, or raises.
 
-:func:`select_path` picks the clause kernel from the per-program batch:
-the GEMV-shaped edge kernel (:data:`PATH_PACKED`) when B <= 4, else the
-tile kernel (:data:`PATH_PACKED_MXU`).  The path names are the JAX
-package's, so ``cache_report()["path_per_stage"]`` reads the same in both.
+:func:`select_path` picks the clause datapath from the per-program batch:
+the GEMV-shaped edge kernel (:data:`PATH_PACKED`) when B <= 4; above it,
+the tile kernel (:data:`PATH_PACKED_MXU`) for inference and the fused
+training-step kernel (:data:`PATH_FUSED`) for training.
+:func:`select_ta_path` picks the TA-update datapath: the Alg-6 compacted
+update (:data:`TA_COMPACT`, the sparse kernel over the active clause
+groups) or the dense one (:data:`TA_DENSE`: skip off, or program banks).
+The names are the JAX package's, so ``cache_report()["path_per_stage"]``
+reads the same in both.
 """
 from __future__ import annotations
 
@@ -17,12 +22,19 @@ from typing import Dict, Optional
 
 import torch
 
+from . import ref
 from .class_sum import class_sum
+from .fused_step import fused_step
 from .packed_clause import packed_clause_eval, packed_clause_tile
+from .ta_update import GROUP, ta_update, ta_update_sparse
 
 PATH_PACKED = "packed_vpu"        # edge kernel: packed_clause_eval
 PATH_PACKED_MXU = "mxu_popcount"  # tile kernel: packed_clause_tile
-PATHS = (PATH_PACKED, PATH_PACKED_MXU)
+PATH_FUSED = "fused"              # training front half: fused_step
+PATHS = (PATH_PACKED, PATH_PACKED_MXU)   # the paths a caller may force
+
+TA_DENSE = "dense"
+TA_COMPACT = "compact"
 
 # At and below this per-program batch the include bitplane is used by so
 # few literal rows that the GEMV shape wins (the JAX package's threshold).
@@ -30,18 +42,32 @@ PACKED_MAX_BATCH = 4
 
 _WRAPPERS = {"packed_clause_eval": packed_clause_eval,
              "packed_clause_tile": packed_clause_tile,
-             "class_sum": class_sum}
+             "class_sum": class_sum,
+             "fused_step": fused_step,
+             "ta_update": ta_update,
+             "ta_update_sparse": ta_update_sparse}
 
 
-def select_path(batch: int, force: Optional[str] = None) -> str:
-    """Clause kernel for a per-program batch; ``force`` (one of
-    :data:`PATHS`) overrides the choice."""
+def select_path(batch: int, force: Optional[str] = None,
+                training: bool = False) -> str:
+    """Clause datapath for a per-program batch; ``force`` (one of
+    :data:`PATHS`) overrides the choice.  A forced path makes the training
+    front half run the packed stages on that clause kernel."""
     if force is not None:
         if force not in PATHS:
             raise ValueError(f"kernel path {force!r} not recognised; use "
                              f"one of {PATHS}")
         return force
-    return PATH_PACKED if batch <= PACKED_MAX_BATCH else PATH_PACKED_MXU
+    if batch <= PACKED_MAX_BATCH:
+        return PATH_PACKED
+    return PATH_FUSED if training else PATH_PACKED_MXU
+
+
+def select_ta_path(lanes: int = 1, skip: bool = True) -> str:
+    """TA-update datapath: compacted unless ``skip`` is off or the launch
+    carries a bank of ``lanes`` > 1 programs (as in the JAX package,
+    whose vmapped banks always take the dense update)."""
+    return TA_COMPACT if skip and lanes == 1 else TA_DENSE
 
 
 def _banked(fn, *args, **kw) -> torch.Tensor:
@@ -76,6 +102,111 @@ def class_sum_op(clauses: torch.Tensor, weights: torch.Tensor
                  ) -> torch.Tensor:
     """Clauses [(K,) B, R] × weights [(K,) H, R] -> sums [(K,) B, H] int32."""
     return _banked(class_sum, clauses, weights)
+
+
+def _front(fn, lits, *args, **kw):
+    """Call a bank-form front-half function on one program (2-D ``lits``,
+    operands without K) or a bank; outputs follow the input's form."""
+    if lits.dim() == 3:
+        return fn(lits, *args, **kw)
+    out = fn(lits[None], *(torch.as_tensor(a)[None] for a in args), **kw)
+    return tuple(o[0] for o in out)
+
+
+def round_select_op(sums, cls, y_c: int, rand, weights, cl_mask, T,
+                    w_frozen, rand_bits: int = 16) -> torch.Tensor:
+    """Alg-3 integer-exact clause selection for one feedback round (the
+    shared torch formulation on every device; leading K axis optional)."""
+    return ref._round_select(sums, cls, y_c, rand, weights, cl_mask, T,
+                             w_frozen, rand_bits)
+
+
+def fused_step_op(packed_literals, packed_include, weights, labels,
+                  neg_labels, rand, cl_mask, h_mask, T, w_frozen,
+                  rand_bits: int = 16, n_bits: Optional[int] = None):
+    """Training-step front half in ONE launch: packed literals
+    [(K,) B, W], include [(K,) R, W], weights [(K,) H, R], labels and
+    negated labels [(K,) B], random words [(K,) 2, B, R], masks, T and
+    w_frozen -> (clause, sums, sel_lab, sel_neg), all int32."""
+    return _front(fused_step, packed_literals, packed_include, weights,
+                  labels, neg_labels, rand, cl_mask, h_mask, T, w_frozen,
+                  rand_bits=rand_bits, n_bits=n_bits)
+
+
+def _packed_step(lits, inc, weights, labels, neg, rand, cl_mask, h_mask, T,
+                 w_frozen, rand_bits=16, n_bits=None, mxu=False):
+    clause_fn = packed_clause_tile if mxu else packed_clause_eval
+    cl = clause_fn(lits, inc, eval_mode=False, n_bits=n_bits)
+    cl = cl * cl_mask[:, None, :]
+    sums = class_sum(cl, weights)
+    sums = torch.where(h_mask[:, None, :] > 0, sums,
+                       torch.full_like(sums, ref.NEG_INF_SUM))
+    sel_lab = round_select_op(sums, labels, 1, rand[:, 0], weights, cl_mask,
+                              T, w_frozen, rand_bits)
+    sel_neg = round_select_op(sums, neg, 0, rand[:, 1], weights, cl_mask, T,
+                              w_frozen, rand_bits)
+    return cl, sums, sel_lab, sel_neg
+
+
+def packed_step_op(packed_literals, packed_include, weights, labels,
+                   neg_labels, rand, cl_mask, h_mask, T, w_frozen,
+                   rand_bits: int = 16, n_bits: Optional[int] = None,
+                   mxu: bool = False):
+    """The front half of :func:`fused_step_op` as separate stages: the
+    edge clause kernel (or, ``mxu``, the tile kernel), the class-sum
+    kernel, pinning and the shared Alg-3 selection.  Same outputs."""
+    return _front(_packed_step, packed_literals, packed_include, weights,
+                  labels, neg_labels, rand, cl_mask, h_mask, T, w_frozen,
+                  rand_bits=rand_bits, n_bits=n_bits, mxu=mxu)
+
+
+def ta_update_op(ta, lits, cl, t1, t2, l_mask, seed, p_ta, boost, n_states,
+                 row0=0, rand_bits: int = 16, prng: str = "counter",
+                 lfsr_bits: int = 24, seed_refresh: bool = True):
+    """Dense batched TA update of K programs (``ta`` [K, C, L], packed
+    ``lits`` [K, 2B, W], ``cl``/``t1``/``t2`` [K, 2B, C]) with in-kernel
+    streams.  Returns ``(new_ta, new_inc)``, the include bitplane emitted
+    by the same launch; new tensors, the inputs stay as they were."""
+    return ta_update(ta, lits, cl, t1, t2, l_mask, seed, p_ta, boost,
+                     n_states, row0, rand_bits=rand_bits, prng=prng,
+                     lfsr_bits=lfsr_bits, seed_refresh=seed_refresh)
+
+
+def active_groups(t1: torch.Tensor, t2: torch.Tensor, group: int = GROUP):
+    """The Alg-6 compaction on the device: clause groups of ``group`` rows
+    that get Type I or II feedback from any batch row.  t1/t2 [K, 2B, C]
+    -> (tile_idx int32 [K, G], the active groups first, in order; count
+    int32 [K]).  No host read: cumsum and scatter."""
+    K, _, C = t1.shape
+    G = -(-C // group)
+    rows = torch.zeros((K, G * group), dtype=torch.bool, device=t1.device)
+    rows[:, :C] = ((t1 > 0) | (t2 > 0)).any(dim=1)
+    grp = rows.reshape(K, G, group).any(dim=-1)
+    count = grp.sum(dim=-1, dtype=torch.int32)
+    pos = torch.cumsum(grp.to(torch.int64), dim=-1) - 1
+    dest = torch.where(grp, pos, torch.full_like(pos, G))   # G: a spare slot
+    src = torch.arange(G, dtype=torch.int32, device=t1.device).expand(K, G)
+    idx = torch.zeros((K, G + 1), dtype=torch.int32, device=t1.device)
+    return idx.scatter_(1, dest, src)[:, :G], count
+
+
+def ta_update_compact_op(ta, lits, cl, t1, t2, l_mask, inc, seed, p_ta,
+                         boost, n_states, row0=0, rand_bits: int = 16,
+                         prng: str = "counter", lfsr_bits: int = 24,
+                         seed_refresh: bool = True, inplace: bool = False):
+    """Clause-skip TA update (Alg 6): the same states and include bitplane
+    as :func:`ta_update_op`, but only the 128-row clause groups that get
+    feedback are touched (``inc`` must be the include bitplane of ``ta``).
+    The group list is built on the device; the launch covers every slot
+    and slots past the count exit.  Returns ``(new_ta, new_inc)``: with
+    ``inplace``, ``ta`` and ``inc`` themselves, updated in place, so the
+    skipped groups cost nothing; otherwise new tensors."""
+    idx, count = active_groups(t1, t2)
+    return ta_update_sparse(ta, lits, cl, t1, t2, l_mask, inc, idx, count,
+                            seed, p_ta, boost, n_states, row0,
+                            rand_bits=rand_bits, prng=prng,
+                            lfsr_bits=lfsr_bits, seed_refresh=seed_refresh,
+                            inplace=inplace)
 
 
 def launch_counts() -> Dict[str, int]:

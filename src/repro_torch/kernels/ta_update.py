@@ -1,0 +1,288 @@
+"""Batched TA update (Alg 5): the Hopper kernels and their plain versions.
+
+Both entry points update a bank of K programs' TA states with their
+in-kernel random streams and emit the packed include bitplane of the
+updated states in the same launch:
+
+    ta      [K, C, L]   uint8 (int32 when ta_bits > 8)
+    lits    [K, 2B, W]  packed literal words (int32 bits; W = ceil(L/32)),
+                        the target round's B rows, then the negated round's
+    cl, t1, t2 [K, 2B, C]  clause outputs and Type I / Type II feedback
+    l_mask  [K, L]      1 = real literal column
+    seed, p_ta [K]      uint32 values (int64, or their int32 bits)
+    boost, n_states [K] per-program flags and TA state counts
+    row0                global row offset of row 0 (int or [K])
+
+-> ``(new_ta [K, C, L]`` in ``ta``'s dtype, ``new_inc [K, C, W]`` int32).
+
+* :func:`ta_update` — ``csrc/ta_update.cu:dtm_ta_update``, every row, into
+  new tensors.  It replaces ``repro/kernels/ta_update.py:ta_update``.
+* :func:`ta_update_sparse` — ``csrc/ta_update.cu:dtm_ta_update_sparse``,
+  only the 128-row clause groups ``tile_idx[k, :count[k]]`` (the others
+  keep ``ta`` and ``inc``); duplicates are harmless.  It replaces
+  ``repro/kernels/ta_update.py:ta_update_sparse``.  ``count`` stays on
+  the device: slots at or past it exit in the kernel.  The kernel updates
+  its state buffers in place: with ``inplace=True`` those are ``ta`` and
+  ``inc`` themselves, so the groups left alone cost nothing; otherwise
+  they are copies and the inputs stay as they were.
+
+The stream family is ``prng`` (``counter`` or ``lfsr`` with
+``lfsr_bits``/``seed_refresh``); the keys are the JAX package's, so the
+states equal its ``ta_update_ref`` bit for bit.  CPU tensors run the
+plain versions, CUDA tensors launch the kernels, anything else raises.
+``<wrapper>.launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core.booleanize import unpack_literals, words_from_u32
+from . import _build, ref
+
+GROUP = 128                 # rows per compaction group (csrc kGroup)
+_SMEM_LIMIT = 48 * 1024
+_COMMON = [ctypes.c_void_p] * 7
+_DENSE_ARGTYPES = (_COMMON + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 10
+                   + [ctypes.c_uint, ctypes.c_void_p])
+_SPARSE_ARGTYPES = (_COMMON + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11
+                    + [ctypes.c_uint, ctypes.c_void_p])
+
+
+def _params(K: int, seed, p_ta, boost, n_states, row0, device
+            ) -> torch.Tensor:
+    """Per-program scalars as the kernel reads them: int32 [K, 5] =
+    (seed, p_ta, boost, n_states, row0), uint32 values as int32 bits."""
+    def col(v):
+        if isinstance(v, torch.Tensor):
+            t = v.to(device)
+            t = t.expand(K) if t.dim() == 0 else t
+        else:   # filled on the device: no host-to-device copy
+            t = torch.full((K,), int(v), dtype=torch.int64, device=device)
+        return words_from_u32(t.to(torch.int64) & ref.M32)
+    return torch.stack([col(seed), col(p_ta), col(boost), col(n_states),
+                        col(row0)], dim=-1)
+
+
+def _check(ta, lits, cl, t1, t2, l_mask):
+    """Validate the operands; returns (K, C, L, W, B2)."""
+    if ta.dim() != 3 or lits.dim() != 3:
+        raise ValueError(f"expected ta [K, C, L] and lits [K, 2B, W], got "
+                         f"{tuple(ta.shape)} and {tuple(lits.shape)}")
+    K, C, L = ta.shape
+    B2, W = lits.shape[1], lits.shape[2]
+    if lits.shape[0] != K or W != (L + 31) // 32:
+        raise ValueError(f"lits {tuple(lits.shape)} do not fit ta "
+                         f"{tuple(ta.shape)} (W must be ceil(L/32))")
+    for name, t in (("cl", cl), ("t1", t1), ("t2", t2)):
+        if tuple(t.shape) != (K, B2, C):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"{(K, B2, C)}")
+    if tuple(l_mask.shape) != (K, L):
+        raise ValueError(f"l_mask has shape {tuple(l_mask.shape)}, expected "
+                         f"{(K, L)}")
+    if ta.dtype not in (torch.uint8, torch.int32):
+        raise TypeError(f"TA states must be uint8 or int32, got {ta.dtype}")
+    return K, C, L, W, B2
+
+
+def _check_stream(prng: str, lfsr_bits: int, rand_bits: int) -> None:
+    if prng not in ("counter", "lfsr"):
+        raise ValueError(f"unknown TA prng mode {prng!r}")
+    if prng == "lfsr" and lfsr_bits not in ref.LFSR_TAPS:
+        raise ValueError(f"no tap table for LFSR width {lfsr_bits}")
+    if not 0 < rand_bits <= 32:
+        raise ValueError(f"rand_bits={rand_bits} outside [1, 32]")
+
+
+def _plain_rows(ta, lits, cl, t1, t2, l_mask, params, rows, rand_bits, prng,
+                lfsr_bits, seed_refresh):
+    """The reference update of clause rows ``rows`` of program k, for each
+    k: ((new ta rows int32, their include words), ...)."""
+    out = []
+    L = ta.shape[-1]
+    for k in range(ta.shape[0]):
+        r = rows[k]
+        p = params[k].to(torch.int64) & ref.M32
+        new = ref.ta_update_ref(
+            ta[k, r], unpack_literals(lits[k], L), cl[k][:, r], t1[k][:, r],
+            t2[k][:, r], l_mask[k], p[0], p[1], rand_bits, p[2] != 0,
+            p[3], row_idx=r + p[4], prng=prng, lfsr_bits=lfsr_bits,
+            seed_refresh=seed_refresh)
+        out.append((new, ref.pack_include(new, p[3])))
+    return out
+
+
+def ta_update_plain(ta, lits, cl, t1, t2, l_mask, seed, p_ta, boost,
+                    n_states, row0=0, rand_bits: int = 16,
+                    prng: str = "counter", lfsr_bits: int = 24,
+                    seed_refresh: bool = True):
+    """Plain version of :func:`ta_update` (``ref.ta_update_ref``)."""
+    K, C = ta.shape[:2]
+    params = _params(K, seed, p_ta, boost, n_states, row0, ta.device)
+    rows = [torch.arange(C, device=ta.device)] * K
+    done = _plain_rows(ta, lits, cl, t1, t2, l_mask, params, rows, rand_bits,
+                       prng, lfsr_bits, seed_refresh)
+    return (torch.stack([d[0] for d in done]).to(ta.dtype),
+            torch.stack([d[1] for d in done]))
+
+
+def ta_update_sparse_plain(ta, lits, cl, t1, t2, l_mask, inc, tile_idx,
+                           count, seed, p_ta, boost, n_states, row0=0,
+                           rand_bits: int = 16, prng: str = "counter",
+                           lfsr_bits: int = 24, seed_refresh: bool = True,
+                           inplace: bool = False):
+    """Plain version of :func:`ta_update_sparse`.  It reads ``count``
+    on the host."""
+    _check_inplace(ta, inc, inplace)
+    K, C = ta.shape[:2]
+    params = _params(K, seed, p_ta, boost, n_states, row0, ta.device)
+    rows = []
+    for k in range(K):
+        g = tile_idx[k, :int(count[k])].to(torch.int64)
+        r = (g[:, None] * GROUP + torch.arange(GROUP, device=ta.device))
+        rows.append(r.reshape(-1)[r.reshape(-1) < C])
+    new_ta, new_inc = (ta, inc) if inplace else (ta.clone(), inc.clone())
+    done = _plain_rows(ta, lits, cl, t1, t2, l_mask, params, rows, rand_bits,
+                       prng, lfsr_bits, seed_refresh)
+    for k, (t, i) in enumerate(done):
+        new_ta[k, rows[k]] = t.to(ta.dtype)
+        new_inc[k, rows[k]] = i
+    return new_ta, new_inc
+
+
+def _check_inplace(ta, inc, inplace: bool) -> None:
+    if inplace and not (ta.is_contiguous() and inc.is_contiguous()
+                        and inc.dtype == torch.int32):
+        raise ValueError("an in-place TA update needs a contiguous ta and "
+                         "a contiguous int32 inc")
+
+
+def _route(*ts) -> str:
+    kinds = {t.device.type for t in ts}
+    if kinds == {"cpu"}:
+        return "cpu"
+    if kinds == {"cuda"} and len({t.device for t in ts}) == 1:
+        return "cuda"
+    raise ValueError(f"no kernel for operands on "
+                     f"{sorted(str(t.device) for t in ts)}")
+
+
+def _stream_args(prng, lfsr_bits, seed_refresh, rand_bits):
+    lfsr = prng == "lfsr"
+    return [int(lfsr), int(lfsr_bits), int(bool(seed_refresh)),
+            int(rand_bits), ref.LFSR_TAPS[lfsr_bits] if lfsr else 0]
+
+
+def _prepare(ta, lits, cl, t1, t2, l_mask):
+    """Contiguous device operands in the kernel's dtypes."""
+    if lits.dtype != torch.int32:
+        raise TypeError(f"packed literals must be int32, got {lits.dtype}")
+    B2 = lits.shape[1]
+    lib = _build.load("ta_update")
+    lib.dtm_ta_update_smem.argtypes = [ctypes.c_int]
+    lib.dtm_ta_update_smem.restype = ctypes.c_size_t
+    if lib.dtm_ta_update_smem(B2) > _SMEM_LIMIT:
+        raise ValueError(f"2B={B2} batch rows overflow the kernel's shared "
+                         "memory")
+    if ta.shape[0] > 65535:
+        raise ValueError(f"K={ta.shape[0]} programs exceed the grid's z "
+                         "limit")
+    return lib, [ta.contiguous(), lits.contiguous(),
+                 cl.to(torch.int8).contiguous(),
+                 t1.to(torch.int8).contiguous(),
+                 t2.to(torch.int8).contiguous(),
+                 l_mask.to(torch.int32).contiguous()]
+
+
+def ta_update(ta, lits, cl, t1, t2, l_mask, seed, p_ta, boost, n_states,
+              row0=0, rand_bits: int = 16, prng: str = "counter",
+              lfsr_bits: int = 24, seed_refresh: bool = True):
+    """Dense TA update of K programs (module docstring)."""
+    K, C, L, W, B2 = _check(ta, lits, cl, t1, t2, l_mask)
+    _check_stream(prng, lfsr_bits, rand_bits)
+    kw = dict(rand_bits=rand_bits, prng=prng, lfsr_bits=lfsr_bits,
+              seed_refresh=seed_refresh)
+    if _route(ta, lits, cl, t1, t2, l_mask) == "cpu":
+        return ta_update_plain(ta, lits, cl, t1, t2, l_mask, seed, p_ta,
+                               boost, n_states, row0, **kw)
+    dev = ta.device
+    lib, ops_ = _prepare(ta, lits, cl, t1, t2, l_mask)
+    params = _params(K, seed, p_ta, boost, n_states, row0, dev)
+    out = torch.empty_like(ops_[0])
+    inc = torch.empty((K, C, W), dtype=torch.int32, device=dev)
+    if out.numel() == 0:
+        return out, inc
+    fn = lib.dtm_ta_update
+    fn.argtypes = _DENSE_ARGTYPES
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = fn(*(t.data_ptr() for t in ops_), params.data_ptr(),
+                    out.data_ptr(), inc.data_ptr(), K, C, L, W, B2,
+                    ta.element_size(),
+                    *_stream_args(prng, lfsr_bits, seed_refresh, rand_bits),
+                    stream)
+    _build.check(lib, status, "dtm_ta_update")
+    ta_update.launches += 1
+    return out, inc
+
+
+def ta_update_sparse(ta, lits, cl, t1, t2, l_mask, inc, tile_idx, count,
+                     seed, p_ta, boost, n_states, row0=0,
+                     rand_bits: int = 16, prng: str = "counter",
+                     lfsr_bits: int = 24, seed_refresh: bool = True,
+                     inplace: bool = False):
+    """Compacted TA update: only the groups ``tile_idx[k, :count[k]]``
+    (int32 [K, S] and [K]); ``inc`` [K, C, W] is the include bitplane of
+    ``ta`` and supplies the rows left alone.  ``inplace`` writes the
+    updated groups into ``ta`` and ``inc`` (contiguous, ``inc`` int32) and
+    returns them (module docstring)."""
+    K, C, L, W, B2 = _check(ta, lits, cl, t1, t2, l_mask)
+    _check_stream(prng, lfsr_bits, rand_bits)
+    if tile_idx.dim() != 2 or tile_idx.shape[0] != K or \
+            tuple(count.shape) != (K,) or tuple(inc.shape) != (K, C, W):
+        raise ValueError(f"tile_idx {tuple(tile_idx.shape)}, count "
+                         f"{tuple(count.shape)} and inc {tuple(inc.shape)} "
+                         f"do not fit K={K}, C={C}, W={W}")
+    _check_inplace(ta, inc, inplace)
+    kw = dict(rand_bits=rand_bits, prng=prng, lfsr_bits=lfsr_bits,
+              seed_refresh=seed_refresh, inplace=inplace)
+    if _route(ta, lits, cl, t1, t2, l_mask, inc, tile_idx, count) == "cpu":
+        return ta_update_sparse_plain(ta, lits, cl, t1, t2, l_mask, inc,
+                                      tile_idx, count, seed, p_ta, boost,
+                                      n_states, row0, **kw)
+    dev = ta.device
+    S = tile_idx.shape[1]
+    if inplace:
+        out, new_inc = ta, inc
+    else:
+        out = ta.clone(memory_format=torch.contiguous_format)
+        new_inc = inc.to(torch.int32, memory_format=torch.contiguous_format,
+                         copy=True)
+    lib, ops_ = _prepare(out, lits, cl, t1, t2, l_mask)
+    params = _params(K, seed, p_ta, boost, n_states, row0, dev)
+    if out.numel() == 0 or S == 0:
+        return out, new_inc
+    if S * (GROUP // 8) > 65535:
+        raise ValueError(f"{S} group slots exceed the grid's y limit")
+    idx = tile_idx.to(torch.int32).contiguous()
+    cnt = count.to(torch.int32).contiguous()
+    fn = lib.dtm_ta_update_sparse
+    fn.argtypes = _SPARSE_ARGTYPES
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = fn(*(t.data_ptr() for t in ops_), params.data_ptr(),
+                    idx.data_ptr(), cnt.data_ptr(), new_inc.data_ptr(),
+                    K, C, L, W, B2, S, ta.element_size(),
+                    *_stream_args(prng, lfsr_bits, seed_refresh, rand_bits),
+                    stream)
+    _build.check(lib, status, "dtm_ta_update_sparse")
+    ta_update_sparse.launches += 1
+    return out, new_inc
+
+
+ta_update.launches = 0
+ta_update_sparse.launches = 0

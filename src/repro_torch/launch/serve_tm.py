@@ -13,8 +13,15 @@ Two request paths:
   is the two in one.
 
 Requests are padded to a fixed ``batch_slot`` by repeating their last row,
-and the padding is dropped from the answers.  Single device; the conv
-kind, training, bank membership and the scheduler come in later slices.
+and the padding is dropped from the answers.
+
+:meth:`TMServer.train` swaps to one tenant and applies one on-line
+training step to its program (on-chip training on the same datapath);
+the tenant's bank slot is then stale, and the next stacked flush writes
+the fresh program back into it.  Each tenant keeps its own PRNG and step
+count, and a lifetime clause-skip fraction (``skip_frac`` in
+:meth:`TMServer.stats`).  Single device; the conv kind, bank membership
+and the scheduler come in later slices.
 """
 from __future__ import annotations
 
@@ -28,12 +35,16 @@ import torch
 from repro_torch import api
 from repro_torch.api import ProgramBank, TMSpec
 from repro_torch.core.dtm import DTMEngine, DTMProgram
+from repro_torch.core.prng import PRNG
 
 
 @dataclasses.dataclass
 class _Tenant:
     spec: TMSpec
     program: DTMProgram
+    prng: Optional[PRNG] = None   # made from seed + 1 at the first train
+    seed: int = 0
+    steps: int = 0                # lifetime applied training steps
 
 
 @dataclasses.dataclass
@@ -65,19 +76,28 @@ class TMServer:
         self._pending: List[Tuple[str, torch.Tensor, int, float]] = []
         self._bank: Optional[Tuple[List[str], ProgramBank]] = None
         self._last_flush: Dict[str, float] = {}
+        self._dirty: set = set()    # trained tenants whose bank slot is stale
+        self._skip_acc: Dict[str, List[int]] = {}   # [active, total] groups
 
     # ---- tenant management ------------------------------------------------
     def register(self, name: str, spec: TMSpec,
-                 program: Optional[DTMProgram] = None, seed: int = 0):
+                 program: Optional[DTMProgram] = None, seed: int = 0,
+                 prng: Optional[PRNG] = None, steps: int = 0):
         """Admit a model: lower its spec (drawing the program from
-        ``seed``) or adopt an already-lowered ``program``."""
+        ``seed``) or adopt an already-lowered ``program``.  ``prng`` and
+        ``steps`` resume a tenant mid-stream; by default its PRNG is made
+        from ``seed + 1`` when it first trains."""
         if spec.kind == "conv":
             raise NotImplementedError("the conv kind is not ported yet")
         if program is None:
             program = self.engine.lower(
                 spec, torch.Generator().manual_seed(seed))
-        self.tenants[name] = _Tenant(spec, program.to(self.engine.device))
+        if prng is not None:
+            prng = prng.to(self.engine.device)
+        self.tenants[name] = _Tenant(spec, program.to(self.engine.device),
+                                     prng, seed, steps)
         self._bank = None           # roster changed: restack on next flush
+        self._skip_acc.pop(name, None)
 
     def _swap_to(self, name: str) -> _Tenant:
         tenant = self.tenants[name]
@@ -122,12 +142,59 @@ class TMServer:
             return self._decode(name, None, votes)[:n]
         return torch.argmax(sums, dim=-1).cpu().numpy()[:n]
 
+    def train(self, name: str, x, y, encoded: bool = False) -> dict:
+        """Swap to tenant ``name`` and apply one training step to its
+        program.  A training request fills the batch slot (padding would
+        repeat the last example's feedback).  ``encoded=True`` takes
+        packed engine literals and encoded labels.  Returns the step's
+        stats as host ints (one fetch)."""
+        tenant = self._swap_to(name)
+        self.requests += 1
+        if len(x) != self.batch_slot:
+            raise ValueError(f"training request has {len(x)} examples; "
+                             f"batch_slot is {self.batch_slot}")
+        if encoded:
+            lits = torch.as_tensor(x, device=self.engine.device)
+            lab = torch.as_tensor(y, device=self.engine.device)
+        else:
+            lits = self.engine.encode(tenant.spec, np.asarray(x))
+            lab = tenant.spec.encode_labels(np.asarray(y)).to(
+                self.engine.device)
+        if tenant.prng is None:
+            tenant.prng = PRNG.create(tenant.spec.tm_config(),
+                                      tenant.seed + 1,
+                                      device=self.engine.device)
+        step = self.engine.train_fn(tenant.spec)
+        tenant.program, tenant.prng, stats = step(tenant.program,
+                                                  tenant.prng, lits, lab)
+        self._dirty.add(name)       # its bank slot is stale until a flush
+        tenant.steps += 1
+        host = dict(zip(stats, torch.stack(list(stats.values())).tolist()))
+        acc = self._skip_acc.setdefault(name, [0, 0])
+        acc[0] += host["active_groups"]
+        acc[1] += host["total_groups"]
+        return host
+
+    def skip_frac(self, name: str) -> Optional[float]:
+        """Lifetime clause-skip fraction of a tenant's on-line training
+        (``None`` before it trained)."""
+        acc = self._skip_acc.get(name)
+        if acc is None or acc[1] == 0:
+            return None
+        return 1.0 - acc[0] / acc[1]
+
     def _bank_for(self) -> Tuple[List[str], ProgramBank]:
-        """The resident bank over every tenant, built once per roster."""
+        """The resident bank over every tenant, built once per roster;
+        slots of tenants trained since are rewritten first."""
         if self._bank is None:
             names = sorted(self.tenants)
             self._bank = (names, api.stack(
                 [self.tenants[n].program for n in names], self.engine))
+            self._dirty.clear()
+        names, bank = self._bank
+        for n in sorted(self._dirty):
+            bank.swap_in(names.index(n), self.tenants[n].program)
+        self._dirty.clear()
         return self._bank
 
     def enqueue(self, name: str, x, encoded: bool = False) -> None:
@@ -197,6 +264,7 @@ class TMServer:
         program = program.to(self.engine.device)
         self.tenants[name].program = program
         bank.swap_in(k, program)
+        self._dirty.discard(name)
         return k
 
     def swap_out(self, name: str) -> DTMProgram:
@@ -219,4 +287,6 @@ class TMServer:
                 "last_flush_latency_s": dict(sorted(
                     self._last_flush.items())),
                 "program_nbytes": {n: self.program_nbytes(n)
-                                   for n in sorted(self.tenants)}}
+                                   for n in sorted(self.tenants)},
+                "skip_frac": {n: self.skip_frac(n)
+                              for n in sorted(self.tenants)}}

@@ -13,8 +13,13 @@ import pytest
 import torch
 
 from repro_torch import api
+from repro_torch.core.booleanize import pack_literals
 from repro_torch.kernels import ops
 from repro_torch.kernels.class_sum import class_sum, class_sum_plain
+from repro_torch.kernels.fused_step import fused_step, fused_step_plain
+from repro_torch.kernels.ta_update import (ta_update, ta_update_plain,
+                                           ta_update_sparse,
+                                           ta_update_sparse_plain)
 from repro_torch.kernels.packed_clause import (packed_clause_eval,
                                                packed_clause_eval_plain,
                                                packed_clause_tile,
@@ -103,7 +108,9 @@ def test_wrappers_count_launches_and_never_fall_back(dev):
     ops.class_sum_op(torch.ones((2, 40), dtype=torch.int32, device=dev),
                      torch.ones((3, 40), dtype=torch.int32, device=dev))
     assert ops.launch_counts() == {"packed_clause_eval": 1,
-                                   "packed_clause_tile": 1, "class_sum": 1}
+                                   "packed_clause_tile": 1, "class_sum": 1,
+                                   "fused_step": 0, "ta_update": 0,
+                                   "ta_update_sparse": 0}
     with pytest.raises(ValueError):
         packed_clause_eval(lit, inc.cpu())
     with pytest.raises(TypeError):
@@ -144,3 +151,156 @@ def test_server_on_card_matches_cpu(dev):
         for a, b in ((outs[0], outs[2]), (outs[1], outs[3])):
             for n in roster:
                 np.testing.assert_array_equal(a[n], b[n], err_msg=n)
+
+
+def _front_operands(K, B, R, W, H, dev, seed, frozen):
+    gen = torch.Generator().manual_seed(seed)
+    lit, inc = _operands(K, B, R, W, dev, seed=seed)
+    w = torch.randint(-9, 10, (K, H, R), generator=gen, dtype=torch.int32)
+    w[:, :, ::3] = 0
+    labels = torch.randint(0, H, (K, B), generator=gen, dtype=torch.int32)
+    neg = (labels + 1) % H
+    rand = torch.randint(0, 1 << 16, (K, 2, B, R), generator=gen)
+    cl_mask = (torch.arange(R) < R - R // 5).to(torch.int32).expand(K, R)
+    h_mask = (torch.arange(H) < max(H - 2, 1)).to(torch.int32).expand(K, H)
+    T = torch.randint(1, 60, (K,), generator=gen, dtype=torch.int32)
+    wf = torch.full((K,), int(frozen), dtype=torch.int32)
+    return [t.to(dev) for t in (lit, inc, w, labels, neg, rand, cl_mask,
+                                h_mask, T, wf)]
+
+
+@pytest.mark.parametrize("K,B,R,W,H", [(1, 1, 1, 1, 1), (1, 3, 17, 2, 3),
+                                       (2, 5, 130, 5, 4), (3, 33, 200, 3, 19),
+                                       (1, 32, 2048, 52, 16),
+                                       (2, 7, 64, 101, 40)])
+@pytest.mark.parametrize("frozen", [False, True])
+def test_fused_step_kernel_matches_plain(dev, K, B, R, W, H, frozen):
+    args = _front_operands(K, B, R, W, H, dev, K + B + R + W + H, frozen)
+    for n_bits in (32 * W, 32 * W - 3):
+        got = fused_step(*args, rand_bits=16, n_bits=n_bits)
+        torch.cuda.synchronize()
+        want = fused_step_plain(*args, rand_bits=16, n_bits=n_bits)
+        for name, g, w in zip(("clause", "sums", "sel_lab", "sel_neg"),
+                              got, want):
+            assert g.dtype == torch.int32 and torch.equal(g, w), name
+    assert R < 17 or got[2].sum() > 0, "some clauses must be selected"
+
+
+def test_fused_step_takes_strided_operands(dev):
+    args = _front_operands(2, 6, 40, 3, 5, dev, 1, False)
+    rand_t = args[5].transpose(2, 3).contiguous().transpose(2, 3)
+    strided = args[:5] + [rand_t] + args[6:]
+    want = fused_step_plain(*args)
+    for g, w in zip(fused_step(*strided), want):
+        assert torch.equal(g, w)
+    with pytest.raises(ValueError):
+        fused_step(*args[:5], args[5].cpu(), *args[6:])
+
+
+def _ta_operands(K, B2, C, L, dev, seed, ta_bits):
+    gen = torch.Generator().manual_seed(seed)
+    n = 1 << ta_bits
+    ta = torch.randint(0, n, (K, C, L), generator=gen,
+                       dtype=torch.int32).to(torch.uint8 if ta_bits <= 8
+                                             else torch.int32)
+    bits = torch.randint(0, 2, (K, B2, L), generator=gen, dtype=torch.int8)
+    lits = pack_literals(bits)
+    cl = torch.randint(0, 2, (K, B2, C), generator=gen, dtype=torch.int8)
+    t1 = (torch.rand((K, B2, C), generator=gen) < 0.2).to(torch.int8)
+    t2 = (torch.rand((K, B2, C), generator=gen) < 0.2).to(torch.int8)
+    t1[:, :, C // 2:] = 0               # half the rows get no feedback
+    t2[:, :, C // 2:] = 0
+    l_mask = (torch.arange(L) < L - 3).to(torch.int32).expand(K, L)
+    seed_ = torch.randint(0, 2 ** 32, (K,), generator=gen, dtype=torch.int64)
+    p_ta = torch.full((K,), 6554, dtype=torch.int32)
+    boost = torch.arange(K) % 2 == 0
+    n_states = torch.full((K,), n, dtype=torch.int32)
+    return ([t.to(dev) for t in (ta, lits, cl, t1, t2, l_mask)],
+            [t.to(dev) for t in (seed_, p_ta, boost, n_states)])
+
+
+STREAMS = [dict(prng="counter"), dict(prng="lfsr", lfsr_bits=24),
+           dict(prng="lfsr", lfsr_bits=4),
+           dict(prng="lfsr", lfsr_bits=4, seed_refresh=False)]
+
+
+@pytest.mark.parametrize("K,B2,C,L", [(1, 2, 1, 1), (2, 6, 37, 300),
+                                      (3, 64, 130, 257), (1, 64, 256, 1664)])
+@pytest.mark.parametrize("ta_bits", [8, 10])
+@pytest.mark.parametrize("stream", range(len(STREAMS)))
+def test_ta_update_kernels_match_plain(dev, K, B2, C, L, ta_bits, stream):
+    ops_, scal = _ta_operands(K, B2, C, L, dev, K + C + L + stream, ta_bits)
+    kw = STREAMS[stream]
+    for row0 in (0, 300):
+        got = ta_update(*ops_, *scal, row0=row0, **kw)
+        torch.cuda.synchronize()
+        want = ta_update_plain(*ops_, *scal, row0=row0, **kw)
+        assert got[0].dtype == ops_[0].dtype
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    inc = got[1]
+    G = -(-C // 128)
+    idx = torch.tensor([[g % G for g in (0, 0, G - 1)]] * K,
+                       dtype=torch.int32, device=dev)      # a duplicate
+    for count in ([0] * K, [min(3, G + 1)] * K, list(range(K))):
+        cnt = torch.tensor(count, dtype=torch.int32, device=dev)
+        got = ta_update_sparse(*ops_, inc, idx, cnt, *scal, **kw)
+        torch.cuda.synchronize()
+        want = ta_update_sparse_plain(*ops_, inc, idx, cnt, *scal, **kw)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        # in place, the duplicate slot must not update its group twice
+        ta_i, inc_i = ops_[0].clone(), inc.clone()
+        got = ta_update_sparse(ta_i, *ops_[1:], inc_i, idx, cnt, *scal,
+                               inplace=True, **kw)
+        assert got[0] is ta_i and got[1] is inc_i
+        assert torch.equal(ta_i, want[0]) and torch.equal(inc_i, want[1])
+    # every group listed: the dense result
+    full = torch.arange(G, dtype=torch.int32, device=dev).expand(K, G)
+    cnt = torch.full((K,), G, dtype=torch.int32, device=dev)
+    dense = ta_update(*ops_, *scal, **kw)
+    for g, w in zip(ta_update_sparse(*ops_, inc, full, cnt, *scal, **kw),
+                    dense):
+        assert torch.equal(g, w)
+
+
+def test_ta_update_takes_strided_feedback(dev):
+    ops_, scal = _ta_operands(2, 8, 40, 96, dev, 5, 8)
+    t1 = ops_[3].transpose(1, 2).contiguous().transpose(1, 2)
+    want = ta_update_plain(*ops_, *scal)
+    got = ta_update(*ops_[:3], t1, *ops_[4:], *scal)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    with pytest.raises(ValueError):
+        ta_update(ops_[0].cpu(), *ops_[1:], *scal)
+
+
+def _bridge(spec, tile, device, seed=3):
+    eng = api.compile(tile, device=device)
+    tm = api.TM(spec, engine=eng, seed=seed)
+    return eng, tm.program, tm.prng
+
+
+@pytest.mark.parametrize("backend", ["counter", "lfsr"])
+@pytest.mark.parametrize("B", [1, 32])
+def test_train_steps_on_card_match_cpu(dev, backend, B):
+    spec = api.TMSpec.coalesced(features=40, classes=5, clauses=300, T=20,
+                                prng_backend=backend)
+    tile = api.tile_for(spec)
+    cpu, p_c, r_c = _bridge(spec, tile, "cpu")
+    gpu = api.compile(tile, device="cuda")
+    p_g, r_g = p_c.to(dev), r_c.to(dev)
+    rng = np.random.default_rng(B)
+    ops.reset_launch_counts()
+    for _ in range(3):
+        x = (rng.random((B, 40)) < 0.5).astype(np.int8)
+        y = spec.encode_labels(rng.integers(0, 5, B))
+        p_c, r_c, s_c = cpu.train_step(p_c, r_c, cpu.encode(spec, x), y)
+        p_g, r_g, s_g = gpu.train_step(p_g, r_g, gpu.encode(spec, x),
+                                       y.to(dev))
+        for a, b in zip(p_c.leaves(), p_g.leaves()):
+            assert torch.equal(a, b.cpu())
+        for a, b in zip(r_c.leaves(), r_g.leaves()):
+            assert torch.equal(a, b.cpu())
+        for k in s_c:
+            assert int(s_c[k]) == int(s_g[k]), k
+    counts = ops.launch_counts()
+    front = "fused_step" if B > 4 else "packed_clause_eval"
+    assert counts[front] == 3 and counts["ta_update_sparse"] == 3

@@ -240,9 +240,13 @@ def test_port_imports_neither_jax_nor_repro():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
+        "for m in ('repro_torch.core.prng', 'repro_torch.core.device',\n"
+        "          'repro_torch.kernels.fused_step',\n"
+        "          'repro_torch.kernels.ta_update'):\n"
+        "    assert m in sys.modules, m\n"
         "print(len([m for m in sys.modules if m.startswith('repro_torch')]))\n")
     src = str(pathlib.Path(__file__).resolve().parents[1] / "src")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, env={**os.environ, "PYTHONPATH": src})
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.strip()) >= 15
+    assert int(r.stdout.strip()) >= 18
