@@ -20,6 +20,12 @@ Serving phases:
      shapes, the server's answers equal those of a CPU engine running the
      plain versions, clauses fire, answers are not all one class, and every
      kernel was launched by the phases above;
+  5b. dense serving: ``TMServer(batch_slot=32)`` on an engine with
+     ``kernel_path="mxu"`` (the dense clause kernel on unpacked int8
+     operands, then class sums), 4 rounds; answers and class sums must
+     equal the default flush's bit for bit;
+  5c. fused inference: ``tm_infer_op`` on the same bank operands, one
+     launch per round; its raw sums must equal class_sum(clause_eval);
   6. timing: each kernel, its plain version and a library yardstick as
      device time (CUDA-graph replay, warm and with L2 overwritten), the
      wrapper's time per call issued back to back, flush and request
@@ -34,13 +40,21 @@ held-out rows):
      between each epoch's plan upload and stats fetch.  The two final
      programs and PRNGs must be equal, and the first two steps, replayed
      on a CPU engine, must give the card's programs, PRNGs and stats;
+  7b. the same fit with ``kernel_path="mxu"`` (the unfused dense front
+     half: clause_eval, class_sum, torch selection) and with
+     ``ta_prng="stream"`` (the random words made first as a [1, 64, R, L]
+     tensor and read by ta_update_streamed, dense update); both must end
+     in phase 7's program and PRNG;
   8. edge: 8 ``partial_fit`` steps at B=1 (counter PRNG), each checked
      against the CPU engine;
   9. bank: one ``ProgramBank.train`` step of MNIST CoTM and MNIST Vanilla
-     (K=2, 32 rows each, counter PRNGs), checked against the CPU engine;
+     (K=2, 32 rows each, counter PRNGs), checked against the CPU engine,
+     and the same step with ``ta_prng="stream"``, which must equal it;
  10. the training kernels against their plain versions at the path's
-     shapes (fused_step K=1 B=32; ta_update K=1 and K=2 with 2B=64;
-     ta_update_sparse at the fit's last step), timed as in phase 6; the
+     shapes (fused_step K=1 B=32; ta_update and ta_update_streamed K=1
+     and K=2 with 2B=64; ta_update_sparse at the fit's last step;
+     clause_eval K=1 B=32), timed as in phase 6; the streamed update with
+     its stream build beside the in-kernel update on the same inputs; the
      in-place sparse update on those inputs with 1, 2, 4, ... of the
      listed groups, beside the dense kernel on them; and one step under
      torch.profiler.
@@ -48,7 +62,14 @@ held-out rows):
 Bounds: bytes over 3.35 TB/s; integer operations over 64 per clock per
 SM (the CUDA guide's rate for 32-bit integer add, logic, shift, compare
 and multiply-add on compute capability 9.0) × the SM count × the card's
-maximum SM clock (``nvidia-smi --query-gpu=clocks.max.sm``).  Operations
+maximum SM clock (``nvidia-smi --query-gpu=clocks.max.sm``); for the
+dense clause kernels (int8 {0,1} operands), two operations per int8
+multiply-add over the data sheet's dense int8 tensor-core rate,
+1,979 T/s.  Library yardsticks: ``torch._int_mm`` (int8 -> int32
+violation counts, one call per program) on the unpacked operands for
+the tile and dense clause kernels, float32 ``torch.matmul`` (TF32 off)
+for the edge kernel at B=1, and for ``tm_infer`` the ``_int_mm`` calls
+plus one float32 matmul of the clause matrix by the weights.  Operations
 are the fewest 32-bit integer instructions the function needs on this
 run's inputs: one three-input logic op per word pair of a clause
 evaluation (``acc | (inc & ~lit)`` is one LOP3) and one zero test per
@@ -74,6 +95,7 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
+INT8_TC_OPS_PER_S = 1.979e15  # H100 SXM dense int8 tensor cores (data sheet)
 INT_OPS_PER_CLOCK_PER_SM = 64  # 32-bit integer add/logic/shift/compare/IMAD, cc 9.0
 # Integer operations of the TA update, from csrc/ta_update.cu's arithmetic:
 TA_SEED_OPS = {"counter": 11,  # key (multiply-add, add) and splitmix32 (9)
@@ -234,8 +256,8 @@ def profile_flush(torch, fn) -> dict:
                         for k in top]}
 
 
-def bound(nbytes: int, ops: int, int_rate: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / int_rate
+def bound(nbytes: int, ops: int, rate: float):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -283,8 +305,15 @@ def main(argv=None) -> int:
     from repro_torch.core.prng import PRNG
     from repro_torch.kernels.fused_step import fused_step, fused_step_plain
     from repro_torch.kernels.ta_update import (
-        ta_update, ta_update_plain, ta_update_sparse, ta_update_sparse_plain)
+        stream_rands, ta_update, ta_update_plain, ta_update_sparse,
+        ta_update_sparse_plain, ta_update_streamed, ta_update_streamed_plain)
+    from repro_torch.core.booleanize import unpack_literals
+    from repro_torch.kernels.clause_eval import clause_eval, clause_eval_plain
+    from repro_torch.kernels.tm_infer import tm_infer, tm_infer_plain
     from repro_torch.launch.serve_tm import TMServer
+    from repro_torch.kernels.ref import NEG_INF_SUM
+    # float32 products (the plain versions, the yardsticks) in full float32
+    torch.backends.cuda.matmul.allow_tf32 = False
 
     # ---- 1. build -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -407,6 +436,55 @@ def main(argv=None) -> int:
     fired = float(cl.sum()) / float(B * rows.sum())
     check(fired > 0, "no clause fired")
 
+    # ---- 5b. dense serving: the mxu clause path (counts from 0 just before) -
+    gpu_mxu = api.compile(tile, device="cuda", kernel_path="mxu")
+    dense = server(gpu_mxu, B)
+    ops.reset_launch_counts()
+    dense_answers, dense_flush_s = [], []
+    with Capture(ops, "clause_eval") as cap_ce_serve:
+        for r in range(ROUNDS):
+            for n in roster:
+                dense.enqueue(n, reqs[n][r * B:(r + 1) * B])
+            t = time.perf_counter()
+            dense_answers.append(dense.flush())
+            torch.cuda.synchronize()
+            dense_flush_s.append(time.perf_counter() - t)
+    counts_dense_serve = ops.launch_counts()
+    check(counts_dense_serve["clause_eval"] == ROUNDS
+          and counts_dense_serve["class_sum"] == ROUNDS
+          and counts_dense_serve["packed_clause_tile"] == 0,
+          f"dense flushes launched {counts_dense_serve}")
+    for r in range(ROUNDS):
+        for n in roster:
+            check(np.array_equal(dense_answers[r][n], answers[r][n]),
+                  f"dense answers of {n} differ from the default flush")
+    sums_p, cl_p = gpu.infer_bank(bank.progs, lits)
+    sums_d, cl_d = gpu_mxu.infer_bank(bank.progs, lits)
+    check(torch.equal(sums_d, sums_p) and torch.equal(cl_d, cl_p),
+          "dense class sums or clauses differ from the default path")
+    check(gpu_mxu.cache_report()["path_per_stage"]["infer_bank"] == "mxu",
+          f"dense engine paths {gpu_mxu.cache_report()}")
+
+    # ---- 5c. fused inference: tm_infer on the same bank operands -----------
+    inc8 = unpack_literals(inc, L)
+    lit8s = [unpack_literals(torch.stack(
+        [gpu.encode(specs[n], reqs[n][r * B:(r + 1) * B]) for n in names]), L)
+        for r in range(ROUNDS)]
+    ops.reset_launch_counts()
+    fused_sums = [ops.tm_infer_op(l8, inc8, weights) for l8 in lit8s]
+    torch.cuda.synchronize()
+    counts_tm_infer = ops.launch_counts()
+    check(counts_tm_infer["tm_infer"] == ROUNDS
+          and counts_tm_infer["clause_eval"] == 0,
+          f"fused inference launched {counts_tm_infer}")
+    for l8, fs in zip(lit8s, fused_sums):
+        check(torch.equal(fs, class_sum(clause_eval(l8, inc8, True), weights)),
+              "tm_infer differs from class_sum(clause_eval)")
+    h_real = bank.progs.h_mask[:, None, :] == 1
+    check(torch.equal(torch.where(h_real, fused_sums[0],
+                                  torch.full_like(sums_p, NEG_INF_SUM)),
+                      sums_p), "tm_infer differs from the engine's sums")
+
     # ---- 7. training: the main fit, compacted and dense ---------------------
     spec = paper_spec(api, tm_paper.TM_MNIST_COTM, "lfsr")
     spec_c = paper_spec(api, tm_paper.TM_MNIST_COTM, "counter")
@@ -476,6 +554,45 @@ def main(argv=None) -> int:
               and all(int(sg[k]) == int(sc[k]) for k in STAT_KEYS),
               f"fit step {s_} on the card differs from the CPU engine")
 
+    # ---- 7b. the same fit on the dense front half and on streamed words -----
+    eng_mxu = api.compile(ttile, device="cuda", kernel_path="mxu")
+    eng_stream = api.compile(ttile, device="cuda", ta_prng="stream")
+    tm_m = api.TM(spec, engine=eng_mxu, seed=args.seed)
+    tm_s = api.TM(spec, engine=eng_stream, seed=args.seed)
+    for tm_ in (tm_m, tm_s):
+        check(same_state(torch, tm_.program, p0)
+              and same_state(torch, tm_.prng, r0),
+              "the dense and streamed fits start from other states")
+    ops.reset_launch_counts()
+    with Capture(ops, "clause_eval") as cap_ce_train:
+        hist_m, fit_m_s = fit(tm_m)
+    counts_fit_mxu = ops.launch_counts()
+    ops.reset_launch_counts()
+    with Capture(ops, "ta_update_op") as cap_stream_op, \
+            Capture(ops, "ta_update_streamed") as cap_streamed1:
+        hist_s, fit_s_s = fit(tm_s)
+    counts_fit_stream = ops.launch_counts()
+    check(counts_fit_mxu["clause_eval"] == steps
+          and counts_fit_mxu["class_sum"] == steps
+          and counts_fit_mxu["fused_step"] == 0
+          and counts_fit_mxu["ta_update_sparse"] == steps,
+          f"the dense-front fit launched {counts_fit_mxu}")
+    check(counts_fit_stream["ta_update_streamed"] == steps
+          and counts_fit_stream["fused_step"] == steps
+          and counts_fit_stream["ta_update"] == 0
+          and counts_fit_stream["ta_update_sparse"] == 0,
+          f"the streamed fit launched {counts_fit_stream}")
+    for name, h_, tm_ in (("dense-front", hist_m, tm_m),
+                          ("streamed", hist_s, tm_s)):
+        check(h_ == hist and same_state(torch, tm_.program, tm_a.program)
+              and same_state(torch, tm_.prng, tm_a.prng),
+              f"the {name} fit does not end as the compacted fit")
+    check(eng_mxu.cache_report()["path_per_stage"]["train"] == "mxu"
+          and eng_stream.cache_report()["path_per_stage"] == {
+              "train": "fused", "train_ta": "dense",
+              "train_prng": "lfsr-stream"},
+          f"paths {eng_mxu.cache_report()} {eng_stream.cache_report()}")
+
     # ---- 8. edge training: partial_fit at B=1 --------------------------------
     tm_e = api.TM(spec_c, engine=eng, seed=args.seed + 1)
     pc, rc = tm_e.program.to("cpu"), tm_e.prng.to("cpu")
@@ -527,6 +644,19 @@ def main(argv=None) -> int:
           and same_state(torch, bank.prngs, cpu_bank.prngs)
           and all(torch.equal(bst[k].cpu(), cst[k]) for k in STAT_KEYS),
           "the bank step on the card differs from the CPU engine")
+    s_bank = api.stack(b_progs, eng_stream, prngs=b_prngs)
+    ops.reset_launch_counts()
+    with Capture(ops, "ta_update_streamed") as cap_streamed2:
+        sst = s_bank.train(b_lits, b_y)
+    counts_bank_stream = ops.launch_counts()
+    check(counts_bank_stream["fused_step"] == 1
+          and counts_bank_stream["ta_update_streamed"] == 1
+          and counts_bank_stream["ta_update"] == 0,
+          f"the streamed bank step launched {counts_bank_stream}")
+    check(same_state(torch, s_bank.progs, bank.progs)
+          and same_state(torch, s_bank.prngs, bank.prngs)
+          and all(torch.equal(sst[k], bst[k]) for k in STAT_KEYS),
+          "the streamed bank step differs from the in-kernel one")
 
     # ---- 10. the training kernels against their plain versions --------------
     def copies(a):
@@ -559,6 +689,30 @@ def main(argv=None) -> int:
     d2_a, d2_kw = cap_bank.args       # the bank step (K=2)
     _, err_d2 = compare_all(ta_update, ta_update_plain, d2_a, d2_kw)
 
+    def compare_one(kernel, plain, a, kw):
+        got, want = kernel(*a, **kw), plain(*a, **kw)
+        torch.cuda.synchronize()
+        n_bad = int((got != want).sum())
+        check(n_bad == 0, f"{kernel.__name__}: {n_bad} mismatches")
+        return got, int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+
+    ce4_a, ce4_kw = cap_ce_serve.args     # the last dense flush (K=4)
+    _, err_ce4 = compare_one(clause_eval, clause_eval_plain, ce4_a, ce4_kw)
+    ce1_a, ce1_kw = cap_ce_train.args     # the dense-front fit's last step
+    _, err_ce1 = compare_one(clause_eval, clause_eval_plain, ce1_a, ce1_kw)
+    tmi_a, tmi_kw = (lit8s[0], inc8, weights), {"eval_mode": True}
+    _, err_tmi = compare_one(tm_infer, tm_infer_plain, tmi_a, tmi_kw)
+    st1_a, st1_kw = cap_streamed1.args    # the streamed fit's last step
+    st1, err_st1 = compare_all(ta_update_streamed, ta_update_streamed_plain,
+                               st1_a, st1_kw)
+    st2_a, st2_kw = cap_streamed2.args    # the streamed bank step (K=2)
+    _, err_st2 = compare_all(ta_update_streamed, ta_update_streamed_plain,
+                             st2_a, st2_kw)
+    op_a, op_kw = cap_stream_op.args      # the same step's op call
+    ik_kw = {k: v for k, v in op_kw.items() if k != "stream"}
+    for g, w in zip(st1, ta_update(*copies(op_a), **ik_kw)):
+        check(torch.equal(g, w), "streamed and in-kernel updates differ")
+
     # step time (host clock) and one profiled step, from the fit's end
     lits32 = eng.encode(spec, x_tr[:32])
     lab32 = spec.encode_labels(y_tr[:32]).cuda()
@@ -570,6 +724,15 @@ def main(argv=None) -> int:
         step_s.append(time.perf_counter() - t)
     step_prof = profile_flush(torch, lambda: eng.train_step(
         tm_a.program, tm_a.prng, lits32, lab32))
+    step_ms_by_path = {"default": float(np.median(step_s) * 1e3)}
+    for name, e in (("mxu", eng_mxu), ("stream", eng_stream)):
+        ts_ = []
+        for _ in range(10):
+            t = time.perf_counter()
+            e.train_step(tm_a.program, tm_a.prng, lits32, lab32)
+            torch.cuda.synchronize()
+            ts_.append(time.perf_counter() - t)
+        step_ms_by_path[name] = float(np.median(ts_) * 1e3)
 
     # ---- 6. timing -------------------------------------------------------------
     cold = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
@@ -578,12 +741,29 @@ def main(argv=None) -> int:
     clf, wf = cl.float(), weights.float()
     rows_out = []
 
+    def yardstick(fn, what: str):
+        """``fn`` if it runs on these inputs, else None (and why)."""
+        try:
+            fn()
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            print(f"chip_smoke: no {what} yardstick: {e}", file=sys.stderr)
+            return None
+        return fn
+
+    def int_mm(neg, inc_):
+        """torch._int_mm per program: the violation counts [B, C]."""
+        return lambda: [torch._int_mm(neg[k], inc_[k].t())
+                        for k in range(neg.shape[0])]
+
     def row(name, source, replaces, launches, err, kernel, plain, library,
-            nbytes, nops, shape, plain_graph=True):
+            nbytes, nops, shape, plain_graph=True, rate=None,
+            library_note=None):
         """One kernels-line entry.  The plain version is timed by graph
         replay, or (``plain_graph=False``: it reads the device on the
-        host) with events around back-to-back calls."""
-        b_ms, b_by = bound(nbytes, nops, int_rate)
+        host) with events around back-to-back calls.  ``rate`` is the
+        operations rate of the bound (default: the integer rate)."""
+        b_ms, b_by = bound(nbytes, nops, rate or int_rate)
         rows_out.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "mismatches": 0,
@@ -594,22 +774,33 @@ def main(argv=None) -> int:
                          if plain_graph else call_ms(torch, plain, 3)),
             "library_ms": (None if library is None
                            else graph_ms(torch, library, it)),
-            "bound_ms": b_ms, "bound_by": b_by, "shape": shape})
+            "bound_ms": b_ms, "bound_by": b_by, "shape": shape,
+            "library": library_note if library is not None else None})
 
     cu = "src/repro_torch/csrc/"
+    neg8 = (lit8s[0] == 0).to(torch.int8)          # the bank's first round
+    lib_tile = yardstick(int_mm(neg8, inc8), "_int_mm")
+    neg1f = (unpack_literals(lit1, L) == 0).to(torch.float32)
+    inc1f = unpack_literals(inc1, L).to(torch.float32)
+    lib_edge = yardstick(
+        lambda: torch.matmul(neg1f, inc1f.transpose(-1, -2)), "matmul")
     row("packed_clause_tile", cu + "packed_clause.cu",
         "src/repro/kernels/packed_clause.py:184",
         counts_stacked["packed_clause_tile"], err_tile,
         lambda: packed_clause_tile(lits, inc, True, L),
-        lambda: packed_clause_tile_plain(lits, inc, True, L), None,
+        lambda: packed_clause_tile_plain(lits, inc, True, L), lib_tile,
         4 * (K * B * W + K * R * W + K * B * R), K * B * R * W + K * B * R,
-        f"K={K} B={B} R={R} W={W}")
+        f"K={K} B={B} R={R} W={W}",
+        library_note=f"torch._int_mm x{K} on the unpacked operands "
+        "(violation counts)")
     row("packed_clause_eval", cu + "packed_clause.cu",
         "src/repro/kernels/packed_clause.py:107",
         counts_edge["packed_clause_eval"], err_edge,
         lambda: packed_clause_eval(lit1, inc1, True, L),
-        lambda: packed_clause_eval_plain(lit1, inc1, True, L), None,
-        4 * (W + R * W + R), R * W + R, f"K=1 B=1 R={R} W={W}")
+        lambda: packed_clause_eval_plain(lit1, inc1, True, L), lib_edge,
+        4 * (W + R * W + R), R * W + R, f"K=1 B=1 R={R} W={W}",
+        library_note="torch.matmul float32, TF32 off, on the unpacked "
+        "operands (violation counts)")
     row("class_sum", cu + "class_sum.cu",
         "src/repro/kernels/class_sum.py:57",
         counts_stacked["class_sum"] + counts_edge["class_sum"],
@@ -642,7 +833,7 @@ def main(argv=None) -> int:
         + 2 * 3 * fK * fB * fR,
         f"K={fK} B={fB} R={fR} W={fW} H={fH}")
 
-    def ta_cost(a, kw_, sparse: bool):
+    def ta_cost(a, kw_, sparse: bool, streamed: bool = False):
         """(bytes, operations) of one TA update on this run's inputs.
         Rows processed: every clause row (dense), or the rows of the
         128-row groups with feedback (sparse, in place).  Bytes: those
@@ -651,7 +842,9 @@ def main(argv=None) -> int:
         of a clause row with feedback a seed and 2B stream steps (the
         kernel skips the stream of the other rows); the delta per (TA,
         batch row) with feedback; the clip and include test per TA
-        processed (the TA_* counts)."""
+        processed (the TA_* counts).  ``streamed``: no stream operations,
+        and the rands words a Type I delta reads (4 bytes per TA of a
+        (batch row, clause row) with Type I feedback)."""
         ta_, lits_, cl_, t1_, t2_ = a[:5]
         k_, c_, l_ = ta_.shape
         b2, w_ = lits_.shape[1], lits_.shape[2]
@@ -666,13 +859,15 @@ def main(argv=None) -> int:
             sizes = (c_ - 128 * torch.arange(g_, device=active.device)
                      ).clamp(max=128)
             rows_ = int((pad.view(k_, g_, 128).any(dim=-1) * sizes).sum())
+        nbytes = (2 * rows_ * l_ * ta_.element_size() + 4 * rows_ * w_
+                  + 3 * b2 * rows_ + 4 * k_ * b2 * w_ + 4 * k_ * l_)
+        nops = int(fb.sum()) * l_ * TA_DELTA_OPS + rows_ * l_ * TA_CLIP_OPS
+        if streamed:
+            return nbytes + 4 * l_ * int((t1_ > 0).sum()), nops
         family = kw_["prng"]
         step = TA_STEP_OPS[family] + (
             TA_REFRESH_OPS if family == "lfsr" and kw_["seed_refresh"] else 0)
-        nbytes = (2 * rows_ * l_ * ta_.element_size() + 4 * rows_ * w_
-                  + 3 * b2 * rows_ + 4 * k_ * b2 * w_ + 4 * k_ * l_)
-        nops = (int(active.sum()) * l_ * (TA_SEED_OPS[family] + b2 * step)
-                + int(fb.sum()) * l_ * TA_DELTA_OPS + rows_ * l_ * TA_CLIP_OPS)
+        nops += int(active.sum()) * l_ * (TA_SEED_OPS[family] + b2 * step)
         return nbytes, nops
 
     for label, a, kw_, err in (("K=1", d1_a, d1_kw, err_d1),
@@ -707,6 +902,82 @@ def main(argv=None) -> int:
         ta_ms_by_groups[n_] = graph_ms(
             torch, lambda a_=a_: ta_update_sparse(*a_, **s_kw), it)
 
+    # the dense clause kernels: serving (K=4) and the dense-front fit (K=1)
+    for label, a, kw_, err in (("serving", ce4_a, ce4_kw, err_ce4),
+                               ("training", ce1_a, ce1_kw, err_ce1)):
+        k_, b_, l_ = a[0].shape
+        c_ = a[1].shape[1]
+        row("clause_eval", cu + "clause_eval.cu",
+            "src/repro/kernels/clause_eval.py:72",
+            counts_dense_serve["clause_eval"] + counts_fit_mxu["clause_eval"],
+            err, lambda a=a, kw_=kw_: clause_eval(*a, **kw_),
+            lambda a=a, kw_=kw_: clause_eval_plain(*a, **kw_),
+            yardstick(int_mm((a[0] == 0).to(torch.int8), a[1]), "_int_mm"),
+            k_ * b_ * l_ + k_ * c_ * l_ + 4 * k_ * b_ * c_,
+            2 * k_ * b_ * c_ * l_,
+            f"{label} K={k_} B={b_} C={c_} L={l_} "
+            f"eval_mode={kw_['eval_mode']}", rate=INT8_TC_OPS_PER_S,
+            library_note=f"torch._int_mm x{k_} (violation counts)")
+    k_, b_, l_ = lit8s[0].shape
+    c_, h_ = inc8.shape[1], weights.shape[1]
+    clf_d = clause_eval(lit8s[0], inc8, True).to(torch.float32)
+    pair_lib = int_mm(neg8, inc8)
+
+    def lib_tmi():
+        pair_lib()
+        return torch.matmul(clf_d, wf.transpose(-1, -2))
+    row("tm_infer", cu + "clause_eval.cu", "src/repro/kernels/tm_infer.py:86",
+        counts_tm_infer["tm_infer"], err_tmi,
+        lambda: tm_infer(*tmi_a, **tmi_kw),
+        lambda: tm_infer_plain(*tmi_a, **tmi_kw),
+        yardstick(lib_tmi, "_int_mm + matmul"),
+        k_ * b_ * l_ + k_ * c_ * l_ + 4 * k_ * h_ * c_ + 4 * k_ * b_ * h_,
+        2 * k_ * b_ * c_ * l_ + 2 * k_ * b_ * c_ * h_,
+        f"K={k_} B={b_} C={c_} L={l_} H={h_}", rate=INT8_TC_OPS_PER_S,
+        library_note=f"torch._int_mm x{k_} + torch.matmul float32 "
+        f"({k_ + 1} calls: violation counts, then clauses x weights)")
+    dense_cmp = {
+        "flush_ms": [s_ * 1e3 for s_ in dense_flush_s],
+        "flush_ms_median_after_first":
+            float(np.median(dense_flush_s[1:]) * 1e3),
+        "tile_ms": rows_out[0]["ms"], "clause_eval_ms": rows_out[-3]["ms"],
+        "tm_infer_ms": rows_out[-1]["ms"],
+        "clause_eval_plus_class_sum_ms": graph_ms(
+            torch, lambda: class_sum(clause_eval(lit8s[0], inc8, True),
+                                     weights), it),
+        "launches": {"dense_flush": counts_dense_serve,
+                     "tm_infer": counts_tm_infer}}
+
+    # the streamed TA update: the streamed fit's last step (K=1, lfsr) and
+    # the streamed bank step (K=2, counter)
+    for label, a, err in (("K=1", st1_a, err_st1), ("K=2", st2_a, err_st2)):
+        k_, c_, l_ = a[0].shape
+        nb, no = ta_cost(a, None, sparse=False, streamed=True)
+        row("ta_update_streamed", cu + "ta_update.cu",
+            "src/repro/kernels/ta_update.py:333",
+            counts_fit_stream["ta_update_streamed"]
+            + counts_bank_stream["ta_update_streamed"], err,
+            lambda a=a: ta_update_streamed(*a),
+            lambda a=a: ta_update_streamed_plain(*a), None, nb, no,
+            f"{label} 2B={a[1].shape[1]} C={c_} L={l_} rands int32 "
+            f"{tuple(a[6].shape)}", plain_graph=False)
+    k_, c_, l_ = op_a[0].shape
+    b2 = op_a[1].shape[1]
+    stream_cmp = {
+        "shape": f"K={k_} 2B={b2} C={c_} L={l_} prng={op_kw['prng']}",
+        "rands_bytes": 4 * k_ * b2 * c_ * l_,
+        "inkernel_ta_update_ms": graph_ms(
+            torch, lambda: ta_update(*op_a, **ik_kw), it),
+        "streamed_kernel_ms": rows_out[-2]["ms"],
+        "stream_build_ms": call_ms(torch, lambda: stream_rands(
+            k_, b2, c_, l_, op_kw["seed"], op_a[0].device,
+            rand_bits=op_kw["rand_bits"], prng=op_kw["prng"],
+            lfsr_bits=op_kw["lfsr_bits"],
+            seed_refresh=op_kw["seed_refresh"]), 3),
+        "build_and_streamed_ms": call_ms(
+            torch, lambda: ops.ta_update_op(*op_a, **op_kw), 3),
+        "step_ms_median": step_ms_by_path}
+
     training = {
         "card": card, "model": "MNIST CoTM (784 f, 2000 clauses, 10 classes,"
         " T=500, s=10, ta_bits 8, lfsr_bits 24)",
@@ -726,9 +997,14 @@ def main(argv=None) -> int:
         "train_acc": [h["train_acc"] for h in hist],
         "group_skip_frac": [h["group_skip_frac"] for h in hist],
         "test_acc": test_acc, "step_profile": step_prof,
+        "fit_s_dense_front": fit_m_s, "fit_s_streamed": fit_s_s,
+        "stream_vs_inkernel": stream_cmp,
         "cpu_reference_s": cpu_s, "int_ops_per_s": int_rate,
         "launches": {"fit_compact": counts_fit, "fit_dense": counts_dense,
-                     "edge": counts_edge_train, "bank": counts_bank}}
+                     "fit_dense_front": counts_fit_mxu,
+                     "fit_streamed": counts_fit_stream,
+                     "edge": counts_edge_train, "bank": counts_bank,
+                     "bank_streamed": counts_bank_stream}}
 
     serving = {
         "card": card, "tenants": list(roster), "batch_slot": B,
@@ -739,7 +1015,7 @@ def main(argv=None) -> int:
         "flush_ms_median_after_first": float(np.median(flush_s[1:]) * 1e3),
         "edge_predict_ms_median": float(np.median(edge_s) * 1e3),
         "class_sum_b1_ms": cs1_ms,
-        "flush_profile": prof,
+        "flush_profile": prof, "dense": dense_cmp,
         "launches": {"stacked": counts_stacked, "edge": counts_edge},
         "build_s": build_s}
     print(json.dumps({"serving": serving}))

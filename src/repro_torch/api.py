@@ -196,11 +196,16 @@ def tile_for(*specs: TMSpec, x: int = 128, y: int = 128, m: int = 128,
 
 def compile(tile: Optional[TileConfig] = None, device: Device = None,
             rand_bits: int = 16, kernel_path: Optional[str] = None,
-            skip: bool = True) -> DTMEngine:
+            skip: bool = True, ta_prng: str = "inkernel") -> DTMEngine:
     """Build the one engine for a geometry (on the card unless ``device``
-    says otherwise).  ``skip=False`` trains with the dense TA update."""
+    says otherwise).  ``kernel_path`` forces a clause datapath (``mxu``,
+    ``packed_vpu``, ``mxu_popcount`` or ``fused``), ``skip=False`` trains
+    with the dense TA update and ``ta_prng="stream"`` with the streamed
+    random words: the JAX package's ``REPRO_KERNEL_PATH``, ``REPRO_SKIP``
+    and ``REPRO_TA_PRNG``, as arguments."""
     return DTMEngine(tile or TileConfig(), rand_bits=rand_bits,
-                     device=device, kernel_path=kernel_path, skip=skip)
+                     device=device, kernel_path=kernel_path, skip=skip,
+                     ta_prng=ta_prng)
 
 
 class TM:

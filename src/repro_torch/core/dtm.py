@@ -26,10 +26,18 @@ update emits the new include bitplane, and the weight nudges are exact
 integer scatter-adds.  Steps return new programs; the inputs are left as
 they were.  No step reads the device from the host.
 
+A forced ``kernel_path="mxu"`` runs the dense clause kernel on int8
+literals and include unpacked on the device (``clause_eval``; in training
+the unfused front half: ``clause_eval``, ``class_sum`` and the torch
+selection); ``ta_prng="stream"`` makes the TA update read its random
+words from a pre-made [K, 2B, R, L] tensor (the streamed baseline, dense
+update).  Both give the same results as the default paths.
+
 Per stage the engine records the kernels it ran in
-``cache_report()["path_per_stage"]``: ``packed_vpu``, ``mxu_popcount`` or
-``fused`` for the clause stage, ``<stage>_ta`` = ``compact``/``dense`` and
-``<stage>_prng`` = ``counter-inkernel``/``lfsr-inkernel``.
+``cache_report()["path_per_stage"]``: ``packed_vpu``, ``mxu_popcount``,
+``mxu`` or ``fused`` for the clause stage, ``<stage>_ta`` =
+``compact``/``dense`` and ``<stage>_prng`` = ``<family>-inkernel`` or
+``<family>-stream`` (family ``counter`` or ``lfsr``).
 """
 from __future__ import annotations
 
@@ -43,7 +51,7 @@ import torch
 
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import M32, NEG_INF_SUM, pack_include
-from .booleanize import pack_literals, words_from_u32
+from .booleanize import pack_literals, unpack_literals, words_from_u32
 from .device import Device, resolve_device
 from .evaluate import epoch_record
 from .prng import PRNG
@@ -117,22 +125,27 @@ class DTMEngine:
     """Tiled TM executor (inference and training) on one device.
 
     ``device`` defaults to CUDA (the kernels); ``device="cpu"`` runs the
-    kernels' plain versions.  ``kernel_path`` forces one clause kernel
-    (:data:`repro_torch.kernels.ops.PATHS`) instead of the batch-based
+    kernels' plain versions.  ``kernel_path`` forces one clause datapath
+    (:data:`repro_torch.kernels.ops.PATHS`: the JAX package's
+    ``REPRO_KERNEL_PATH``, as an argument) instead of the batch-based
     choice of :func:`repro_torch.kernels.ops.select_path`.  ``skip``
-    selects the Alg-6 compacted TA update (the JAX package's
-    ``REPRO_SKIP``, as an argument); off, every step runs the dense one.
-    Both give the same states.
+    selects the Alg-6 compacted TA update (``REPRO_SKIP``); off, every
+    step runs the dense one.  ``ta_prng`` is the provenance of the TA
+    update's random words (``REPRO_TA_PRNG``): ``"inkernel"`` (made in the
+    kernel) or ``"stream"`` (made first as a tensor, read by the dense
+    streamed kernel).  Every choice gives the same states.
     """
 
     def __init__(self, tile: TileConfig, rand_bits: int = 16,
                  device: Device = None, kernel_path: Optional[str] = None,
-                 skip: bool = True):
+                 skip: bool = True, ta_prng: str = kops.TA_PRNG_INKERNEL):
         self.device = resolve_device(device)
         if kernel_path is not None:
             kops.select_path(1, force=kernel_path)      # validates the name
+        kops.select_ta_path(ta_prng=ta_prng)            # validates the name
         self.kernel_path = kernel_path
         self.skip = skip
+        self.ta_prng = ta_prng
         self.tile = tile
         self.rand_bits = rand_bits
         self.L, self.R, self.H = tile.padded_dims()
@@ -263,6 +276,10 @@ class DTMEngine:
     # ------------------------------------------------------------------ #
     def _eval_path(self, batch: int, stage: str) -> str:
         path = kops.select_path(batch, force=self.kernel_path)
+        if path == kops.PATH_FUSED:
+            # the fused kernel exists for train steps only; eval stages run
+            # its dense front half, as in the JAX engine
+            path = kops.PATH_MXU
         self._stage_paths[stage] = path
         return path
 
@@ -270,9 +287,16 @@ class DTMEngine:
                         eval_mode: bool, stage: str) -> torch.Tensor:
         """Clause stage: packed [K, B, W] literals -> [K, B, R] int32."""
         path = self._eval_path(plits.shape[1], stage)
-        op = (kops.packed_clause_eval if path == kops.PATH_PACKED
-              else kops.packed_clause_tile)
-        cl = op(plits, progs.inc, eval_mode=eval_mode, n_bits=self.L)
+        if path == kops.PATH_MXU:
+            # int8 literals and include unpacked on the device; padded TA
+            # columns are never included, so include honours l_mask
+            cl = kops.clause_eval(unpack_literals(plits, self.L),
+                                  unpack_literals(progs.inc, self.L),
+                                  eval_mode=eval_mode)
+        else:
+            op = (kops.packed_clause_eval if path == kops.PATH_PACKED
+                  else kops.packed_clause_tile)
+            cl = op(plits, progs.inc, eval_mode=eval_mode, n_bits=self.L)
         return cl * progs.cl_mask[:, None, :]
 
     def _class_sums_raw(self, progs: DTMProgram, cl: torch.Tensor
@@ -331,19 +355,26 @@ class DTMEngine:
                      cls_lab: torch.Tensor, neg: torch.Tensor,
                      sel_rand: torch.Tensor, stage: str):
         """Front half (clause eval → class sums → Alg-3 selection, both
-        rounds): ``fused`` in one launch, or the packed stages on the edge
-        (``packed_vpu``) or tile (``mxu_popcount``) clause kernel."""
+        rounds): ``fused`` in one launch, the packed stages on the edge
+        (``packed_vpu``) or tile (``mxu_popcount``) clause kernel, or the
+        unfused dense stages (``mxu``)."""
         path = kops.select_path(plits.shape[1], force=self.kernel_path,
                                 training=True)
         self._stage_paths[stage] = path
-        op = (kops.fused_step_op if path == kops.PATH_FUSED
-              else kops.packed_step_op)
-        kw = {} if path == kops.PATH_FUSED else {
-            "mxu": path == kops.PATH_PACKED_MXU}
-        return op(plits, progs.inc, progs.weights, cls_lab, neg,
-                  sel_rand.to(torch.int32), progs.cl_mask, progs.h_mask,
-                  progs.T, progs.w_frozen.to(torch.int32),
-                  rand_bits=self.rand_bits, n_bits=self.L, **kw)
+        rest = (progs.weights, cls_lab, neg, sel_rand.to(torch.int32),
+                progs.cl_mask, progs.h_mask, progs.T,
+                progs.w_frozen.to(torch.int32))
+        if path == kops.PATH_MXU:
+            return kops.unfused_step_op(
+                unpack_literals(plits, self.L),
+                unpack_literals(progs.inc, self.L), *rest,
+                rand_bits=self.rand_bits)
+        if path == kops.PATH_FUSED:
+            return kops.fused_step_op(plits, progs.inc, *rest,
+                                      rand_bits=self.rand_bits, n_bits=self.L)
+        return kops.packed_step_op(plits, progs.inc, *rest,
+                                   rand_bits=self.rand_bits, n_bits=self.L,
+                                   mxu=path == kops.PATH_PACKED_MXU)
 
     def _train_impl(self, progs: DTMProgram, prngs: PRNG,
                     plits: torch.Tensor, labels: torch.Tensor, lanes: int,
@@ -407,15 +438,16 @@ class DTMEngine:
         sel_neg = torch.where(regb, zero, sel_neg)
 
         # TA update over both rounds joined into one 2B batch (target
-        # rows, then negated rows), streams made in the kernel
+        # rows, then negated rows), streams made in the kernel (or, for
+        # the streamed baseline, made first and read by the kernel)
         lit2 = torch.cat([plits, plits], dim=1)
         cl2 = torch.cat([cl, cl], dim=1)
         t1 = torch.cat([t1_lab, t1_neg], dim=1)
         t2 = torch.cat([t2_lab, t2_neg], dim=1)
-        ta_path = kops.select_ta_path(lanes, self.skip)
+        ta_path = kops.select_ta_path(lanes, self.skip, self.ta_prng)
         family = "lfsr" if prngs.backend == "lfsr" else "counter"
         self._stage_paths[stage + "_ta"] = ta_path
-        self._stage_paths[stage + "_prng"] = f"{family}-inkernel"
+        self._stage_paths[stage + "_prng"] = f"{family}-{self.ta_prng}"
         kw = dict(seed=ta_seed, p_ta=progs.p_ta, boost=progs.boost,
                   n_states=progs.n_states, rand_bits=rb, prng=family,
                   lfsr_bits=prngs.lfsr_bits, seed_refresh=prngs.seed_refresh)
@@ -425,7 +457,8 @@ class DTMEngine:
                 inplace=donate, **kw)
         else:
             new_ta, new_inc = kops.ta_update_op(
-                progs.ta, lit2, cl2, t1, t2, progs.l_mask, **kw)
+                progs.ta, lit2, cl2, t1, t2, progs.l_mask,
+                stream=self.ta_prng == kops.TA_PRNG_STREAM, **kw)
 
         new_w, stats = self._weights_and_stats(
             progs, cl, sel_lab, sel_neg, cls_lab, neg, correct, abs_err)

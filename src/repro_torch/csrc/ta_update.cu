@@ -1,4 +1,4 @@
-// Batched TA update (the paper's Alg 5) on Hopper (sm_90a): two entry
+// Batched TA update (the paper's Alg 5) on Hopper (sm_90a): three entry
 // points, one tile body.
 //
 //   new_ta[k, r, c] = clip(ta + l_mask[c] · Σ_b delta_b(r, c), 0, n_states − 1)
@@ -16,7 +16,12 @@
 // inc in place, so the groups left alone cost no traffic.  A slot at or
 // past the program's count exits, so the host never reads the count; a
 // slot that repeats an earlier slot's group exits too, so no group is
-// updated twice.  Both make their random numbers in the kernel, one stream
+// updated twice.  dtm_ta_update_streamed replaces ta_update.py:
+// ta_update_streamed, the streamed baseline of the in-kernel generator:
+// the dense update, each TA's random word read from a pre-made
+// rands[k, b, r, c] tensor (the same numbers), only where a Type I delta
+// needs it; it is bound by the bytes of rands.  The other two make their
+// random numbers in the kernel, one stream
 // per TA keyed on key = (row0 + row) · stride + col (uint32), stride = L
 // rounded up to 256: the JAX package's keying, so the states are bit
 // for bit the reference's.  One stream step per batch row, whether or not
@@ -84,32 +89,19 @@ struct Stream {   // static stream configuration
   uint32_t taps;
 };
 
-// Update TA (r, c) of one program; every lane of the warp calls this with
-// the same r, and the lanes of columns >= L still take part in the ballot.
-template <typename TA>
-__device__ void update_row(const TA* ta, TA* out, uint32_t* inc_out, int r, int c, int L, int W,
-                           long long row_off, long long inc_off, int B2,
-                           const uint32_t* s_lit, const uint8_t* s_fb, bool active,
-                           const int32_t* __restrict__ l_mask, const Params& p,
-                           const Stream& s) {
-  const bool col_ok = c < L;
-  const int32_t old = col_ok ? static_cast<int32_t>(ta[row_off + c]) : 0;
-  const bool include = old >= (p.n_states >> 1);
-  int32_t delta = 0;
-  if (active && col_ok) {
-    const uint32_t stride = static_cast<uint32_t>((L + kKeyTile - 1) / kKeyTile * kKeyTile);
-    const uint32_t key = (p.row0 + static_cast<uint32_t>(r)) * stride + static_cast<uint32_t>(c);
-    const uint32_t lmask = (s.lfsr_bits >= 32) ? 0xffffffffu : ((1u << s.lfsr_bits) - 1u);
-    const uint32_t rmask = (s.rand_bits >= 32) ? 0xffffffffu : ((1u << s.rand_bits) - 1u);
-    const uint32_t period = lmask;   // 2^L − 1
-    uint32_t st = s.lfsr ? lfsr_seed(p.seed, key, lmask) : splitmix32(p.seed ^ key);
-    uint32_t master = p.seed, cycles = 0u;
-    const int bit = c & 31;
-    for (int b = 0; b < B2; ++b) {
-      uint32_t rnd;
+// The random words of TA (r, c), made in the kernel: the stream is seeded
+// from (seed, key) and advances one step per batch row.
+struct InKernel {
+  Stream s;
+
+  struct Gen {
+    Stream s;
+    uint32_t st, master, cycles, key, lmask, rmask, rnd;
+
+    __device__ __forceinline__ void step() {   // every batch row
       if (s.lfsr) {
         st = (st & 1u) ? ((st >> 1) ^ s.taps) : (st >> 1);
-        if (s.seed_refresh && ++cycles >= period) {
+        if (s.seed_refresh && ++cycles >= lmask) {   // lmask = 2^L − 1, the period
           master = xorshift32(master);
           st = lfsr_seed(master, key, lmask);
           cycles = 0u;
@@ -122,12 +114,74 @@ __device__ void update_row(const TA* ta, TA* out, uint32_t* inc_out, int r, int 
         st = xorshift32(st);
         rnd = st >> (32 - s.rand_bits);
       }
+    }
+
+    __device__ __forceinline__ uint32_t word() const { return rnd; }
+  };
+
+  __device__ __forceinline__ Gen start(int, int r, int c, int L, const Params& p) const {
+    const uint32_t stride = static_cast<uint32_t>((L + kKeyTile - 1) / kKeyTile * kKeyTile);
+    Gen g;
+    g.s = s;
+    g.key = (p.row0 + static_cast<uint32_t>(r)) * stride + static_cast<uint32_t>(c);
+    g.lmask = (s.lfsr_bits >= 32) ? 0xffffffffu : ((1u << s.lfsr_bits) - 1u);
+    g.rmask = (s.rand_bits >= 32) ? 0xffffffffu : ((1u << s.rand_bits) - 1u);
+    g.st = s.lfsr ? lfsr_seed(p.seed, g.key, g.lmask) : splitmix32(p.seed ^ g.key);
+    g.master = p.seed;
+    g.cycles = 0u;
+    return g;
+  }
+};
+
+// The random words of TA (r, c) of program k, read from a pre-made
+// rands[k, b, r, c] (uint32 bit patterns; the streamed baseline).
+struct Streamed {
+  const uint32_t* rands;
+  int B2, C;
+
+  struct Gen {
+    const uint32_t* base;   // rands[k, 0, r, c]
+    long long stride, off;  // C·L; the offset of the current batch row
+
+    __device__ __forceinline__ void step() { off += stride; }
+    // read only where a Type I delta needs it
+    __device__ __forceinline__ uint32_t word() const { return __ldg(base + off); }
+  };
+
+  __device__ __forceinline__ Gen start(int k, int r, int c, int L, const Params&) const {
+    const long long row = static_cast<long long>(k) * B2 * C + r;
+    const long long stride = static_cast<long long>(C) * L;
+    return Gen{rands + row * L + c, stride, -stride};
+  }
+};
+
+// Update TA (r, c) of program k; every lane of the warp calls this with
+// the same r, and the lanes of columns >= L still take part in the ballot.
+// Src supplies each batch row's random word (InKernel or Streamed): step()
+// once per batch row, word() where a Type I delta reads it.
+template <typename TA, typename Src>
+__device__ void update_row(const TA* ta, TA* out, uint32_t* inc_out, int k, int r, int c, int L,
+                           int W, long long row_off, long long inc_off, int B2,
+                           const uint32_t* s_lit, const uint8_t* s_fb, bool active,
+                           const int32_t* __restrict__ l_mask, const Params& p,
+                           const Src& src) {
+  const bool col_ok = c < L;
+  const int32_t old = col_ok ? static_cast<int32_t>(ta[row_off + c]) : 0;
+  const bool include = old >= (p.n_states >> 1);
+  int32_t delta = 0;
+  if (active && col_ok) {
+    auto gen = src.start(k, r, c, L, p);
+    const int bit = c & 31;
+    for (int b = 0; b < B2; ++b) {
+      gen.step();
       const uint8_t fb = s_fb[b];          // bit 0 clause, 1 type I, 2 type II
       if (fb & 6u) {
-        const bool low = rnd < p.p_ta;
         const bool lit_on = (s_lit[b] >> bit) & 1u;
         const bool cl_and_lit = (fb & 1u) && lit_on;
-        if (fb & 2u) delta += cl_and_lit ? ((p.boost || !low) ? 1 : 0) : (low ? -1 : 0);
+        if (fb & 2u) {
+          const bool low = gen.word() < p.p_ta;
+          delta += cl_and_lit ? ((p.boost || !low) ? 1 : 0) : (low ? -1 : 0);
+        }
         if ((fb & 4u) && (fb & 1u) && !lit_on && !include) delta += 1;
       }
     }
@@ -141,13 +195,13 @@ __device__ void update_row(const TA* ta, TA* out, uint32_t* inc_out, int r, int 
 
 // One block: kRowsPerBlock clause rows (from row0_blk) × 32 columns
 // (word blockIdx.x) of program k.
-template <typename TA>
+template <typename TA, typename Src>
 __device__ void tile(const TA* ta, const uint32_t* __restrict__ lit,
                      const int8_t* __restrict__ cl, const int8_t* __restrict__ t1,
                      const int8_t* __restrict__ t2, const int32_t* __restrict__ l_mask,
                      const int32_t* __restrict__ params, TA* out, uint32_t* inc_out,
                      int k, int row0_blk, int C, int L,
-                     int W, int B2, const Stream& s) {
+                     int W, int B2, const Src& src) {
   extern __shared__ __align__(16) uint32_t smem[];
   uint32_t* s_lit = smem;                                           // [B2]
   uint8_t* s_fb = reinterpret_cast<uint8_t*>(smem + B2);            // [rows][B2]
@@ -181,8 +235,8 @@ __device__ void tile(const TA* ta, const uint32_t* __restrict__ lit,
   p.row0 = static_cast<uint32_t>(pk[4]);
   const long long row_off = (static_cast<long long>(k) * C + r) * L;
   const long long inc_off = (static_cast<long long>(k) * C + r) * W;
-  update_row<TA>(ta, out, inc_out, r, wd * 32 + lane, L, W, row_off, inc_off, B2, s_lit,
-                 s_fb + warp * B2, active, l_mask + static_cast<long long>(k) * L, p, s);
+  update_row<TA, Src>(ta, out, inc_out, k, r, wd * 32 + lane, L, W, row_off, inc_off, B2, s_lit,
+                      s_fb + warp * B2, active, l_mask + static_cast<long long>(k) * L, p, src);
 }
 
 template <typename TA>
@@ -193,7 +247,19 @@ ta_update_dense(const TA* __restrict__ ta, const uint32_t* __restrict__ lit,
                 const int32_t* __restrict__ params, TA* __restrict__ out,
                 uint32_t* __restrict__ inc_out, int C, int L, int W, int B2, Stream s) {
   tile<TA>(ta, lit, cl, t1, t2, l_mask, params, out, inc_out, blockIdx.z,
-           blockIdx.y * kRowsPerBlock, C, L, W, B2, s);
+           blockIdx.y * kRowsPerBlock, C, L, W, B2, InKernel{s});
+}
+
+template <typename TA>
+__global__ void __launch_bounds__(kThreads)
+ta_update_streamed(const TA* __restrict__ ta, const uint32_t* __restrict__ lit,
+                   const int8_t* __restrict__ cl, const int8_t* __restrict__ t1,
+                   const int8_t* __restrict__ t2, const int32_t* __restrict__ l_mask,
+                   const int32_t* __restrict__ params, const uint32_t* __restrict__ rands,
+                   TA* __restrict__ out, uint32_t* __restrict__ inc_out, int C, int L, int W,
+                   int B2) {
+  tile<TA>(ta, lit, cl, t1, t2, l_mask, params, out, inc_out, blockIdx.z,
+           blockIdx.y * kRowsPerBlock, C, L, W, B2, Streamed{rands, B2, C});
 }
 
 template <typename TA>
@@ -212,7 +278,8 @@ ta_update_sparse(TA* ta, const uint32_t* __restrict__ lit, const int8_t* __restr
   for (int j = 0; j < slot; ++j)          // an earlier slot owns this group
     if (__ldg(idx_k + j) == g) return;
   tile<TA>(ta, lit, cl, t1, t2, l_mask, params, ta, inc, k,
-           g * kGroup + (blockIdx.y % kTilesPerGroup) * kRowsPerBlock, C, L, W, B2, s);
+           g * kGroup + (blockIdx.y % kTilesPerGroup) * kRowsPerBlock, C, L, W, B2,
+           InKernel{s});
 }
 
 Stream make_stream(int lfsr, int lfsr_bits, int seed_refresh, int rand_bits,
@@ -282,5 +349,35 @@ extern "C" int dtm_ta_update_sparse(void* ta, const void* lit, const void* cl,
   else
     ta_update_sparse<int32_t><<<grid, kThreads, smem, st>>>(
         static_cast<int32_t*>(ta), lp, c8, a8, b8, lm, pr, ix, cn, io, C, L, W, B2, S, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dtm_ta_update with the random words read from rands [K, B2, C, L]
+// (uint32 bit patterns) instead of the in-kernel streams; params' seed and
+// row0 are unused.
+extern "C" int dtm_ta_update_streamed(const void* ta, const void* lit, const void* cl,
+                                      const void* t1, const void* t2, const void* l_mask,
+                                      const void* params, const void* rands, void* out,
+                                      void* inc_out, int K, int C, int L, int W, int B2,
+                                      int ta_bytes, void* stream) {
+  const dim3 grid(W, (C + kRowsPerBlock - 1) / kRowsPerBlock, K);
+  const size_t smem = dtm_ta_update_smem(B2);
+  auto st = static_cast<cudaStream_t>(stream);
+  const auto* lp = static_cast<const uint32_t*>(lit);
+  const auto* c8 = static_cast<const int8_t*>(cl);
+  const auto* a8 = static_cast<const int8_t*>(t1);
+  const auto* b8 = static_cast<const int8_t*>(t2);
+  const auto* lm = static_cast<const int32_t*>(l_mask);
+  const auto* pr = static_cast<const int32_t*>(params);
+  const auto* rd = static_cast<const uint32_t*>(rands);
+  auto* io = static_cast<uint32_t*>(inc_out);
+  if (ta_bytes == 1)
+    ta_update_streamed<uint8_t><<<grid, kThreads, smem, st>>>(
+        static_cast<const uint8_t*>(ta), lp, c8, a8, b8, lm, pr, rd,
+        static_cast<uint8_t*>(out), io, C, L, W, B2);
+  else
+    ta_update_streamed<int32_t><<<grid, kThreads, smem, st>>>(
+        static_cast<const int32_t*>(ta), lp, c8, a8, b8, lm, pr, rd,
+        static_cast<int32_t*>(out), io, C, L, W, B2);
   return static_cast<int>(cudaGetLastError());
 }

@@ -31,6 +31,27 @@ def clause_eval_ref(literals: torch.Tensor, include: torch.Tensor,
     return fired.to(torch.int32)
 
 
+def clause_eval_viol_ref(literals: torch.Tensor, include: torch.Tensor,
+                         eval_mode: bool = False) -> torch.Tensor:
+    """:func:`clause_eval_ref` in the violation-count form,
+    ``viol[b, c] = Σ_l (1 − lit[b, l]) · inc[c, l]``, fired iff
+    ``viol == 0`` (and, in eval mode, row c has an include).  It holds
+    [B, L] and [C, L] operands, never the [B, C, L] broadcast.
+
+    The product runs in float32 because PyTorch has no integer matmul on
+    the card.  It is exact: every term is 0 or 1, and the count is below
+    2^24 (checked)."""
+    n = literals.shape[-1]
+    if n >= (1 << 24):
+        raise ValueError(f"{n} literals exceed float32's exact integer range")
+    neg = (literals == 0).to(torch.float32)
+    inc = (include != 0).to(torch.float32)
+    fired = torch.matmul(neg, inc.transpose(-1, -2)) == 0
+    if eval_mode:
+        fired &= (include != 0).any(dim=-1).unsqueeze(-2)
+    return fired.to(torch.int32)
+
+
 def pack_bitplane(bits: torch.Tensor) -> torch.Tensor:
     """{0,1} [..., n] -> packed words [..., ceil(n/32)], little-endian."""
     return pack_literals(bits)
@@ -88,24 +109,14 @@ def packed_clause_mxu_ref(packed_literals: torch.Tensor,
                           packed_include: torch.Tensor,
                           eval_mode: bool = False,
                           n_bits: int | None = None) -> torch.Tensor:
-    """Popcount-as-matmul recast of :func:`packed_clause_eval_ref`:
-    ``viol[b, c] = Σ_l inc[c, l]·(1 − lit[b, l])``, fired iff viol == 0.
-
-    The product runs in float32 because PyTorch has no integer matmul on
-    the card.  It is exact: every term is 0 or 1, and the count is below
-    2^24 (checked)."""
+    """Popcount-as-matmul recast of :func:`packed_clause_eval_ref`: the
+    violation-count form (:func:`clause_eval_viol_ref`) on the unpacked
+    bitplanes."""
     if n_bits is not None:
         packed_include = tail_mask_words(packed_include, n_bits)
-    n = 32 * packed_include.shape[-1]
-    if n >= (1 << 24):
-        raise ValueError(f"{n} literals exceed float32's exact integer range")
-    lit = unpack_bitplanes_i8(packed_literals).to(torch.float32)
-    inc = unpack_bitplanes_i8(packed_include).to(torch.float32)
-    viol = torch.matmul(1.0 - lit, inc.transpose(-1, -2))
-    fired = viol == 0
-    if eval_mode:
-        fired &= (packed_include != 0).any(dim=-1).unsqueeze(-2)
-    return fired.to(torch.int32)
+    return clause_eval_viol_ref(unpack_bitplanes_i8(packed_literals),
+                                unpack_bitplanes_i8(packed_include),
+                                eval_mode)
 
 
 def class_sum_ref(clauses: torch.Tensor, weights: torch.Tensor
@@ -115,6 +126,15 @@ def class_sum_ref(clauses: torch.Tensor, weights: torch.Tensor
     prod = clauses.to(torch.int32).unsqueeze(-2) * \
         weights.to(torch.int32).unsqueeze(-3)
     return prod.sum(dim=-1, dtype=torch.int32)
+
+
+def tm_infer_ref(literals: torch.Tensor, include: torch.Tensor,
+                 weights: torch.Tensor, eval_mode: bool = True
+                 ) -> torch.Tensor:
+    """Fused inference oracle: literals [..., B, L], include [..., C, L],
+    weights [..., H, C] -> unpinned class sums [..., B, H] int32."""
+    return class_sum_ref(clause_eval_ref(literals, include, eval_mode),
+                         weights)
 
 
 # ---------------------------------------------------------------------------
@@ -262,15 +282,19 @@ def ta_rand_stream(seed, batch: int, C: int, L: int, rand_bits: int = 16,
                    seed_refresh: bool = True, xt: int = 256, row_idx=None,
                    device=None) -> torch.Tensor:
     """The TA-update random stream as a tensor [..., batch, C, L]: the
-    numbers the in-kernel generator consumes, one row per batch row."""
+    numbers the in-kernel generator consumes, one row per batch row, as
+    int32 tensors holding their uint32 bit patterns.  Each row is written
+    into one preallocated tensor as it is made (4 bytes per number)."""
     key = stream_keys(C, L, xt, row_idx, device)
     st = stream_start(seed, key, prng, lfsr_bits)
-    rows = []
-    for _ in range(batch):
+    lead = torch.broadcast_shapes(st[0].shape, key.shape)[:-2]
+    out = torch.empty((*lead, batch, C, L), dtype=torch.int32,
+                      device=key.device)
+    for b in range(batch):
         st, rand = stream_advance(st, key, prng, lfsr_bits, seed_refresh,
                                   rand_bits)
-        rows.append(rand)
-    return torch.stack(rows, dim=-3)
+        out[..., b, :, :] = words_from_u32(rand)
+    return out
 
 
 def _ta_delta_step(rand, lit_b, cl_b, t1_b, t2_b, include, p_ta, boost):
@@ -321,7 +345,7 @@ def ta_update_ref(ta, literals, clause_out, type1, type2, l_mask, seed,
             st, rand = stream_advance(st, key, prng, lfsr_bits, seed_refresh,
                                       rand_bits)
         else:
-            rand = rands[..., b, :, :]
+            rand = rands[..., b, :, :].to(torch.int64) & M32
         delta = delta + _ta_delta_step(
             rand, literals[..., b, :], clause_out[..., b, :],
             type1[..., b, :], type2[..., b, :], include, p, boost)

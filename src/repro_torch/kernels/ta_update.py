@@ -1,8 +1,8 @@
 """Batched TA update (Alg 5): the Hopper kernels and their plain versions.
 
-Both entry points update a bank of K programs' TA states with their
-in-kernel random streams and emit the packed include bitplane of the
-updated states in the same launch:
+The entry points update a bank of K programs' TA states with their
+random streams and emit the packed include bitplane of the updated states
+in the same launch:
 
     ta      [K, C, L]   uint8 (int32 when ta_bits > 8)
     lits    [K, 2B, W]  packed literal words (int32 bits; W = ceil(L/32)),
@@ -17,6 +17,11 @@ updated states in the same launch:
 
 * :func:`ta_update` — ``csrc/ta_update.cu:dtm_ta_update``, every row, into
   new tensors.  It replaces ``repro/kernels/ta_update.py:ta_update``.
+* :func:`ta_update_streamed` — ``csrc/ta_update.cu:dtm_ta_update_streamed``,
+  the dense update with each TA's random words read from a pre-made
+  ``rands [K, 2B, C, L]`` (int32 bit patterns, :func:`stream_rands`)
+  instead of the in-kernel streams: the streamed baseline.  It replaces
+  ``repro/kernels/ta_update.py:ta_update_streamed``.
 * :func:`ta_update_sparse` — ``csrc/ta_update.cu:dtm_ta_update_sparse``,
   only the 128-row clause groups ``tile_idx[k, :count[k]]`` (the others
   keep ``ta`` and ``inc``); duplicates are harmless.  It replaces
@@ -48,6 +53,8 @@ _DENSE_ARGTYPES = (_COMMON + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 10
                    + [ctypes.c_uint, ctypes.c_void_p])
 _SPARSE_ARGTYPES = (_COMMON + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11
                     + [ctypes.c_uint, ctypes.c_void_p])
+_STREAMED_ARGTYPES = (_COMMON + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+                      + [ctypes.c_void_p])
 
 
 def _params(K: int, seed, p_ta, boost, n_states, row0, device
@@ -126,6 +133,39 @@ def ta_update_plain(ta, lits, cl, t1, t2, l_mask, seed, p_ta, boost,
                        prng, lfsr_bits, seed_refresh)
     return (torch.stack([d[0] for d in done]).to(ta.dtype),
             torch.stack([d[1] for d in done]))
+
+
+def stream_rands(K: int, B2: int, C: int, L: int, seed, device, row0=0,
+                 rand_bits: int = 16, prng: str = "counter",
+                 lfsr_bits: int = 24, seed_refresh: bool = True
+                 ) -> torch.Tensor:
+    """The numbers the in-kernel streams of :func:`ta_update` consume, as
+    ``rands`` int32 [K, B2, C, L] (``ref.ta_rand_stream`` keyed on the
+    kernel's padded stride and the rows ``row0 + r``), made on ``device``
+    without a host read."""
+    _check_stream(prng, lfsr_bits, rand_bits)
+    p = _params(K, seed, 0, 0, 0, row0, device).to(torch.int64) & ref.M32
+    rows = p[:, 4:5] + torch.arange(C, dtype=torch.int64, device=device)
+    return ref.ta_rand_stream(p[:, 0], B2, C, L, rand_bits, prng, lfsr_bits,
+                              seed_refresh, row_idx=rows, device=device)
+
+
+def ta_update_streamed_plain(ta, lits, cl, t1, t2, l_mask, rands, p_ta,
+                             boost, n_states):
+    """Plain version of :func:`ta_update_streamed` (``ref.ta_update_ref``
+    on the given random words)."""
+    K, C, L = ta.shape
+    params = _params(K, 0, p_ta, boost, n_states, 0, ta.device)
+    news, incs = [], []
+    for k in range(K):
+        p = params[k].to(torch.int64) & ref.M32
+        new = ref.ta_update_ref(
+            ta[k], unpack_literals(lits[k], L), cl[k], t1[k], t2[k],
+            l_mask[k], 0, p[1], boost=p[2] != 0, n_states=p[3],
+            rands=rands[k])
+        news.append(new)
+        incs.append(ref.pack_include(new, p[3]))
+    return torch.stack(news).to(ta.dtype), torch.stack(incs)
 
 
 def ta_update_sparse_plain(ta, lits, cl, t1, t2, l_mask, inc, tile_idx,
@@ -284,5 +324,39 @@ def ta_update_sparse(ta, lits, cl, t1, t2, l_mask, inc, tile_idx, count,
     return out, new_inc
 
 
+def ta_update_streamed(ta, lits, cl, t1, t2, l_mask, rands, p_ta, boost,
+                       n_states):
+    """Dense TA update of K programs with pre-made random words ``rands``
+    int32 [K, 2B, C, L] (module docstring; :func:`stream_rands` makes the
+    ones the in-kernel streams would use)."""
+    K, C, L, W, B2 = _check(ta, lits, cl, t1, t2, l_mask)
+    if tuple(rands.shape) != (K, B2, C, L) or rands.dtype != torch.int32:
+        raise ValueError(f"rands must be int32 {(K, B2, C, L)}, got "
+                         f"{rands.dtype} {tuple(rands.shape)}")
+    if _route(ta, lits, cl, t1, t2, l_mask, rands) == "cpu":
+        return ta_update_streamed_plain(ta, lits, cl, t1, t2, l_mask, rands,
+                                        p_ta, boost, n_states)
+    dev = ta.device
+    lib, ops_ = _prepare(ta, lits, cl, t1, t2, l_mask)
+    params = _params(K, 0, p_ta, boost, n_states, 0, dev)
+    rands = rands.contiguous()
+    out = torch.empty_like(ops_[0])
+    inc = torch.empty((K, C, W), dtype=torch.int32, device=dev)
+    if out.numel() == 0:
+        return out, inc
+    fn = lib.dtm_ta_update_streamed
+    fn.argtypes = _STREAMED_ARGTYPES
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = fn(*(t.data_ptr() for t in ops_), params.data_ptr(),
+                    rands.data_ptr(), out.data_ptr(), inc.data_ptr(), K, C, L,
+                    W, B2, ta.element_size(), stream)
+    _build.check(lib, status, "dtm_ta_update_streamed")
+    ta_update_streamed.launches += 1
+    return out, inc
+
+
 ta_update.launches = 0
 ta_update_sparse.launches = 0
+ta_update_streamed.launches = 0

@@ -14,12 +14,16 @@ import torch
 
 from repro_torch import api
 from repro_torch.core.booleanize import pack_literals
-from repro_torch.kernels import ops
+from repro_torch.kernels import _build, ops
 from repro_torch.kernels.class_sum import class_sum, class_sum_plain
+from repro_torch.kernels.clause_eval import clause_eval, clause_eval_plain
+from repro_torch.kernels.tm_infer import tm_infer, tm_infer_plain
 from repro_torch.kernels.fused_step import fused_step, fused_step_plain
-from repro_torch.kernels.ta_update import (ta_update, ta_update_plain,
-                                           ta_update_sparse,
-                                           ta_update_sparse_plain)
+from repro_torch.kernels.ta_update import (stream_rands, ta_update,
+                                           ta_update_plain, ta_update_sparse,
+                                           ta_update_sparse_plain,
+                                           ta_update_streamed,
+                                           ta_update_streamed_plain)
 from repro_torch.kernels.packed_clause import (packed_clause_eval,
                                                packed_clause_eval_plain,
                                                packed_clause_tile,
@@ -110,7 +114,8 @@ def test_wrappers_count_launches_and_never_fall_back(dev):
     assert ops.launch_counts() == {"packed_clause_eval": 1,
                                    "packed_clause_tile": 1, "class_sum": 1,
                                    "fused_step": 0, "ta_update": 0,
-                                   "ta_update_sparse": 0}
+                                   "ta_update_sparse": 0, "clause_eval": 0,
+                                   "tm_infer": 0, "ta_update_streamed": 0}
     with pytest.raises(ValueError):
         packed_clause_eval(lit, inc.cpu())
     with pytest.raises(TypeError):
@@ -304,3 +309,136 @@ def test_train_steps_on_card_match_cpu(dev, backend, B):
     counts = ops.launch_counts()
     front = "fused_step" if B > 4 else "packed_clause_eval"
     assert counts[front] == 3 and counts["ta_update_sparse"] == 3
+
+
+def _dense_operands(K, B, C, L, dev, seed):
+    gen = torch.Generator().manual_seed(seed)
+    lit = (torch.rand((K, B, L), generator=gen) < 0.7).to(torch.int8)
+    inc = (torch.rand((K, C, L), generator=gen) < 0.01).to(torch.int8)
+    inc[:, ::7] = 0                      # empty clauses: the eval-mode gate
+    lit[:, :, :2] = 1
+    inc[:, 1::5, :] = 0
+    inc[:, 1::5, :2] = 1                 # clauses that fire
+    return lit.to(dev), inc.to(dev)
+
+
+DENSE = [(1, 1, 1, 1), (1, 5, 130, 200), (2, 32, 64, 16), (3, 33, 65, 257),
+         (4, 32, 4224, 3200), (1, 32, 2048, 1664), (2, 70, 300, 1000)]
+
+
+@pytest.mark.parametrize("K,B,C,L", DENSE)
+@pytest.mark.parametrize("eval_mode", [False, True])
+def test_clause_eval_kernel_matches_plain(dev, K, B, C, L, eval_mode):
+    lit, inc = _dense_operands(K, B, C, L, dev, K + B + C + L)
+    want = clause_eval_plain(lit, inc, eval_mode)
+    got = clause_eval(lit, inc, eval_mode)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    if C > 1:
+        assert 0 < int(want.sum()) < want.numel()
+    # rows one byte off 16-byte alignment: the byte-load staging
+    base = torch.zeros(inc.numel() + 1, dtype=torch.int8, device=dev)
+    base[1:] = inc.reshape(-1)
+    assert torch.equal(clause_eval(lit, base[1:].view(inc.shape), eval_mode),
+                       want)
+
+
+@pytest.mark.parametrize("K,B,C,L,H", [(1, 1, 1, 1, 1), (2, 5, 130, 200, 7),
+                                       (4, 32, 4224, 3200, 16),
+                                       (3, 33, 65, 257, 19),
+                                       (1, 40, 300, 96, 33)])
+@pytest.mark.parametrize("eval_mode", [False, True])
+def test_tm_infer_kernel_matches_plain(dev, K, B, C, L, H, eval_mode):
+    lit, inc = _dense_operands(K, B, C, L, dev, K * B + C + H)
+    gen = torch.Generator().manual_seed(H)
+    w = torch.randint(-2047, 2048, (K, H, C), generator=gen,
+                      dtype=torch.int32).to(dev)
+    got = tm_infer(lit, inc, w, eval_mode)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tm_infer_plain(lit, inc, w, eval_mode))
+    assert torch.equal(got, class_sum(clause_eval(lit, inc, eval_mode), w))
+
+
+@pytest.mark.parametrize("K,B2,C,L", [(1, 2, 1, 1), (2, 6, 37, 300),
+                                      (1, 64, 256, 1664), (2, 64, 130, 257)])
+@pytest.mark.parametrize("ta_bits", [8, 10])
+@pytest.mark.parametrize("stream", range(len(STREAMS)))
+def test_ta_update_streamed_kernel_matches_plain(dev, K, B2, C, L, ta_bits,
+                                                 stream):
+    ops_, scal = _ta_operands(K, B2, C, L, dev, K + C + L + stream, ta_bits)
+    kw = STREAMS[stream]
+    rands = stream_rands(K, B2, C, L, scal[0], dev, 300, **kw)
+    got = ta_update_streamed(*ops_, rands, *scal[1:])
+    torch.cuda.synchronize()
+    want = ta_update_streamed_plain(*ops_, rands, *scal[1:])
+    inkernel = ta_update(*ops_, *scal, row0=300, **kw)
+    for g, w, i in zip(got, want, inkernel):
+        assert g.dtype == w.dtype and torch.equal(g, w) and torch.equal(g, i)
+    # the engine's op builds the same stream itself
+    for g, w in zip(ops.ta_update_op(*ops_, *scal, row0=300, stream=True,
+                                     **kw), want):
+        assert torch.equal(g, w)
+
+
+def test_dense_kernels_raise_and_never_fall_back(dev, monkeypatch):
+    ops.reset_launch_counts()
+    lit, inc = _dense_operands(1, 3, 40, 64, dev, 0)
+    w = torch.ones((1, 2, 40), dtype=torch.int32, device=dev)
+    ops_, scal = _ta_operands(1, 4, 40, 64, dev, 1, 8)
+    rands = stream_rands(1, 4, 40, 64, scal[0], dev)
+    with pytest.raises(ValueError):
+        clause_eval(lit, inc.cpu())
+    with pytest.raises(ValueError):
+        ta_update_streamed(*ops_, rands.cpu(), *scal[1:])
+    # a launch the card refuses (a grid y of 65536 batch blocks) raises
+    big = torch.ones((1, 32 * 65536, 1), dtype=torch.int8, device=dev)
+    with pytest.raises(RuntimeError):
+        clause_eval(big, torch.ones((1, 1, 1), dtype=torch.int8,
+                                    device=dev))
+
+    def broken(name):
+        raise _build.KernelBuildError(f"{name} did not build")
+    monkeypatch.setattr(_build, "load", broken)
+    with pytest.raises(_build.KernelBuildError):
+        clause_eval(lit, inc)
+    with pytest.raises(_build.KernelBuildError):
+        tm_infer(lit, inc, w)
+    with pytest.raises(_build.KernelBuildError):
+        ta_update_streamed(*ops_, rands, *scal[1:])
+    assert ops.launch_counts()["clause_eval"] == 0
+    assert ops.launch_counts()["tm_infer"] == 0
+    assert ops.launch_counts()["ta_update_streamed"] == 0
+
+
+@pytest.mark.parametrize("force", [dict(kernel_path="mxu"),
+                                   dict(ta_prng="stream"),
+                                   dict(kernel_path="mxu", ta_prng="stream")])
+def test_dense_and_stream_paths_on_card_match_cpu(dev, force):
+    spec = api.TMSpec.coalesced(features=40, classes=5, clauses=300, T=20,
+                                prng_backend="lfsr")
+    tile = api.tile_for(spec)
+    cpu, p_c, r_c = _bridge(spec, tile, "cpu")
+    gpu = api.compile(tile, device="cuda", **force)
+    p_g, r_g = p_c.to(dev), r_c.to(dev)
+    rng = np.random.default_rng(7)
+    ops.reset_launch_counts()
+    for B in (3, 32):
+        x = (rng.random((B, 40)) < 0.5).astype(np.int8)
+        y = spec.encode_labels(rng.integers(0, 5, B))
+        s_c, c_c = cpu.infer(p_c, cpu.encode(spec, x))
+        s_g, c_g = gpu.infer(p_g, gpu.encode(spec, x))
+        assert torch.equal(s_c, s_g.cpu()) and torch.equal(c_c, c_g.cpu())
+        p_c, r_c, st_c = cpu.train_step(p_c, r_c, cpu.encode(spec, x), y)
+        p_g, r_g, st_g = gpu.train_step(p_g, r_g, gpu.encode(spec, x),
+                                        y.to(dev))
+        for a, b in zip(p_c.leaves() + r_c.leaves(),
+                        p_g.leaves() + r_g.leaves()):
+            assert torch.equal(a, b.cpu())
+        for k in st_c:
+            assert int(st_c[k]) == int(st_g[k]), k
+    counts = ops.launch_counts()
+    if force.get("kernel_path") == "mxu":
+        assert counts["clause_eval"] == 4 and counts["fused_step"] == 0
+    if force.get("ta_prng") == "stream":
+        assert counts["ta_update_streamed"] == 2
+        assert counts["ta_update_sparse"] == counts["ta_update"] == 0

@@ -224,7 +224,7 @@ def test_forced_kernel_path_gives_the_same_answer(engines):
     for x, y in zip(a, b):
         np.testing.assert_array_equal(x.numpy(), y.numpy())
     with pytest.raises(ValueError):
-        DTMEngine(teng.tile, device="cpu", kernel_path="fused")
+        DTMEngine(teng.tile, device="cpu", kernel_path="ref")
 
 
 def test_convert_round_trip_keeps_dtypes(engines):

@@ -191,7 +191,7 @@ def test_select_path_thresholds_and_force():
     assert tops.select_path(5) == tops.select_path(32) == "mxu_popcount"
     assert tops.select_path(32, force="packed_vpu") == "packed_vpu"
     with pytest.raises(ValueError):
-        tops.select_path(1, force="mxu")
+        tops.select_path(1, force="ref")     # the JAX jnp path: not ported
 
 
 def test_wrappers_reject_bad_operands():
