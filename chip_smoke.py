@@ -53,11 +53,13 @@ held-out rows):
  10. the training kernels against their plain versions at the path's
      shapes (fused_step K=1 B=32; ta_update and ta_update_streamed K=1
      and K=2 with 2B=64; ta_update_sparse at the fit's last step;
-     clause_eval K=1 B=32), timed as in phase 6; the streamed update with
-     its stream build beside the in-kernel update on the same inputs; the
-     in-place sparse update on those inputs with 1, 2, 4, ... of the
-     listed groups, beside the dense kernel on them; and one step under
-     torch.profiler.
+     clause_eval K=1 B=32), timed as in phase 6, the TA rows also as
+     ``kernel_ms``: the bare launch, its operands and scalars prepared
+     outside the graph (``prepare_ta_update*``), apart from the wrapper;
+     the streamed update with its stream build beside the in-kernel update
+     on the same inputs; the in-place sparse update on those inputs with
+     1, 2, 4, ... of the listed groups, beside the dense kernel on them;
+     and one step under torch.profiler.
 
 Bounds: bytes over 3.35 TB/s; integer operations over 64 per clock per
 SM (the CUDA guide's rate for 32-bit integer add, logic, shift, compare
@@ -77,7 +79,12 @@ clause output; one multiply-add per clause and class of a class sum
 (one add per fired clause and class in ``fused_step``); three per
 clause, batch row and round of the Alg-3 selection; and, for the TA
 update, the ``TA_*`` counts below per seed, stream step and delta, from
-this run's feedback bits.  No kernel here does float work.
+this run's feedback bits: the seed and stream steps only for the clause
+rows with Type I feedback (Type II reads no random word), no output
+shift, and the LFSR refresh count only where a refresh can fire within
+the call, 2B >= 2^lfsr_bits - 1.  ``bound_ms_before`` is the earlier
+count: streams for every clause row with feedback, the shift out and the
+refresh count on every step.  No kernel here does float work.
 
 Prints the card line, ``serving`` and ``training`` JSON lines, a
 ``kernels`` JSON line and, last, ``{"ok": true, "device": {...}}``.  Any
@@ -100,9 +107,14 @@ INT_OPS_PER_CLOCK_PER_SM = 64  # 32-bit integer add/logic/shift/compare/IMAD, cc
 # Integer operations of the TA update, from csrc/ta_update.cu's arithmetic:
 TA_SEED_OPS = {"counter": 11,  # key (multiply-add, add) and splitmix32 (9)
                "lfsr": 13}     # ... and the lane mask and nonzero select
-TA_STEP_OPS = {"counter": 7,   # xorshift32 (3 shifts, 3 xors), the shift out
-               "lfsr": 5}      # Galois shift (shift, bit test, xor, select), shift out
-TA_REFRESH_OPS = 2             # lfsr with seed_refresh: cycle count add, compare
+TA_STEP_OPS = {"counter": 6,   # xorshift32 (3 shifts, 3 xors)
+               "lfsr": 4}      # Galois shift (shift, bit test, xor, select)
+TA_SHIFT_OUT_OPS = 1           # the word's shift to rand_bits: no work, since the
+                               # compare can take a shifted threshold (counted
+                               # only by the earlier bound, bound_ms_before)
+TA_REFRESH_OPS = 2             # lfsr with seed_refresh: cycle count add, compare,
+                               # counted only where a refresh can fire within a
+                               # call (2B >= 2^lfsr_bits - 1)
 TA_DELTA_OPS = 6               # rand < p_ta, literal bit, Type I select and add,
                                # Type II test and add, per (TA, row with feedback)
 TA_CLIP_OPS = 3                # clip to [0, n_states - 1], the include compare
@@ -305,8 +317,10 @@ def main(argv=None) -> int:
     from repro_torch.core.prng import PRNG
     from repro_torch.kernels.fused_step import fused_step, fused_step_plain
     from repro_torch.kernels.ta_update import (
-        stream_rands, ta_update, ta_update_plain, ta_update_sparse,
-        ta_update_sparse_plain, ta_update_streamed, ta_update_streamed_plain)
+        prepare_ta_update, prepare_ta_update_sparse,
+        prepare_ta_update_streamed, stream_rands, ta_update, ta_update_plain,
+        ta_update_sparse, ta_update_sparse_plain, ta_update_streamed,
+        ta_update_streamed_plain)
     from repro_torch.core.booleanize import unpack_literals
     from repro_torch.kernels.clause_eval import clause_eval, clause_eval_plain
     from repro_torch.kernels.tm_infer import tm_infer, tm_infer_plain
@@ -758,12 +772,21 @@ def main(argv=None) -> int:
 
     def row(name, source, replaces, launches, err, kernel, plain, library,
             nbytes, nops, shape, plain_graph=True, rate=None,
-            library_note=None):
+            library_note=None, bare=None, nops_before=None):
         """One kernels-line entry.  The plain version is timed by graph
         replay, or (``plain_graph=False``: it reads the device on the
         host) with events around back-to-back calls.  ``rate`` is the
-        operations rate of the bound (default: the integer rate)."""
+        operations rate of the bound (default: the integer rate).
+        ``bare``: the kernel's bare launch, operands and scalars prepared
+        outside the graph (``kernel_ms``); ``nops_before``: the operations
+        of the earlier bound (``bound_ms_before``, ``ta_cost``)."""
         b_ms, b_by = bound(nbytes, nops, rate or int_rate)
+        extra = {}
+        if bare is not None:
+            extra["kernel_ms"] = graph_ms(torch, bare, it)
+        if nops_before is not None:
+            extra["bound_ms_before"] = bound(nbytes, nops_before,
+                                             rate or int_rate)[0]
         rows_out.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "mismatches": 0,
@@ -775,7 +798,8 @@ def main(argv=None) -> int:
             "library_ms": (None if library is None
                            else graph_ms(torch, library, it)),
             "bound_ms": b_ms, "bound_by": b_by, "shape": shape,
-            "library": library_note if library is not None else None})
+            "library": library_note if library is not None else None,
+            **extra})
 
     cu = "src/repro_torch/csrc/"
     neg8 = (lit8s[0] == 0).to(torch.int8)          # the bank's first round
@@ -833,23 +857,29 @@ def main(argv=None) -> int:
         + 2 * 3 * fK * fB * fR,
         f"K={fK} B={fB} R={fR} W={fW} H={fH}")
 
-    def ta_cost(a, kw_, sparse: bool, streamed: bool = False):
+    def ta_cost(a, kw_, sparse: bool, streamed: bool = False,
+                earlier: bool = False):
         """(bytes, operations) of one TA update on this run's inputs.
         Rows processed: every clause row (dense), or the rows of the
         128-row groups with feedback (sparse, in place).  Bytes: those
         rows' states read and written in their dtype, their feedback bytes
         and include words, the literals and l_mask.  Operations: per TA
-        of a clause row with feedback a seed and 2B stream steps (the
-        kernel skips the stream of the other rows); the delta per (TA,
-        batch row) with feedback; the clip and include test per TA
-        processed (the TA_* counts).  ``streamed``: no stream operations,
-        and the rands words a Type I delta reads (4 bytes per TA of a
-        (batch row, clause row) with Type I feedback)."""
+        of a clause row with Type I feedback a seed and 2B stream steps
+        (Type II reads no random word, so the other rows need no stream);
+        the delta per (TA, batch row) with feedback; the clip and include
+        test per TA processed (the TA_* counts).  ``streamed``: no stream
+        operations, and the rands words a Type I delta reads (4 bytes per
+        TA of a (batch row, clause row) with Type I feedback).  The
+        refresh count is work only where a refresh can fire within the
+        call.  ``earlier``: the count before these cuts (streams for every
+        clause row with feedback, the shift out and the refresh count on
+        every step)."""
         ta_, lits_, cl_, t1_, t2_ = a[:5]
         k_, c_, l_ = ta_.shape
         b2, w_ = lits_.shape[1], lits_.shape[2]
         fb = (t1_ > 0) | (t2_ > 0)                              # [K, 2B, C]
         active = fb.any(dim=1)                                  # [K, C]
+        streams = active if earlier else (t1_ > 0).any(dim=1)   # [K, C]
         rows_ = k_ * c_
         if sparse:
             g_ = -(-c_ // 128)
@@ -865,9 +895,11 @@ def main(argv=None) -> int:
         if streamed:
             return nbytes + 4 * l_ * int((t1_ > 0).sum()), nops
         family = kw_["prng"]
-        step = TA_STEP_OPS[family] + (
-            TA_REFRESH_OPS if family == "lfsr" and kw_["seed_refresh"] else 0)
-        nops += int(active.sum()) * l_ * (TA_SEED_OPS[family] + b2 * step)
+        fires = b2 >= (1 << kw_["lfsr_bits"]) - 1 or earlier
+        step = TA_STEP_OPS[family] + (TA_SHIFT_OUT_OPS if earlier else 0) + (
+            TA_REFRESH_OPS if family == "lfsr" and kw_["seed_refresh"]
+            and fires else 0)
+        nops += int(streams.sum()) * l_ * (TA_SEED_OPS[family] + b2 * step)
         return nbytes, nops
 
     for label, a, kw_, err in (("K=1", d1_a, d1_kw, err_d1),
@@ -880,7 +912,9 @@ def main(argv=None) -> int:
             lambda a=a, kw_=kw_: ta_update(*a, **kw_),
             lambda a=a, kw_=kw_: ta_update_plain(*a, **kw_), None, nb, no,
             f"{label} 2B={a[1].shape[1]} C={c_} L={l_} "
-            f"prng={kw_['prng']}", plain_graph=False)
+            f"prng={kw_['prng']}", plain_graph=False,
+            bare=prepare_ta_update(*a, **kw_)[0],
+            nops_before=ta_cost(a, kw_, sparse=False, earlier=True)[1])
     k_, c_, l_ = s_a[0].shape
     n_groups = int(s_a[8].sum())
     nb, no = ta_cost(s_a, s_kw, sparse=True)
@@ -891,7 +925,9 @@ def main(argv=None) -> int:
         lambda: ta_update_sparse(*s_a, **s_kw),
         lambda: ta_update_sparse_plain(*s_a, **s_kw), None, nb, no,
         f"K=1 2B={s_a[1].shape[1]} C={c_} L={l_} active_groups={n_groups}"
-        f"/{-(-c_ // 128)} prng={s_kw['prng']}", plain_graph=False)
+        f"/{-(-c_ // 128)} prng={s_kw['prng']}", plain_graph=False,
+        bare=prepare_ta_update_sparse(*s_a, **s_kw)[0],
+        nops_before=ta_cost(s_a, s_kw, sparse=True, earlier=True)[1])
     # the same inputs with the first n listed groups only, and the dense
     # kernel on them: the in-place update's time against the active share
     dense_kw = {k: v for k, v in s_kw.items() if k != "inplace"}
@@ -960,7 +996,8 @@ def main(argv=None) -> int:
             lambda a=a: ta_update_streamed(*a),
             lambda a=a: ta_update_streamed_plain(*a), None, nb, no,
             f"{label} 2B={a[1].shape[1]} C={c_} L={l_} rands int32 "
-            f"{tuple(a[6].shape)}", plain_graph=False)
+            f"{tuple(a[6].shape)}", plain_graph=False,
+            bare=prepare_ta_update_streamed(*a)[0], nops_before=no)
     k_, c_, l_ = op_a[0].shape
     b2 = op_a[1].shape[1]
     stream_cmp = {

@@ -30,6 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_typed: set = set()
 
 
 class KernelBuildError(RuntimeError):
@@ -120,6 +121,18 @@ def load(name: str) -> ctypes.CDLL:
         lib.dtm_error_string.restype = ctypes.c_char_p
         _loaded[name] = lib
     return lib
+
+
+def entry(name: str, fn: str, argtypes, restype=ctypes.c_int):
+    """(library, C entry point ``fn`` of ``csrc/<name>.cu``), its ctypes
+    signature set once, when it is first looked up."""
+    lib = load(name)
+    f = getattr(lib, fn)
+    if (name, fn) not in _typed:
+        f.argtypes = list(argtypes)
+        f.restype = restype
+        _typed.add((name, fn))
+    return lib, f
 
 
 def check(lib: ctypes.CDLL, status: int, what: str) -> None:

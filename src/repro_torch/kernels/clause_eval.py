@@ -4,19 +4,23 @@
                       (and, in eval mode, row c of inc is nonempty)
 
 on one byte per literal, ``lit`` int8 [K, B, L] and ``inc`` int8
-[K, C, L] ({0, 1}), to ``clause`` int32 [K, B, C].  This is the engine's
-``mxu`` clause path (the dense int8 operands the JAX package feeds its
-MXU) and the clause stage of the unfused training front half.
+[K, C, L] (any nonzero byte counts as 1), to ``clause`` int32 [K, B, C].
+This is the engine's ``mxu`` clause path (the dense int8 operands the JAX
+package feeds its MXU) and the clause stage of the unfused training front
+half.
 
 :func:`clause_eval` launches ``csrc/clause_eval.cu:dtm_clause_eval`` on
 CUDA tensors and runs the plain version on CPU tensors; it raises for
 anything else.  It replaces ``repro/kernels/clause_eval.py:clause_eval``.
 Bound by the bytes of the include matrix it reads; the source note gives
-the design.  ``clause_eval.launches`` counts kernel launches.
+the design.  :func:`clause_split` cuts the literal axis so that small
+B·C still fill the card.  ``clause_eval.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Tuple
 
 import torch
 
@@ -27,7 +31,16 @@ from .ta_update import _route
 # broadcast (ref.clause_eval_ref is the broadcast oracle).
 clause_eval_plain = ref.clause_eval_viol_ref
 
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+TILE_B = 32          # batch rows per block (csrc ce::kTileB)
+TILE_C = 128         # clauses per block (ce::kTileC)
+CHUNK = 128          # literal bytes per stage (ce::kChunk)
+MAX_CHUNKS = 64      # chunks a split packs at once: 32 KB of literals
+MAX_SPLITS = 8       # splits of a tile: the blocks of one cluster (portable)
+MIN_CHUNKS = 2       # chunks per split worth a block
+BLOCKS_PER_SM = 2    # blocks an SM holds at once (~80 KB shared memory each)
+
+_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+             + [ctypes.c_void_p])
 
 
 def operands(lit: torch.Tensor, inc: torch.Tensor):
@@ -54,6 +67,29 @@ def vec_loads(L: int, *ts: torch.Tensor) -> int:
     return int(L % 16 == 0 and all(t.data_ptr() % 16 == 0 for t in ts))
 
 
+def clause_split(K: int, B: int, C: int, L: int, sms: int
+                 ) -> Tuple[int, int]:
+    """(splits, chunks per split) of the literal axis: enough blocks of
+    32 batch rows × 128 clauses × one split for ``BLOCKS_PER_SM`` blocks
+    on each of ``sms`` SMs, with at most ``MAX_SPLITS`` splits of at least
+    ``MIN_CHUNKS`` chunks of 128 literals, and no more than ``MAX_CHUNKS``
+    chunks a split until the splits run out (past ``MAX_SPLITS ·
+    MAX_CHUNKS · CHUNK`` = 65,536 literals a split packs its literals in
+    ranges of ``MAX_CHUNKS`` chunks).  Pure: the CPU tests check it."""
+    nchunks = max(-(-L // CHUNK), 1)
+    tiles = max(K * -(-B // TILE_B) * -(-C // TILE_C), 1)
+    want = -(-BLOCKS_PER_SM * sms // tiles)
+    splits = min(want, -(-nchunks // MIN_CHUNKS), MAX_SPLITS)
+    splits = min(max(splits, -(-nchunks // MAX_CHUNKS), 1), MAX_SPLITS)
+    cps = -(-nchunks // splits)
+    return -(-nchunks // cps), cps
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def clause_eval(lit: torch.Tensor, inc: torch.Tensor,
                 eval_mode: bool = False) -> torch.Tensor:
     """literals int8 [K, B, L], include int8 [K, C, L] -> clause
@@ -62,17 +98,17 @@ def clause_eval(lit: torch.Tensor, inc: torch.Tensor,
     if _route(lit, inc) == "cpu":
         return clause_eval_plain(lit, inc, eval_mode)
     lit, inc = lit.contiguous(), inc.contiguous()
-    out = torch.empty((K, B, C), dtype=torch.int32, device=lit.device)
+    dev = lit.device
+    out = torch.empty((K, B, C), dtype=torch.int32, device=dev)
     if out.numel() == 0:
         return out
-    lib = _build.load("clause_eval")
-    fn = lib.dtm_clause_eval
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(lit.device):
-        stream = torch.cuda.current_stream(lit.device).cuda_stream
+    lib, fn = _build.entry("clause_eval", "dtm_clause_eval", _ARGTYPES)
+    _, cps = clause_split(K, B, C, L, sm_count(dev.index or 0))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         status = fn(lit.data_ptr(), inc.data_ptr(), out.data_ptr(), K, B, C,
-                    L, int(bool(eval_mode)), vec_loads(L, lit, inc), stream)
+                    L, int(bool(eval_mode)), vec_loads(L, lit, inc), cps,
+                    stream)
     _build.check(lib, status, "dtm_clause_eval")
     clause_eval.launches += 1
     return out

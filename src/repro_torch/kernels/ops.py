@@ -274,8 +274,8 @@ def ta_update_compact_op(ta, lits, cl, t1, t2, l_mask, inc, seed, p_ta,
     """Clause-skip TA update (Alg 6): the same states and include bitplane
     as :func:`ta_update_op`, but only the 128-row clause groups that get
     feedback are touched (``inc`` must be the include bitplane of ``ta``).
-    The group list is built on the device; the launch covers every slot
-    and slots past the count exit.  Returns ``(new_ta, new_inc)``: with
+    The group list and its count are built on the device, and the kernel
+    reads the count there.  Returns ``(new_ta, new_inc)``: with
     ``inplace``, ``ta`` and ``inc`` themselves, updated in place, so the
     skipped groups cost nothing; otherwise new tensors."""
     idx, count = active_groups(t1, t2)

@@ -26,16 +26,23 @@ in the same launch:
   only the 128-row clause groups ``tile_idx[k, :count[k]]`` (the others
   keep ``ta`` and ``inc``); duplicates are harmless.  It replaces
   ``repro/kernels/ta_update.py:ta_update_sparse``.  ``count`` stays on
-  the device: slots at or past it exit in the kernel.  The kernel updates
-  its state buffers in place: with ``inplace=True`` those are ``ta`` and
-  ``inc`` themselves, so the groups left alone cost nothing; otherwise
-  they are copies and the inputs stay as they were.
+  the device: the kernel reads it and walks only the listed slots.  The
+  kernel updates its state buffers in place: with ``inplace=True`` those
+  are ``ta`` and ``inc`` themselves, so the groups left alone cost
+  nothing; otherwise they are copies and the inputs stay as they were.
+  It reads the engine's int32 ``cl``/``t1``/``t2`` and per-program
+  scalars as they come (int64, int32 or bool tensors, or ints:
+  :func:`scalar_spec`), so with the engine's operands the wrapper
+  launches the kernel and nothing else.
 
 The stream family is ``prng`` (``counter`` or ``lfsr`` with
 ``lfsr_bits``/``seed_refresh``); the keys are the JAX package's, so the
 states equal its ``ta_update_ref`` bit for bit.  CPU tensors run the
 plain versions, CUDA tensors launch the kernels, anything else raises.
-``<wrapper>.launches`` counts kernel launches.
+``<wrapper>.launches`` counts kernel launches.  ``prepare_<wrapper>``
+checks and prepares the operands and returns ``(launch, outputs)``:
+``launch()`` is the bare kernel launch (it counts), so a caller can time
+the kernel apart from its wrapper.
 """
 from __future__ import annotations
 
@@ -48,13 +55,69 @@ from . import _build, ref
 
 GROUP = 128                 # rows per compaction group (csrc kGroup)
 _SMEM_LIMIT = 48 * 1024
+SPARSE_WARPS = 4            # warps per block of the sparse kernel (sp::kWarps)
+SPARSE_ROWS = 4             # clause rows per warp item (sp::kRows)
+SPARSE_WORDS = 2            # literal words per warp item (sp::kWordsPerItem)
+SPARSE_CHUNK = 64           # batch rows per feedback mask (sp::kChunkB)
+SPARSE_BLOCKS_PER_SM = 8
 _COMMON = [ctypes.c_void_p] * 7
 _DENSE_ARGTYPES = (_COMMON + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 10
                    + [ctypes.c_uint, ctypes.c_void_p])
-_SPARSE_ARGTYPES = (_COMMON + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11
-                    + [ctypes.c_uint, ctypes.c_void_p])
+_SPARSE_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 11
+                    + [ctypes.c_uint, ctypes.c_int, ctypes.c_void_p])
+# scalar dtypes the sparse kernel reads as they are (sp::read_u32)
+_SCALAR_DTYPES = (torch.int64, torch.int32, torch.bool)
 _STREAMED_ARGTYPES = (_COMMON + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
                       + [ctypes.c_void_p])
+
+
+class _Scalar(ctypes.Structure):
+    """csrc/ta_update.cu sp::Scalar: a tensor element or a value."""
+    _fields_ = [("ptr", ctypes.c_void_p), ("value", ctypes.c_longlong),
+                ("bytes", ctypes.c_int), ("stride", ctypes.c_int)]
+
+
+def scalar_spec(v, K: int, device):
+    """One per-program scalar as the sparse kernel takes it: ``(tensor,
+    element bytes, stride, value)``.  An int64, int32 or bool tensor (0-d,
+    [1] or [K]; the engine's) is passed as it is, read in the kernel and
+    truncated to 32 bits; any other tensor becomes int64 first; a Python
+    int goes as ``value``."""
+    if not isinstance(v, torch.Tensor):
+        return None, 0, 0, int(v) & ref.M32
+    if v.dim() > 1 or (v.dim() == 1 and v.shape[0] not in (1, K)):
+        raise ValueError(f"a per-program scalar must be 0-d, [1] or [{K}], "
+                         f"got {tuple(v.shape)}")
+    if v.dtype not in _SCALAR_DTYPES or v.device != torch.device(device):
+        v = v.to(device, v.dtype if v.dtype in _SCALAR_DTYPES
+                 else torch.int64)
+    stride = 0 if v.numel() == 1 else v.stride(0)
+    return v, v.element_size(), stride, 0
+
+
+def lfsr_refresh(prng: str, lfsr_bits: int, seed_refresh: bool,
+                 B2: int) -> bool:
+    """Whether an LFSR refresh can fire within one call: a period of
+    2^lfsr_bits − 1 rows fits in the 2B batch rows."""
+    return (prng == "lfsr" and bool(seed_refresh)
+            and B2 >= (1 << lfsr_bits) - 1)
+
+
+def sparse_blocks(S: int, C: int, W: int, sms: int) -> int:
+    """The sparse kernel's grid (per program): a block per item of the
+    slots it may be given (min(S, groups) groups × 32 row quads × word
+    chunks taken ``SPARSE_WARPS`` at a time), at most
+    ``SPARSE_BLOCKS_PER_SM`` per SM."""
+    groups = min(S, -(-C // GROUP))
+    chunks = -(-W // SPARSE_WORDS)
+    items = groups * (GROUP // SPARSE_ROWS) * -(-chunks // SPARSE_WARPS)
+    return max(1, min(items, SPARSE_BLOCKS_PER_SM * sms))
+
+
+def sparse_smem(C: int, B2: int) -> int:
+    """Shared memory of the sparse kernel (csrc sp::smem_bytes)."""
+    nch = -(-B2 // SPARSE_CHUNK)
+    return 8 * nch * SPARSE_ROWS * 3 + 8 * -(-C // GROUP)
 
 
 def _params(K: int, seed, p_ta, boost, n_states, row0, device
@@ -64,7 +127,7 @@ def _params(K: int, seed, p_ta, boost, n_states, row0, device
     def col(v):
         if isinstance(v, torch.Tensor):
             t = v.to(device)
-            t = t.expand(K) if t.dim() == 0 else t
+            t = t.expand(K) if t.numel() == 1 else t
         else:   # filled on the device: no host-to-device copy
             t = torch.full((K,), int(v), dtype=torch.int64, device=device)
         return words_from_u32(t.to(torch.int64) & ref.M32)
@@ -180,9 +243,10 @@ def ta_update_sparse_plain(ta, lits, cl, t1, t2, l_mask, inc, tile_idx,
     params = _params(K, seed, p_ta, boost, n_states, row0, ta.device)
     rows = []
     for k in range(K):
-        g = tile_idx[k, :int(count[k])].to(torch.int64)
+        g = tile_idx[k, :max(int(count[k]), 0)].to(torch.int64)
         r = (g[:, None] * GROUP + torch.arange(GROUP, device=ta.device))
-        rows.append(r.reshape(-1)[r.reshape(-1) < C])
+        r = r.reshape(-1)
+        rows.append(r[(r >= 0) & (r < C)])   # negative and past-C groups drop
     new_ta, new_inc = (ta, inc) if inplace else (ta.clone(), inc.clone())
     done = _plain_rows(ta, lits, cl, t1, t2, l_mask, params, rows, rand_bits,
                        prng, lfsr_bits, seed_refresh)
@@ -216,57 +280,158 @@ def _stream_args(prng, lfsr_bits, seed_refresh, rand_bits):
 
 
 def _prepare(ta, lits, cl, t1, t2, l_mask):
-    """Contiguous device operands in the kernel's dtypes."""
+    """Contiguous device operands in the dense and streamed kernels'
+    dtypes (int8 feedback)."""
     if lits.dtype != torch.int32:
         raise TypeError(f"packed literals must be int32, got {lits.dtype}")
     B2 = lits.shape[1]
-    lib = _build.load("ta_update")
-    lib.dtm_ta_update_smem.argtypes = [ctypes.c_int]
-    lib.dtm_ta_update_smem.restype = ctypes.c_size_t
-    if lib.dtm_ta_update_smem(B2) > _SMEM_LIMIT:
+    if 12 * B2 > _SMEM_LIMIT:     # dtm_ta_update_smem: 4 + 8 bytes a row
         raise ValueError(f"2B={B2} batch rows overflow the kernel's shared "
                          "memory")
     if ta.shape[0] > 65535:
         raise ValueError(f"K={ta.shape[0]} programs exceed the grid's z "
                          "limit")
-    return lib, [ta.contiguous(), lits.contiguous(),
-                 cl.to(torch.int8).contiguous(),
-                 t1.to(torch.int8).contiguous(),
-                 t2.to(torch.int8).contiguous(),
-                 l_mask.to(torch.int32).contiguous()]
+    return [ta.contiguous(), lits.contiguous(),
+            cl.to(torch.int8).contiguous(),
+            t1.to(torch.int8).contiguous(),
+            t2.to(torch.int8).contiguous(),
+            l_mask.to(torch.int32).contiguous()]
+
+
+def _launcher(wrapper, name: str, argtypes, args):
+    """The bare launch of C entry point ``name`` on the current stream,
+    counted on ``wrapper``.  The library and its signature are resolved
+    here, before any launch."""
+    lib, fn = _build.entry("ta_update", name, argtypes)
+
+    def launch():
+        dev = torch.device("cuda", torch.cuda.current_device())
+        status = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(lib, status, name)
+        wrapper.launches += 1
+    return launch
+
+
+def prepare_ta_update(ta, lits, cl, t1, t2, l_mask, seed, p_ta, boost,
+                      n_states, row0=0, rand_bits: int = 16,
+                      prng: str = "counter", lfsr_bits: int = 24,
+                      seed_refresh: bool = True):
+    """(launch or None, (new_ta, new_inc)) of :func:`ta_update` on CUDA
+    operands; the outputs hold the result once ``launch()`` has run."""
+    K, C, L, W, B2 = _check(ta, lits, cl, t1, t2, l_mask)
+    _check_stream(prng, lfsr_bits, rand_bits)
+    dev = ta.device
+    ops_ = _prepare(ta, lits, cl, t1, t2, l_mask)
+    params = _params(K, seed, p_ta, boost, n_states, row0, dev)
+    out = torch.empty_like(ops_[0])
+    inc = torch.empty((K, C, W), dtype=torch.int32, device=dev)
+    if out.numel() == 0:
+        return None, (out, inc)
+    keep = ops_ + [params, out, inc]
+    args = ([t.data_ptr() for t in ops_]
+            + [params.data_ptr(), out.data_ptr(), inc.data_ptr(), K, C, L,
+               W, B2, ta.element_size()]
+            + _stream_args(prng, lfsr_bits, seed_refresh, rand_bits))
+    launch = _launcher(ta_update, "dtm_ta_update", _DENSE_ARGTYPES, args)
+    launch.keep = keep
+    return launch, (out, inc)
+
+
+def _on_device(fn, dev):
+    with torch.cuda.device(dev):
+        fn()
 
 
 def ta_update(ta, lits, cl, t1, t2, l_mask, seed, p_ta, boost, n_states,
               row0=0, rand_bits: int = 16, prng: str = "counter",
               lfsr_bits: int = 24, seed_refresh: bool = True):
     """Dense TA update of K programs (module docstring)."""
-    K, C, L, W, B2 = _check(ta, lits, cl, t1, t2, l_mask)
+    _check(ta, lits, cl, t1, t2, l_mask)
     _check_stream(prng, lfsr_bits, rand_bits)
     kw = dict(rand_bits=rand_bits, prng=prng, lfsr_bits=lfsr_bits,
               seed_refresh=seed_refresh)
     if _route(ta, lits, cl, t1, t2, l_mask) == "cpu":
         return ta_update_plain(ta, lits, cl, t1, t2, l_mask, seed, p_ta,
                                boost, n_states, row0, **kw)
+    launch, out = prepare_ta_update(ta, lits, cl, t1, t2, l_mask, seed,
+                                    p_ta, boost, n_states, row0, **kw)
+    if launch is not None:
+        _on_device(launch, ta.device)
+    return out
+
+
+def _check_sparse(ta, lits, cl, t1, t2, l_mask, inc, tile_idx, count,
+                  prng, lfsr_bits, rand_bits, inplace):
+    K, C, L, W, B2 = _check(ta, lits, cl, t1, t2, l_mask)
+    _check_stream(prng, lfsr_bits, rand_bits)
+    if tile_idx.dim() != 2 or tile_idx.shape[0] != K or \
+            tuple(count.shape) != (K,) or tuple(inc.shape) != (K, C, W):
+        raise ValueError(f"tile_idx {tuple(tile_idx.shape)}, count "
+                         f"{tuple(count.shape)} and inc {tuple(inc.shape)} "
+                         f"do not fit K={K}, C={C}, W={W}")
+    _check_inplace(ta, inc, inplace)
+    return K, C, L, W, B2
+
+
+def _feedback(cl, t1, t2):
+    """[cl, t1, t2] as the sparse kernel reads them, contiguous int32: the
+    engine's feedback as it is, any other dtype as its > 0 test."""
+    return [(t if t.dtype == torch.int32 else (t > 0).to(torch.int32))
+            .contiguous() for t in (cl, t1, t2)]
+
+
+def prepare_ta_update_sparse(ta, lits, cl, t1, t2, l_mask, inc, tile_idx,
+                             count, seed, p_ta, boost, n_states, row0=0,
+                             rand_bits: int = 16, prng: str = "counter",
+                             lfsr_bits: int = 24, seed_refresh: bool = True,
+                             inplace: bool = False):
+    """(launch or None, (new_ta, new_inc)) of :func:`ta_update_sparse` on
+    CUDA operands.  With ``inplace`` and the engine's operands (contiguous
+    int32 words, index and count tensors) nothing is copied or converted."""
+    K, C, L, W, B2 = _check_sparse(ta, lits, cl, t1, t2, l_mask, inc,
+                                   tile_idx, count, prng, lfsr_bits,
+                                   rand_bits, inplace)
+    if lits.dtype != torch.int32:
+        raise TypeError(f"packed literals must be int32, got {lits.dtype}")
     dev = ta.device
-    lib, ops_ = _prepare(ta, lits, cl, t1, t2, l_mask)
-    params = _params(K, seed, p_ta, boost, n_states, row0, dev)
-    out = torch.empty_like(ops_[0])
-    inc = torch.empty((K, C, W), dtype=torch.int32, device=dev)
-    if out.numel() == 0:
-        return out, inc
-    fn = lib.dtm_ta_update
-    fn.argtypes = _DENSE_ARGTYPES
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        status = fn(*(t.data_ptr() for t in ops_), params.data_ptr(),
-                    out.data_ptr(), inc.data_ptr(), K, C, L, W, B2,
-                    ta.element_size(),
-                    *_stream_args(prng, lfsr_bits, seed_refresh, rand_bits),
-                    stream)
-    _build.check(lib, status, "dtm_ta_update")
-    ta_update.launches += 1
-    return out, inc
+    S = tile_idx.shape[1]
+    if inplace:
+        out, new_inc = ta, inc
+    else:
+        out = ta.clone(memory_format=torch.contiguous_format)
+        new_inc = inc.to(torch.int32, memory_format=torch.contiguous_format,
+                         copy=True)
+    if out.numel() == 0 or S == 0:
+        return None, (out, new_inc)
+    if K > 65535:
+        raise ValueError(f"K={K} programs exceed the grid's y limit")
+    if sparse_smem(C, B2) > _SMEM_LIMIT:
+        raise ValueError(f"2B={B2} batch rows and C={C} clauses overflow "
+                         "the sparse kernel's shared memory")
+    fb = _feedback(cl, t1, t2)
+    lits = lits.contiguous()
+    l_mask = l_mask.to(torch.int32).contiguous()
+    idx = tile_idx.to(torch.int32).contiguous()
+    cnt = count.to(torch.int32).contiguous()
+    specs = [scalar_spec(v, K, dev)
+             for v in (seed, p_ta, boost, n_states, row0)]
+    scal = (_Scalar * 5)(*[
+        _Scalar(None if t is None else t.data_ptr(), value, nbytes, stride)
+        for t, nbytes, stride, value in specs])
+    from .clause_eval import sm_count
+    blocks = sparse_blocks(S, C, W, sm_count(dev.index or 0))
+    args = ([out.data_ptr(), lits.data_ptr()] + [t.data_ptr() for t in fb]
+            + [l_mask.data_ptr(), ctypes.addressof(scal), idx.data_ptr(),
+               cnt.data_ptr(), new_inc.data_ptr(), K, C, L, W, B2, S,
+               out.element_size(), int(prng == "lfsr"), int(lfsr_bits),
+               int(lfsr_refresh(prng, lfsr_bits, seed_refresh, B2)),
+               int(rand_bits),
+               ref.LFSR_TAPS[lfsr_bits] if prng == "lfsr" else 0, blocks])
+    launch = _launcher(ta_update_sparse, "dtm_ta_update_sparse",
+                       _SPARSE_ARGTYPES, args)
+    launch.keep = [out, new_inc, lits, l_mask, idx, cnt, scal, *fb,
+                   *[t for t, *_ in specs]]
+    return launch, (out, new_inc)
 
 
 def ta_update_sparse(ta, lits, cl, t1, t2, l_mask, inc, tile_idx, count,
@@ -279,49 +444,45 @@ def ta_update_sparse(ta, lits, cl, t1, t2, l_mask, inc, tile_idx, count,
     ``ta`` and supplies the rows left alone.  ``inplace`` writes the
     updated groups into ``ta`` and ``inc`` (contiguous, ``inc`` int32) and
     returns them (module docstring)."""
-    K, C, L, W, B2 = _check(ta, lits, cl, t1, t2, l_mask)
-    _check_stream(prng, lfsr_bits, rand_bits)
-    if tile_idx.dim() != 2 or tile_idx.shape[0] != K or \
-            tuple(count.shape) != (K,) or tuple(inc.shape) != (K, C, W):
-        raise ValueError(f"tile_idx {tuple(tile_idx.shape)}, count "
-                         f"{tuple(count.shape)} and inc {tuple(inc.shape)} "
-                         f"do not fit K={K}, C={C}, W={W}")
-    _check_inplace(ta, inc, inplace)
+    _check_sparse(ta, lits, cl, t1, t2, l_mask, inc, tile_idx, count, prng,
+                  lfsr_bits, rand_bits, inplace)
     kw = dict(rand_bits=rand_bits, prng=prng, lfsr_bits=lfsr_bits,
               seed_refresh=seed_refresh, inplace=inplace)
     if _route(ta, lits, cl, t1, t2, l_mask, inc, tile_idx, count) == "cpu":
         return ta_update_sparse_plain(ta, lits, cl, t1, t2, l_mask, inc,
                                       tile_idx, count, seed, p_ta, boost,
                                       n_states, row0, **kw)
+    launch, out = prepare_ta_update_sparse(
+        ta, lits, cl, t1, t2, l_mask, inc, tile_idx, count, seed, p_ta,
+        boost, n_states, row0, **kw)
+    if launch is not None:
+        _on_device(launch, ta.device)
+    return out
+
+
+def prepare_ta_update_streamed(ta, lits, cl, t1, t2, l_mask, rands, p_ta,
+                               boost, n_states):
+    """(launch or None, (new_ta, new_inc)) of :func:`ta_update_streamed`
+    on CUDA operands."""
+    K, C, L, W, B2 = _check(ta, lits, cl, t1, t2, l_mask)
+    if tuple(rands.shape) != (K, B2, C, L) or rands.dtype != torch.int32:
+        raise ValueError(f"rands must be int32 {(K, B2, C, L)}, got "
+                         f"{rands.dtype} {tuple(rands.shape)}")
     dev = ta.device
-    S = tile_idx.shape[1]
-    if inplace:
-        out, new_inc = ta, inc
-    else:
-        out = ta.clone(memory_format=torch.contiguous_format)
-        new_inc = inc.to(torch.int32, memory_format=torch.contiguous_format,
-                         copy=True)
-    lib, ops_ = _prepare(out, lits, cl, t1, t2, l_mask)
-    params = _params(K, seed, p_ta, boost, n_states, row0, dev)
-    if out.numel() == 0 or S == 0:
-        return out, new_inc
-    if S * (GROUP // 8) > 65535:
-        raise ValueError(f"{S} group slots exceed the grid's y limit")
-    idx = tile_idx.to(torch.int32).contiguous()
-    cnt = count.to(torch.int32).contiguous()
-    fn = lib.dtm_ta_update_sparse
-    fn.argtypes = _SPARSE_ARGTYPES
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        status = fn(*(t.data_ptr() for t in ops_), params.data_ptr(),
-                    idx.data_ptr(), cnt.data_ptr(), new_inc.data_ptr(),
-                    K, C, L, W, B2, S, ta.element_size(),
-                    *_stream_args(prng, lfsr_bits, seed_refresh, rand_bits),
-                    stream)
-    _build.check(lib, status, "dtm_ta_update_sparse")
-    ta_update_sparse.launches += 1
-    return out, new_inc
+    ops_ = _prepare(ta, lits, cl, t1, t2, l_mask)
+    params = _params(K, 0, p_ta, boost, n_states, 0, dev)
+    rands = rands.contiguous()
+    out = torch.empty_like(ops_[0])
+    inc = torch.empty((K, C, W), dtype=torch.int32, device=dev)
+    if out.numel() == 0:
+        return None, (out, inc)
+    args = ([t.data_ptr() for t in ops_]
+            + [params.data_ptr(), rands.data_ptr(), out.data_ptr(),
+               inc.data_ptr(), K, C, L, W, B2, ta.element_size()])
+    launch = _launcher(ta_update_streamed, "dtm_ta_update_streamed",
+                       _STREAMED_ARGTYPES, args)
+    launch.keep = ops_ + [params, rands, out, inc]
+    return launch, (out, inc)
 
 
 def ta_update_streamed(ta, lits, cl, t1, t2, l_mask, rands, p_ta, boost,
@@ -336,25 +497,11 @@ def ta_update_streamed(ta, lits, cl, t1, t2, l_mask, rands, p_ta, boost,
     if _route(ta, lits, cl, t1, t2, l_mask, rands) == "cpu":
         return ta_update_streamed_plain(ta, lits, cl, t1, t2, l_mask, rands,
                                         p_ta, boost, n_states)
-    dev = ta.device
-    lib, ops_ = _prepare(ta, lits, cl, t1, t2, l_mask)
-    params = _params(K, 0, p_ta, boost, n_states, 0, dev)
-    rands = rands.contiguous()
-    out = torch.empty_like(ops_[0])
-    inc = torch.empty((K, C, W), dtype=torch.int32, device=dev)
-    if out.numel() == 0:
-        return out, inc
-    fn = lib.dtm_ta_update_streamed
-    fn.argtypes = _STREAMED_ARGTYPES
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        status = fn(*(t.data_ptr() for t in ops_), params.data_ptr(),
-                    rands.data_ptr(), out.data_ptr(), inc.data_ptr(), K, C, L,
-                    W, B2, ta.element_size(), stream)
-    _build.check(lib, status, "dtm_ta_update_streamed")
-    ta_update_streamed.launches += 1
-    return out, inc
+    launch, out = prepare_ta_update_streamed(ta, lits, cl, t1, t2, l_mask,
+                                             rands, p_ta, boost, n_states)
+    if launch is not None:
+        _on_device(launch, ta.device)
+    return out
 
 
 ta_update.launches = 0

@@ -442,3 +442,172 @@ def test_dense_and_stream_paths_on_card_match_cpu(dev, force):
     if force.get("ta_prng") == "stream":
         assert counts["ta_update_streamed"] == 2
         assert counts["ta_update_sparse"] == counts["ta_update"] == 0
+
+
+# ---- the streaming clause_eval: tile, split and alignment edges ------------
+
+EDGE_L = [1, 15, 16, 17, 31, 32, 33, 513, 1664, 3200]
+
+
+@pytest.mark.parametrize("L", EDGE_L)
+@pytest.mark.parametrize("B", [1, 32, 33, 70])
+@pytest.mark.parametrize("C", [127, 128, 129])
+def test_clause_eval_stream_edges(dev, L, B, C):
+    """Tile edges (32 batch rows, 128 clauses), every split the chooser
+    makes at these shapes, both modes, bytes other than 0 and 1, and a
+    view one byte off 16-byte alignment."""
+    from repro_torch.kernels.clause_eval import clause_split, sm_count
+    gen = torch.Generator().manual_seed(L * 1000 + B * 10 + C)
+    K = 2
+    lit = torch.randint(-128, 128, (K, B, L), generator=gen,
+                        dtype=torch.int8)
+    lit[torch.rand((K, B, L), generator=gen) < 0.3] = 0
+    inc = torch.randint(-128, 128, (K, C, L), generator=gen,
+                        dtype=torch.int8)
+    inc[torch.rand((K, C, L), generator=gen) < 0.97] = 0
+    inc[:, ::5] = 0                              # empty rows
+    inc[:, 1::6] = 0
+    inc[:, 1::6, 0] = 7                          # one-literal clauses
+    lit, inc = lit.to(dev), inc.to(dev)
+    splits, _ = clause_split(K, B, C, L, sm_count(0))
+    for eval_mode in (False, True):
+        want = clause_eval_plain(lit, inc, eval_mode)
+        got = clause_eval(lit, inc, eval_mode)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (splits, eval_mode)
+        base = torch.zeros(lit.numel() + 1, dtype=torch.int8, device=dev)
+        base[1:] = lit.reshape(-1)
+        assert torch.equal(clause_eval(base[1:].view(lit.shape), inc,
+                                       eval_mode), want)
+    assert 0 < int(want.sum()) < want.numel()
+
+
+def test_clause_eval_stream_bank_and_many_batch_tiles(dev):
+    lit, inc = _dense_operands(5, 70, 4225, 3200, dev, 11)
+    for eval_mode in (False, True):
+        assert torch.equal(clause_eval(lit, inc, eval_mode),
+                           clause_eval_plain(lit, inc, eval_mode))
+
+
+@pytest.mark.parametrize("L", [65553, 65664])
+def test_clause_eval_stream_past_64k_literals(dev, L):
+    """L above 65,536 literals: each split packs its literals in two
+    ranges.  A third of the clauses have their includes in second ranges
+    only; both alignments (65553 and the view one byte off load bytes,
+    65664 copies 16 bytes), both modes."""
+    from repro_torch.kernels.clause_eval import (CHUNK, MAX_CHUNKS,
+                                                 clause_split, sm_count)
+    K, B, C = 2, 33, 130
+    splits, cps = clause_split(K, B, C, L, sm_count(0))
+    assert cps > MAX_CHUNKS
+    second = torch.cat([torch.arange(CHUNK * (s * cps + MAX_CHUNKS),
+                                     min(CHUNK * (s + 1) * cps, L))
+                        for s in range(splits)
+                        if CHUNK * (s * cps + MAX_CHUNKS) < L])
+    gen = torch.Generator().manual_seed(L)
+    lit = (torch.rand((K, B, L), generator=gen) < 0.75).to(torch.int8) * 3
+    inc = torch.zeros((K, C, L), dtype=torch.int8)
+    pos = torch.randint(0, L, (K, C, 2), generator=gen)
+    pos[:, ::3] = second[torch.randint(0, len(second), (K, -(-C // 3), 2),
+                                       generator=gen)]
+    inc.scatter_(2, pos, -5)
+    inc[:, 1::11] = 0                            # empty rows
+    lit, inc = lit.to(dev), inc.to(dev)
+    base = torch.zeros(lit.numel() + 1, dtype=torch.int8, device=dev)
+    base[1:] = lit.reshape(-1)
+    for eval_mode in (False, True):
+        want = clause_eval_plain(lit, inc, eval_mode)
+        assert torch.equal(clause_eval(lit, inc, eval_mode), want)
+        assert torch.equal(clause_eval(base[1:].view(lit.shape), inc,
+                                       eval_mode), want)
+        late = want[:, :, ::3]
+        assert 0 < int(late.sum()) < late.numel()
+
+
+def test_clause_eval_many_clusters_back_to_back(dev):
+    """K > 1 and several clusters per SM, launched back to back on one
+    stream: each split writes rank 0's shared memory only once every split
+    of its cluster has started, so every launch gives the plain result."""
+    from repro_torch.kernels.clause_eval import clause_split, sm_count
+    K, B, C, L = 3, 40, 600, 1664
+    assert clause_split(K, B, C, L, sm_count(0))[0] > 1
+    lit, inc = _dense_operands(K, B, C, L, dev, 5)
+    want = clause_eval_plain(lit, inc, True)
+    outs = [clause_eval(lit, inc, True) for _ in range(64)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, want) for o in outs)
+
+
+# ---- the redesigned ta_update_sparse: slots, batch sizes, streams, scalars --
+
+SPARSE_B2 = [2, 64, 66, 130]
+
+
+@pytest.mark.parametrize("B2", SPARSE_B2)
+@pytest.mark.parametrize("ta_bits", [8, 10])
+@pytest.mark.parametrize("stream", range(len(STREAMS)))
+def test_ta_update_sparse_redesign_edges(dev, B2, ta_bits, stream):
+    K, C, L = 2, 300, 257                 # 3 groups, the last one ragged
+    ops_, scal = _ta_operands(K, B2, C, L, dev, B2 + ta_bits + stream,
+                              ta_bits)
+    kw = STREAMS[stream]
+    seeds = torch.tensor([2 ** 31 + 12345, 2 ** 32 - 7], dtype=torch.int64)
+    inc = ta_update(*ops_, *scal, **kw)[1]
+    G = 3
+    # slot lists: a duplicate, a negative entry, a group past C, and
+    # garbage after the count
+    idx = torch.tensor([[2, -1, 2, 0, 7, 1, 99], [G, 1, 1, -5, 0, 2, 2]],
+                       dtype=torch.int32, device=dev)
+    for count in ([0, 0], [4, 3], [7, 7], [2, 0]):
+        cnt = torch.tensor(count, dtype=torch.int32, device=dev)
+        for seed, row0 in ((seeds.to(dev), 300),
+                           (seeds[:1].to(dev), torch.tensor(
+                               [5, 300], dtype=torch.int32, device=dev)),
+                           (int(seeds[0]), 0),
+                           (torch.tensor(int(seeds[1]), device=dev), 17)):
+            args = (*ops_, inc, idx, cnt, seed, *scal[1:])
+            want = ta_update_sparse_plain(*args, row0=row0, **kw)
+            got = ta_update_sparse(*args, row0=row0, **kw)
+            torch.cuda.synchronize()
+            assert got[0].dtype == ops_[0].dtype
+            assert torch.equal(got[0], want[0]), (count, row0)
+            assert torch.equal(got[1], want[1]), (count, row0)
+            ta_i, inc_i = ops_[0].clone(), inc.clone()
+            got = ta_update_sparse(ta_i, *ops_[1:], inc_i, idx, cnt, seed,
+                                   *scal[1:], row0=row0, inplace=True, **kw)
+            assert got[0] is ta_i and torch.equal(ta_i, want[0])
+            assert torch.equal(inc_i, want[1])
+
+
+def test_ta_update_sparse_reads_engine_dtypes(dev):
+    """int32 feedback (the engine's) and others (their > 0 tests), int64,
+    int32 and bool scalars: the same states as int8 feedback."""
+    ops_, scal = _ta_operands(1, 64, 256, 1664, dev, 3, 8)
+    kw = dict(prng="lfsr", lfsr_bits=24)
+    inc = ta_update(*ops_, *scal, **kw)[1]
+    idx = torch.arange(2, dtype=torch.int32, device=dev)[None]
+    cnt = torch.full((1,), 2, dtype=torch.int32, device=dev)
+    want = ta_update_sparse_plain(*ops_, inc, idx, cnt, *scal, **kw)
+    for dt in (torch.int32, torch.bool, torch.int64):
+        fb = [t.to(dt) for t in ops_[2:5]]
+        got = ta_update_sparse(*ops_[:2], *fb, ops_[5], inc, idx, cnt,
+                               scal[0], scal[1].to(torch.int64),
+                               scal[2].to(torch.int32),
+                               scal[3].to(torch.int64), **kw)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_ta_update_prepared_launch_counts_and_matches(dev):
+    """The bare launch of prepare_* gives the wrapper's result and counts."""
+    from repro_torch.kernels import ta_update as tu
+    ops_, scal = _ta_operands(1, 8, 130, 100, dev, 4, 8)
+    inc = ta_update(*ops_, *scal)[1]
+    idx = torch.tensor([[1, 0]], dtype=torch.int32, device=dev)
+    cnt = torch.full((1,), 2, dtype=torch.int32, device=dev)
+    want = ta_update_sparse(*ops_, inc, idx, cnt, *scal)
+    n = ta_update_sparse.launches
+    launch, got = tu.prepare_ta_update_sparse(*ops_, inc, idx, cnt, *scal)
+    launch()
+    torch.cuda.synchronize()
+    assert ta_update_sparse.launches == n + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
