@@ -58,8 +58,11 @@ held-out rows):
      outside the graph (``prepare_ta_update*``), apart from the wrapper;
      the streamed update with its stream build beside the in-kernel update
      on the same inputs; the in-place sparse update on those inputs with
-     1, 2, 4, ... of the listed groups, beside the dense kernel on them;
-     and one step under torch.profiler.
+     1, 2, 4, ... of the listed groups, beside the dense update on them
+     (the three TA entry points run one kernel body, so ``dense`` is
+     that body with every group listed); and one step each of the
+     default, skip-off (dense TA) and streamed engines under
+     torch.profiler.
 
 Bounds: bytes over 3.35 TB/s; integer operations over 64 per clock per
 SM (the CUDA guide's rate for 32-bit integer add, logic, shift, compare
@@ -739,7 +742,9 @@ def main(argv=None) -> int:
     step_prof = profile_flush(torch, lambda: eng.train_step(
         tm_a.program, tm_a.prng, lits32, lab32))
     step_ms_by_path = {"default": float(np.median(step_s) * 1e3)}
-    for name, e in (("mxu", eng_mxu), ("stream", eng_stream)):
+    step_prof_by_path = {}
+    for name, e in (("mxu", eng_mxu), ("stream", eng_stream),
+                    ("dense", eng_dense)):
         ts_ = []
         for _ in range(10):
             t = time.perf_counter()
@@ -747,6 +752,10 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             ts_.append(time.perf_counter() - t)
         step_ms_by_path[name] = float(np.median(ts_) * 1e3)
+        if name != "mxu":   # the paths that run the dense TA body
+            step_prof_by_path[name] = profile_flush(
+                torch, lambda e=e: e.train_step(tm_a.program, tm_a.prng,
+                                                lits32, lab32))
 
     # ---- 6. timing -------------------------------------------------------------
     cold = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
@@ -972,12 +981,19 @@ def main(argv=None) -> int:
         f"K={k_} B={b_} C={c_} L={l_} H={h_}", rate=INT8_TC_OPS_PER_S,
         library_note=f"torch._int_mm x{k_} + torch.matmul float32 "
         f"({k_ + 1} calls: violation counts, then clauses x weights)")
+    def ms_of(name, shape):
+        """``ms`` of the kernels-line row ``name`` whose shape starts
+        with ``shape``."""
+        return next(r["ms"] for r in rows_out
+                    if r["name"] == name and r["shape"].startswith(shape))
+
     dense_cmp = {
         "flush_ms": [s_ * 1e3 for s_ in dense_flush_s],
         "flush_ms_median_after_first":
             float(np.median(dense_flush_s[1:]) * 1e3),
-        "tile_ms": rows_out[0]["ms"], "clause_eval_ms": rows_out[-3]["ms"],
-        "tm_infer_ms": rows_out[-1]["ms"],
+        "tile_ms": ms_of("packed_clause_tile", ""),
+        "clause_eval_ms": ms_of("clause_eval", "serving"),
+        "tm_infer_ms": ms_of("tm_infer", ""),
         "clause_eval_plus_class_sum_ms": graph_ms(
             torch, lambda: class_sum(clause_eval(lit8s[0], inc8, True),
                                      weights), it),
@@ -1005,7 +1021,7 @@ def main(argv=None) -> int:
         "rands_bytes": 4 * k_ * b2 * c_ * l_,
         "inkernel_ta_update_ms": graph_ms(
             torch, lambda: ta_update(*op_a, **ik_kw), it),
-        "streamed_kernel_ms": rows_out[-2]["ms"],
+        "streamed_kernel_ms": ms_of("ta_update_streamed", "K=1"),
         "stream_build_ms": call_ms(torch, lambda: stream_rands(
             k_, b2, c_, l_, op_kw["seed"], op_a[0].device,
             rand_bits=op_kw["rand_bits"], prng=op_kw["prng"],
@@ -1034,6 +1050,7 @@ def main(argv=None) -> int:
         "train_acc": [h["train_acc"] for h in hist],
         "group_skip_frac": [h["group_skip_frac"] for h in hist],
         "test_acc": test_acc, "step_profile": step_prof,
+        "step_profile_by_path": step_prof_by_path,
         "fit_s_dense_front": fit_m_s, "fit_s_streamed": fit_s_s,
         "stream_vs_inkernel": stream_cmp,
         "cpu_reference_s": cpu_s, "int_ops_per_s": int_rate,

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.booleanize import Booleanizer, fit_thermometer
+from repro_torch.core.device import resolve_device
 from repro_torch.core.dtm import Device, DTMEngine, DTMProgram
 from repro_torch.core.prng import PRNG
 from repro_torch.core.evaluate import accuracy, batched_predict
@@ -135,14 +136,15 @@ class TMSpec:
         return TMConfig(tm_type=COALESCED, classes=self.classes, T=self.T,
                         **common)
 
-    def to_bool(self, x, device: Device = "cpu") -> torch.Tensor:
-        """Raw model input -> Boolean features on ``device``.
+    def to_bool(self, x, device: Device = None) -> torch.Tensor:
+        """Raw model input -> Boolean features on ``device`` (the card
+        unless the caller asks for another; raises without one).
 
         vanilla/coalesced/regression: [B, f] {0,1} passthrough; head:
         [B, f_raw] float -> thermometer bits [B, f_raw*k]."""
         if self.kind == "conv":
             raise NotImplementedError("the conv kind is not ported yet")
-        x = torch.as_tensor(x, device=device)
+        x = torch.as_tensor(x, device=resolve_device(device))
         if self.kind == "head":
             return Booleanizer(self.thresholds)(x)
         return x

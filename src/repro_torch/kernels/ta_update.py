@@ -1,4 +1,4 @@
-"""Batched TA update (Alg 5): the Hopper kernels and their plain versions.
+"""Batched TA update (Alg 5): the Hopper kernel and its plain versions.
 
 The entry points update a bank of K programs' TA states with their
 random streams and emit the packed include bitplane of the updated states
@@ -15,25 +15,31 @@ in the same launch:
 
 -> ``(new_ta [K, C, L]`` in ``ta``'s dtype, ``new_inc [K, C, W]`` int32).
 
-* :func:`ta_update` — ``csrc/ta_update.cu:dtm_ta_update``, every row, into
-  new tensors.  It replaces ``repro/kernels/ta_update.py:ta_update``.
-* :func:`ta_update_streamed` — ``csrc/ta_update.cu:dtm_ta_update_streamed``,
-  the dense update with each TA's random words read from a pre-made
+All three launch one kernel body (``csrc/ta_update.cu``), templated on
+where a TA's random words come from:
+
+* :func:`ta_update` — ``dtm_ta_update``, every 128-row clause group, into
+  new tensors, the words made in the kernel.  It replaces
+  ``repro/kernels/ta_update.py:ta_update``.
+* :func:`ta_update_streamed` — ``dtm_ta_update_streamed``, every group,
+  into new tensors, each TA's random words read from a pre-made
   ``rands [K, 2B, C, L]`` (int32 bit patterns, :func:`stream_rands`)
-  instead of the in-kernel streams: the streamed baseline.  It replaces
+  instead: the streamed baseline.  It replaces
   ``repro/kernels/ta_update.py:ta_update_streamed``.
-* :func:`ta_update_sparse` — ``csrc/ta_update.cu:dtm_ta_update_sparse``,
-  only the 128-row clause groups ``tile_idx[k, :count[k]]`` (the others
-  keep ``ta`` and ``inc``); duplicates are harmless.  It replaces
+* :func:`ta_update_sparse` — ``dtm_ta_update_sparse``, only the groups
+  ``tile_idx[k, :count[k]]`` (the others keep ``ta`` and ``inc``);
+  duplicates are harmless.  It replaces
   ``repro/kernels/ta_update.py:ta_update_sparse``.  ``count`` stays on
   the device: the kernel reads it and walks only the listed slots.  The
   kernel updates its state buffers in place: with ``inplace=True`` those
   are ``ta`` and ``inc`` themselves, so the groups left alone cost
   nothing; otherwise they are copies and the inputs stay as they were.
-  It reads the engine's int32 ``cl``/``t1``/``t2`` and per-program
-  scalars as they come (int64, int32 or bool tensors, or ints:
-  :func:`scalar_spec`), so with the engine's operands the wrapper
-  launches the kernel and nothing else.
+
+The kernel reads the engine's int32 ``cl``/``t1``/``t2`` and per-program
+scalars as they come (int64, int32 or bool tensors, or ints:
+:func:`scalar_spec`), so with the engine's operands each wrapper
+allocates its outputs (the dense and streamed ones) and launches the
+kernel, and nothing else.
 
 The stream family is ``prng`` (``counter`` or ``lfsr`` with
 ``lfsr_bits``/``seed_refresh``); the keys are the JAX package's, so the
@@ -55,32 +61,37 @@ from . import _build, ref
 
 GROUP = 128                 # rows per compaction group (csrc kGroup)
 _SMEM_LIMIT = 48 * 1024
-SPARSE_WARPS = 4            # warps per block of the sparse kernel (sp::kWarps)
-SPARSE_ROWS = 4             # clause rows per warp item (sp::kRows)
-SPARSE_WORDS = 2            # literal words per warp item (sp::kWordsPerItem)
-SPARSE_CHUNK = 64           # batch rows per feedback mask (sp::kChunkB)
-SPARSE_BLOCKS_PER_SM = 8
-_COMMON = [ctypes.c_void_p] * 7
-_DENSE_ARGTYPES = (_COMMON + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 10
-                   + [ctypes.c_uint, ctypes.c_void_p])
+SPARSE_WARPS = 4            # warps per block (csrc kWarps)
+SPARSE_ROWS = 4             # clause rows per warp item (csrc kRows)
+SPARSE_WORDS = 2            # literal words per warp item (csrc kWordsPerItem)
+SPARSE_CHUNK = 64           # batch rows per feedback mask (csrc kChunkB)
+SPARSE_BLOCKS_PER_SM = 8     # all resident (csrc kBlocksPerSm)
+# ta, lit, cl, t1, t2, l_mask, scalars, out, inc_out; K, C, L, W, B2,
+# ta_bytes, lfsr, lfsr_bits, refresh, rand_bits; taps; blocks; stream
+_DENSE_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 10
+                   + [ctypes.c_uint, ctypes.c_int, ctypes.c_void_p])
+# ta, lit, cl, t1, t2, l_mask, scalars, tile_idx, count, inc; K, C, L, W,
+# B2, S, ta_bytes, lfsr, lfsr_bits, refresh, rand_bits; taps; blocks; stream
 _SPARSE_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 11
                     + [ctypes.c_uint, ctypes.c_int, ctypes.c_void_p])
-# scalar dtypes the sparse kernel reads as they are (sp::read_u32)
-_SCALAR_DTYPES = (torch.int64, torch.int32, torch.bool)
-_STREAMED_ARGTYPES = (_COMMON + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+# ta, lit, cl, t1, t2, l_mask, scalars, rands, out, inc_out; K, C, L, W,
+# B2, ta_bytes, blocks; stream
+_STREAMED_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
                       + [ctypes.c_void_p])
+# scalar dtypes the kernel reads as they are (csrc read_u32)
+_SCALAR_DTYPES = (torch.int64, torch.int32, torch.bool)
 
 
 class _Scalar(ctypes.Structure):
-    """csrc/ta_update.cu sp::Scalar: a tensor element or a value."""
+    """csrc/ta_update.cu Scalar: a tensor element or a value."""
     _fields_ = [("ptr", ctypes.c_void_p), ("value", ctypes.c_longlong),
                 ("bytes", ctypes.c_int), ("stride", ctypes.c_int)]
 
 
 def scalar_spec(v, K: int, device):
-    """One per-program scalar as the sparse kernel takes it: ``(tensor,
-    element bytes, stride, value)``.  An int64, int32 or bool tensor (0-d,
-    [1] or [K]; the engine's) is passed as it is, read in the kernel and
+    """One per-program scalar as the kernel takes it: ``(tensor, element
+    bytes, stride, value)``.  An int64, int32 or bool tensor (0-d, [1] or
+    [K]; the engine's) is passed as it is, read in the kernel and
     truncated to 32 bits; any other tensor becomes int64 first; a Python
     int goes as ``value``."""
     if not isinstance(v, torch.Tensor):
@@ -95,6 +106,16 @@ def scalar_spec(v, K: int, device):
     return v, v.element_size(), stride, 0
 
 
+def _scalars(K: int, device, seed, p_ta, boost, n_states, row0):
+    """(the kernel's five Scalar records, the tensors they point into)."""
+    specs = [scalar_spec(v, K, device)
+             for v in (seed, p_ta, boost, n_states, row0)]
+    recs = (_Scalar * 5)(*[
+        _Scalar(None if t is None else t.data_ptr(), value, nbytes, stride)
+        for t, nbytes, stride, value in specs])
+    return recs, [t for t, *_ in specs if t is not None]
+
+
 def lfsr_refresh(prng: str, lfsr_bits: int, seed_refresh: bool,
                  B2: int) -> bool:
     """Whether an LFSR refresh can fire within one call: a period of
@@ -104,25 +125,27 @@ def lfsr_refresh(prng: str, lfsr_bits: int, seed_refresh: bool,
 
 
 def sparse_blocks(S: int, C: int, W: int, sms: int) -> int:
-    """The sparse kernel's grid (per program): a block per item of the
-    slots it may be given (min(S, groups) groups × 32 row quads × word
-    chunks taken ``SPARSE_WARPS`` at a time), at most
-    ``SPARSE_BLOCKS_PER_SM`` per SM."""
+    """The kernel's grid (per program): a block per item of the groups it
+    may be given (min(S, groups) groups × 32 row quads × word chunks taken
+    ``SPARSE_WARPS`` at a time), at most ``SPARSE_BLOCKS_PER_SM`` per SM.
+    The dense updates pass S = the group count: every group."""
     groups = min(S, -(-C // GROUP))
     chunks = -(-W // SPARSE_WORDS)
     items = groups * (GROUP // SPARSE_ROWS) * -(-chunks // SPARSE_WARPS)
     return max(1, min(items, SPARSE_BLOCKS_PER_SM * sms))
 
 
-def sparse_smem(C: int, B2: int) -> int:
-    """Shared memory of the sparse kernel (csrc sp::smem_bytes)."""
+def sparse_smem(C: int, B2: int, streamed: bool = False) -> int:
+    """Shared memory of a launch (csrc smem_bytes): the feedback masks,
+    the group lists and, for the streamed words, each row's Type I rows."""
     nch = -(-B2 // SPARSE_CHUNK)
-    return 8 * nch * SPARSE_ROWS * 3 + 8 * -(-C // GROUP)
+    lists = (4 + SPARSE_CHUNK) * nch * SPARSE_ROWS if streamed else 0
+    return 8 * nch * SPARSE_ROWS * 3 + 8 * -(-C // GROUP) + lists
 
 
 def _params(K: int, seed, p_ta, boost, n_states, row0, device
             ) -> torch.Tensor:
-    """Per-program scalars as the kernel reads them: int32 [K, 5] =
+    """Per-program scalars of the plain versions: int32 [K, 5] =
     (seed, p_ta, boost, n_states, row0), uint32 values as int32 bits."""
     def col(v):
         if isinstance(v, torch.Tensor):
@@ -164,6 +187,12 @@ def _check_stream(prng: str, lfsr_bits: int, rand_bits: int) -> None:
         raise ValueError(f"no tap table for LFSR width {lfsr_bits}")
     if not 0 < rand_bits <= 32:
         raise ValueError(f"rand_bits={rand_bits} outside [1, 32]")
+
+
+def _check_rands(rands, K, B2, C, L) -> None:
+    if tuple(rands.shape) != (K, B2, C, L) or rands.dtype != torch.int32:
+        raise ValueError(f"rands must be int32 {(K, B2, C, L)}, got "
+                         f"{rands.dtype} {tuple(rands.shape)}")
 
 
 def _plain_rows(ta, lits, cl, t1, t2, l_mask, params, rows, rand_bits, prng,
@@ -273,35 +302,40 @@ def _route(*ts) -> str:
                      f"{sorted(str(t.device) for t in ts)}")
 
 
-def _stream_args(prng, lfsr_bits, seed_refresh, rand_bits):
-    lfsr = prng == "lfsr"
-    return [int(lfsr), int(lfsr_bits), int(bool(seed_refresh)),
-            int(rand_bits), ref.LFSR_TAPS[lfsr_bits] if lfsr else 0]
+def _feedback(cl, t1, t2):
+    """[cl, t1, t2] as the kernel reads them, contiguous int32: the
+    engine's feedback as it is, any other dtype as its > 0 test."""
+    return [(t if t.dtype == torch.int32 else (t > 0).to(torch.int32))
+            .contiguous() for t in (cl, t1, t2)]
 
 
-def _prepare(ta, lits, cl, t1, t2, l_mask):
-    """Contiguous device operands in the dense and streamed kernels'
-    dtypes (int8 feedback)."""
+def _operands(lits, cl, t1, t2, l_mask, K: int, C: int, B2: int,
+              streamed: bool = False):
+    """The kernel's read-only operands (lits, cl, t1, t2, l_mask),
+    contiguous, feedback and l_mask int32: the engine's tensors as they
+    are.  Raises for a launch the kernel does not take."""
     if lits.dtype != torch.int32:
         raise TypeError(f"packed literals must be int32, got {lits.dtype}")
-    B2 = lits.shape[1]
-    if 12 * B2 > _SMEM_LIMIT:     # dtm_ta_update_smem: 4 + 8 bytes a row
-        raise ValueError(f"2B={B2} batch rows overflow the kernel's shared "
-                         "memory")
-    if ta.shape[0] > 65535:
-        raise ValueError(f"K={ta.shape[0]} programs exceed the grid's z "
-                         "limit")
-    return [ta.contiguous(), lits.contiguous(),
-            cl.to(torch.int8).contiguous(),
-            t1.to(torch.int8).contiguous(),
-            t2.to(torch.int8).contiguous(),
+    if K > 65535:
+        raise ValueError(f"K={K} programs exceed the grid's y limit")
+    if sparse_smem(C, B2, streamed) > _SMEM_LIMIT:
+        raise ValueError(f"2B={B2} batch rows and C={C} clauses overflow "
+                         "the kernel's shared memory")
+    return [lits.contiguous(), *_feedback(cl, t1, t2),
             l_mask.to(torch.int32).contiguous()]
 
 
-def _launcher(wrapper, name: str, argtypes, args):
+def _blocks(S: int, C: int, W: int, dev) -> int:
+    from .clause_eval import sm_count
+    return sparse_blocks(S, C, W, sm_count(dev.index or 0))
+
+
+def _launcher(wrapper, name: str, argtypes, args, keep):
     """The bare launch of C entry point ``name`` on the current stream,
-    counted on ``wrapper``.  The library and its signature are resolved
-    here, before any launch."""
+    counted on ``wrapper``.  ``launch.args`` are its C arguments (the
+    stream apart) and ``launch.keep`` the tensors and records they point
+    into.  The library and its signature are resolved here, before any
+    launch."""
     lib, fn = _build.entry("ta_update", name, argtypes)
 
     def launch():
@@ -309,7 +343,13 @@ def _launcher(wrapper, name: str, argtypes, args):
         status = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
         _build.check(lib, status, name)
         wrapper.launches += 1
+    launch.args, launch.keep = args, keep
     return launch
+
+
+def _dense_outputs(ta, K: int, C: int, W: int):
+    return (torch.empty(ta.shape, dtype=ta.dtype, device=ta.device),
+            torch.empty((K, C, W), dtype=torch.int32, device=ta.device))
 
 
 def prepare_ta_update(ta, lits, cl, t1, t2, l_mask, seed, p_ta, boost,
@@ -320,20 +360,23 @@ def prepare_ta_update(ta, lits, cl, t1, t2, l_mask, seed, p_ta, boost,
     operands; the outputs hold the result once ``launch()`` has run."""
     K, C, L, W, B2 = _check(ta, lits, cl, t1, t2, l_mask)
     _check_stream(prng, lfsr_bits, rand_bits)
-    dev = ta.device
-    ops_ = _prepare(ta, lits, cl, t1, t2, l_mask)
-    params = _params(K, seed, p_ta, boost, n_states, row0, dev)
-    out = torch.empty_like(ops_[0])
-    inc = torch.empty((K, C, W), dtype=torch.int32, device=dev)
+    out, inc = _dense_outputs(ta, K, C, W)
     if out.numel() == 0:
         return None, (out, inc)
-    keep = ops_ + [params, out, inc]
-    args = ([t.data_ptr() for t in ops_]
-            + [params.data_ptr(), out.data_ptr(), inc.data_ptr(), K, C, L,
-               W, B2, ta.element_size()]
-            + _stream_args(prng, lfsr_bits, seed_refresh, rand_bits))
-    launch = _launcher(ta_update, "dtm_ta_update", _DENSE_ARGTYPES, args)
-    launch.keep = keep
+    dev = ta.device
+    ta = ta.contiguous()
+    ops_ = _operands(lits, cl, t1, t2, l_mask, K, C, B2)
+    scal, held = _scalars(K, dev, seed, p_ta, boost, n_states, row0)
+    G = -(-C // GROUP)
+    lfsr = prng == "lfsr"
+    args = ([ta.data_ptr()] + [t.data_ptr() for t in ops_]
+            + [ctypes.addressof(scal), out.data_ptr(), inc.data_ptr(), K, C,
+               L, W, B2, ta.element_size(), int(lfsr), int(lfsr_bits),
+               int(lfsr_refresh(prng, lfsr_bits, seed_refresh, B2)),
+               int(rand_bits), ref.LFSR_TAPS[lfsr_bits] if lfsr else 0,
+               _blocks(G, C, W, dev)])
+    launch = _launcher(ta_update, "dtm_ta_update", _DENSE_ARGTYPES, args,
+                       [ta, *ops_, out, inc, scal, *held])
     return launch, (out, inc)
 
 
@@ -373,13 +416,6 @@ def _check_sparse(ta, lits, cl, t1, t2, l_mask, inc, tile_idx, count,
     return K, C, L, W, B2
 
 
-def _feedback(cl, t1, t2):
-    """[cl, t1, t2] as the sparse kernel reads them, contiguous int32: the
-    engine's feedback as it is, any other dtype as its > 0 test."""
-    return [(t if t.dtype == torch.int32 else (t > 0).to(torch.int32))
-            .contiguous() for t in (cl, t1, t2)]
-
-
 def prepare_ta_update_sparse(ta, lits, cl, t1, t2, l_mask, inc, tile_idx,
                              count, seed, p_ta, boost, n_states, row0=0,
                              rand_bits: int = 16, prng: str = "counter",
@@ -391,8 +427,6 @@ def prepare_ta_update_sparse(ta, lits, cl, t1, t2, l_mask, inc, tile_idx,
     K, C, L, W, B2 = _check_sparse(ta, lits, cl, t1, t2, l_mask, inc,
                                    tile_idx, count, prng, lfsr_bits,
                                    rand_bits, inplace)
-    if lits.dtype != torch.int32:
-        raise TypeError(f"packed literals must be int32, got {lits.dtype}")
     dev = ta.device
     S = tile_idx.shape[1]
     if inplace:
@@ -403,34 +437,21 @@ def prepare_ta_update_sparse(ta, lits, cl, t1, t2, l_mask, inc, tile_idx,
                          copy=True)
     if out.numel() == 0 or S == 0:
         return None, (out, new_inc)
-    if K > 65535:
-        raise ValueError(f"K={K} programs exceed the grid's y limit")
-    if sparse_smem(C, B2) > _SMEM_LIMIT:
-        raise ValueError(f"2B={B2} batch rows and C={C} clauses overflow "
-                         "the sparse kernel's shared memory")
-    fb = _feedback(cl, t1, t2)
-    lits = lits.contiguous()
-    l_mask = l_mask.to(torch.int32).contiguous()
+    ops_ = _operands(lits, cl, t1, t2, l_mask, K, C, B2)
     idx = tile_idx.to(torch.int32).contiguous()
     cnt = count.to(torch.int32).contiguous()
-    specs = [scalar_spec(v, K, dev)
-             for v in (seed, p_ta, boost, n_states, row0)]
-    scal = (_Scalar * 5)(*[
-        _Scalar(None if t is None else t.data_ptr(), value, nbytes, stride)
-        for t, nbytes, stride, value in specs])
-    from .clause_eval import sm_count
-    blocks = sparse_blocks(S, C, W, sm_count(dev.index or 0))
-    args = ([out.data_ptr(), lits.data_ptr()] + [t.data_ptr() for t in fb]
-            + [l_mask.data_ptr(), ctypes.addressof(scal), idx.data_ptr(),
-               cnt.data_ptr(), new_inc.data_ptr(), K, C, L, W, B2, S,
-               out.element_size(), int(prng == "lfsr"), int(lfsr_bits),
+    scal, held = _scalars(K, dev, seed, p_ta, boost, n_states, row0)
+    lfsr = prng == "lfsr"
+    args = ([out.data_ptr()] + [t.data_ptr() for t in ops_]
+            + [ctypes.addressof(scal), idx.data_ptr(), cnt.data_ptr(),
+               new_inc.data_ptr(), K, C, L, W, B2, S, out.element_size(),
+               int(lfsr), int(lfsr_bits),
                int(lfsr_refresh(prng, lfsr_bits, seed_refresh, B2)),
-               int(rand_bits),
-               ref.LFSR_TAPS[lfsr_bits] if prng == "lfsr" else 0, blocks])
+               int(rand_bits), ref.LFSR_TAPS[lfsr_bits] if lfsr else 0,
+               _blocks(S, C, W, dev)])
     launch = _launcher(ta_update_sparse, "dtm_ta_update_sparse",
-                       _SPARSE_ARGTYPES, args)
-    launch.keep = [out, new_inc, lits, l_mask, idx, cnt, scal, *fb,
-                   *[t for t, *_ in specs]]
+                       _SPARSE_ARGTYPES, args,
+                       [out, new_inc, *ops_, idx, cnt, scal, *held])
     return launch, (out, new_inc)
 
 
@@ -465,23 +486,21 @@ def prepare_ta_update_streamed(ta, lits, cl, t1, t2, l_mask, rands, p_ta,
     """(launch or None, (new_ta, new_inc)) of :func:`ta_update_streamed`
     on CUDA operands."""
     K, C, L, W, B2 = _check(ta, lits, cl, t1, t2, l_mask)
-    if tuple(rands.shape) != (K, B2, C, L) or rands.dtype != torch.int32:
-        raise ValueError(f"rands must be int32 {(K, B2, C, L)}, got "
-                         f"{rands.dtype} {tuple(rands.shape)}")
-    dev = ta.device
-    ops_ = _prepare(ta, lits, cl, t1, t2, l_mask)
-    params = _params(K, 0, p_ta, boost, n_states, 0, dev)
-    rands = rands.contiguous()
-    out = torch.empty_like(ops_[0])
-    inc = torch.empty((K, C, W), dtype=torch.int32, device=dev)
+    _check_rands(rands, K, B2, C, L)
+    out, inc = _dense_outputs(ta, K, C, W)
     if out.numel() == 0:
         return None, (out, inc)
-    args = ([t.data_ptr() for t in ops_]
-            + [params.data_ptr(), rands.data_ptr(), out.data_ptr(),
-               inc.data_ptr(), K, C, L, W, B2, ta.element_size()])
+    dev = ta.device
+    ta, rands = ta.contiguous(), rands.contiguous()
+    ops_ = _operands(lits, cl, t1, t2, l_mask, K, C, B2, streamed=True)
+    scal, held = _scalars(K, dev, 0, p_ta, boost, n_states, 0)
+    args = ([ta.data_ptr()] + [t.data_ptr() for t in ops_]
+            + [ctypes.addressof(scal), rands.data_ptr(), out.data_ptr(),
+               inc.data_ptr(), K, C, L, W, B2, ta.element_size(),
+               _blocks(-(-C // GROUP), C, W, dev)])
     launch = _launcher(ta_update_streamed, "dtm_ta_update_streamed",
-                       _STREAMED_ARGTYPES, args)
-    launch.keep = ops_ + [params, rands, out, inc]
+                       _STREAMED_ARGTYPES, args,
+                       [ta, *ops_, rands, out, inc, scal, *held])
     return launch, (out, inc)
 
 
@@ -491,9 +510,7 @@ def ta_update_streamed(ta, lits, cl, t1, t2, l_mask, rands, p_ta, boost,
     int32 [K, 2B, C, L] (module docstring; :func:`stream_rands` makes the
     ones the in-kernel streams would use)."""
     K, C, L, W, B2 = _check(ta, lits, cl, t1, t2, l_mask)
-    if tuple(rands.shape) != (K, B2, C, L) or rands.dtype != torch.int32:
-        raise ValueError(f"rands must be int32 {(K, B2, C, L)}, got "
-                         f"{rands.dtype} {tuple(rands.shape)}")
+    _check_rands(rands, K, B2, C, L)
     if _route(ta, lits, cl, t1, t2, l_mask, rands) == "cpu":
         return ta_update_streamed_plain(ta, lits, cl, t1, t2, l_mask, rands,
                                         p_ta, boost, n_states)

@@ -611,3 +611,165 @@ def test_ta_update_prepared_launch_counts_and_matches(dev):
     torch.cuda.synchronize()
     assert ta_update_sparse.launches == n + 1
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# ---- the dense and streamed updates on the shared body: edges -------------
+
+def _u32_words(values):
+    """int32 bit patterns of uint32 values."""
+    v = torch.as_tensor(values, dtype=torch.int64)
+    return torch.where(v >= 2 ** 31, v - 2 ** 32, v).to(torch.int32)
+
+
+@pytest.mark.parametrize("B2", [1, 63, 64, 65, 130])
+@pytest.mark.parametrize("C", [37, 130])
+@pytest.mark.parametrize("L", [1, 257, 300])
+@pytest.mark.parametrize("ta_bits", [8, 10])
+def test_ta_update_dense_and_streamed_edges(dev, B2, C, L, ta_bits):
+    """2B on either side of and across the 64-row chunk; C not a multiple
+    of 4 (the feedback's non-vector load) or of 128; L with word-chunk
+    tails; every stream, lfsr4 with a refresh inside the call where
+    2B >= 15; the engine's int32 feedback."""
+    ops_, scal = _ta_operands(2, B2, C, L, dev, 1000 * B2 + C + L + ta_bits,
+                              ta_bits)
+    ops_[2:5] = [t.to(torch.int32) for t in ops_[2:5]]
+    row0s = (0, torch.tensor([5, 300], dtype=torch.int32, device=dev))
+    for kw in STREAMS:
+        for row0 in row0s:
+            got = ta_update(*ops_, *scal, row0=row0, **kw)
+            torch.cuda.synchronize()
+            want = ta_update_plain(*ops_, *scal, row0=row0, **kw)
+            assert got[0].dtype == ops_[0].dtype
+            assert torch.equal(got[0], want[0]), (kw, row0)
+            assert torch.equal(got[1], want[1]), (kw, row0)
+        rands = stream_rands(2, B2, C, L, scal[0], dev, row0s[1], **kw)
+        got_s = ta_update_streamed(*ops_, rands, *scal[1:])
+        torch.cuda.synchronize()
+        want_s = ta_update_streamed_plain(*ops_, rands, *scal[1:])
+        for g, w, i in zip(got_s, want_s, got):
+            assert g.dtype == w.dtype and torch.equal(g, w), kw
+            assert torch.equal(g, i), kw
+
+
+def test_ta_update_dense_and_streamed_scalar_forms(dev):
+    """K=3 with per-program scalars as int64, int32, bool and other
+    tensors, 0-d and [1] tensors, Python ints, uint32 values >= 2^31."""
+    K, B2, C, L = 3, 66, 130, 300
+    ops_, _ = _ta_operands(K, B2, C, L, dev, 33, 10)
+    big = [2 ** 31 + 5, 2 ** 32 - 1, 2 ** 31]
+    t = lambda v, dt=torch.int64: torch.tensor(v, dtype=dt, device=dev)
+    forms = [
+        (t(big), t([6554, 2 ** 16, 7], torch.int32),
+         t([True, False, True], torch.bool), t(1024), 300),
+        (big[1], t(6554, torch.int32), True, t([1024], torch.int32),
+         t([0, 5, 300])),
+        (_u32_words(big).to(dev), t([0, 6554, 2 ** 32 - 1]),
+         t([1, 0, 2], torch.int8), 1024, t(7, torch.int32)),
+        (t([big[0]]), t([6554]), t([False], torch.bool), t(512, torch.int16),
+         t([9], torch.int32))]
+    for f in forms:
+        for kw in STREAMS[:2]:
+            got = ta_update(*ops_, *f, **kw)
+            torch.cuda.synchronize()
+            want = ta_update_plain(*ops_, *f, **kw)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            rands = stream_rands(K, B2, C, L, f[0], dev, f[4], **kw)
+            got_s = ta_update_streamed(*ops_, rands, *f[1:4])
+            torch.cuda.synchronize()
+            want_s = ta_update_streamed_plain(*ops_, rands, *f[1:4])
+            for g, w, i in zip(got_s, want_s, got):
+                assert torch.equal(g, w) and torch.equal(g, i)
+
+
+@pytest.mark.parametrize("ta_bits", [8, 10])
+def test_ta_update_streamed_p_ta_edges(dev, ta_bits):
+    """p_ta = 0 (no word is low), p_ta >= 2^rand_bits (every 16-bit word
+    is low), words placed at p_ta − 1 and p_ta, and words and p_ta at or
+    above 2^31 (an unsigned compare)."""
+    K, B2, C, L = 2, 65, 130, 257
+    ops_, scal = _ta_operands(K, B2, C, L, dev, 11 + ta_bits, ta_bits)
+    gen = torch.Generator().manual_seed(7)
+    words = torch.randint(0, 2 ** 16, (K, B2, C, L), generator=gen,
+                          dtype=torch.int64)
+
+    def run(w, p):
+        a = (*ops_, _u32_words(w).to(dev),
+             torch.full((K,), p, dtype=torch.int64, device=dev), *scal[2:])
+        got = ta_update_streamed(*a)
+        torch.cuda.synchronize()
+        want = ta_update_streamed_plain(*a)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        return got
+    for p in (0, 1, 6554, 2 ** 16, 2 ** 16 + 1, 2 ** 31 + 3, 2 ** 32 - 1):
+        w = words.clone()
+        if p > 0:
+            w[..., ::5] = p - 1
+            w[..., 1::5] = p
+            w[..., 2::7] = 2 ** 32 - 1
+        run(w, p)
+    # no word low: p_ta = 0, or every word 2^32 − 1 against that p_ta;
+    # every word low: p_ta at 2^16, or every word 0 against p_ta = 1
+    none = run(words, 0)
+    for g, w in zip(none, run(torch.full_like(words, 2 ** 32 - 1),
+                              2 ** 32 - 1)):
+        assert torch.equal(g, w)
+    every = run(words, 2 ** 16)
+    for g, w in zip(every, run(torch.zeros_like(words), 1)):
+        assert torch.equal(g, w)
+    assert not torch.equal(none[0], every[0])
+
+
+def test_ta_update_dense_and_streamed_read_engine_dtypes(dev):
+    """With the engine's operands (int32 feedback and l_mask, int64/int32/
+    bool scalars) the dense and streamed launches take the same tensor
+    objects; the bare launch counts and matches; other feedback dtypes
+    (their > 0 tests) give the same states."""
+    from repro_torch.kernels import ta_update as tu
+    ops_, scal = _ta_operands(1, 64, 256, 1664, dev, 3, 8)
+    kw = dict(prng="lfsr", lfsr_bits=24)
+    eng = [ops_[0], ops_[1], *[t.to(torch.int32) for t in ops_[2:5]],
+           ops_[5].contiguous()]
+    sc = (scal[0], scal[1].to(torch.int64), scal[2], scal[3])
+    want = ta_update_plain(*eng, *sc, **kw)
+    rands = stream_rands(1, 64, 256, 1664, scal[0], dev, **kw)
+    for wrapper, prep, extra, s_ in (
+            (ta_update, tu.prepare_ta_update, (), sc),
+            (ta_update_streamed, tu.prepare_ta_update_streamed, (rands,),
+             sc[1:])):
+        launch, got = prep(*eng, *extra, *s_, **(kw if not extra else {}))
+        for t in (*eng, *extra, *s_):
+            assert any(k is t for k in launch.keep)
+        n = wrapper.launches
+        launch()
+        torch.cuda.synchronize()
+        assert wrapper.launches == n + 1
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        for dt in (torch.int8, torch.bool, torch.int64):
+            fb = [t.to(dt) for t in eng[2:5]]
+            got = wrapper(*eng[:2], *fb, eng[5], *extra, *s_,
+                          **(kw if not extra else {}))
+            assert torch.equal(got[0], want[0])
+            assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("ta_bits", [8, 10])
+def test_ta_update_streamed_full_type1_rows(dev, ta_bits):
+    """Rows with Type I feedback from every batch row (64 listed rows a
+    chunk: many load rounds), from none, and from the last row of a chunk
+    only, across three chunks and a ragged quad."""
+    K, B2, C, L = 2, 130, 37, 300
+    ops_, scal = _ta_operands(K, B2, C, L, dev, 17 + ta_bits, ta_bits)
+    t1 = ops_[3].to(torch.int32)
+    t1[:, :, :6] = 1                    # every batch row
+    t1[:, :, 6:9] = 0                   # none
+    t1[:, :, 9] = 0
+    t1[:, 63::64, 9] = 1                # the last row of each chunk
+    ops_[3] = t1
+    for kw in STREAMS[:2]:
+        rands = stream_rands(K, B2, C, L, scal[0], dev, 5, **kw)
+        got = ta_update_streamed(*ops_, rands, *scal[1:])
+        torch.cuda.synchronize()
+        want = ta_update_streamed_plain(*ops_, rands, *scal[1:])
+        inkernel = ta_update(*ops_, *scal, row0=5, **kw)
+        for g, w, i in zip(got, want, inkernel):
+            assert torch.equal(g, w) and torch.equal(g, i)
