@@ -29,7 +29,10 @@ Serving phases:
   6. timing: each kernel, its plain version and a library yardstick as
      device time (CUDA-graph replay, warm and with L2 overwritten), the
      wrapper's time per call issued back to back, flush and request
-     latency with the host clock, and one flush under torch.profiler.
+     latency with the host clock, and one flush under torch.profiler;
+     class_sum at the serving bank (K=4) and at the mxu fit's shape
+     (K=1, B=32, captured in phase 7b), its launches counted over every
+     path that runs it, and at B=1 (``class_sum_b1_ms``).
 
 Training phases (the paper's MNIST CoTM at full width, L=1664, R=2048,
 H=16, W=52, on the MNIST-like synthetic set: 2048 training and 512
@@ -51,7 +54,9 @@ held-out rows):
      (K=2, 32 rows each, counter PRNGs), checked against the CPU engine,
      and the same step with ``ta_prng="stream"``, which must equal it;
  10. the training kernels against their plain versions at the path's
-     shapes (fused_step K=1 B=32; ta_update and ta_update_streamed K=1
+     shapes (fused_step K=1 B=32, also as ``kernel_ms``, its bare launch
+     from ``prepare_fused_step``, and under torch.profiler: one kernel a
+     call, in the profiled step and alone; ta_update and ta_update_streamed K=1
      and K=2 with 2B=64; ta_update_sparse at the fit's last step;
      clause_eval K=1 B=32), timed as in phase 6, the TA rows also as
      ``kernel_ms``: the bare launch, its operands and scalars prepared
@@ -200,40 +205,6 @@ def motif_program(engine, spec, task, rng, datasets, n_inc=3, w_max=4):
     return engine.lower(spec, ta=ta, weights=weights)
 
 
-def graph_ms(torch, fn, n: int, cold_l2=None, reps: int = 5) -> float:
-    """Device time per call of ``fn``: ``n`` calls captured in one CUDA
-    graph and replayed, so no host launch cost is counted.  With
-    ``cold_l2`` (a buffer larger than L2) each call follows an overwrite
-    of L2, and a graph of the overwrites alone is subtracted."""
-    def replay_ms(body):
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            for _ in range(3):
-                body()
-        torch.cuda.current_stream().wait_stream(side)
-        g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
-            for _ in range(n):
-                body()
-        g.replay()
-        s, e = torch.cuda.Event(True), torch.cuda.Event(True)
-        s.record()
-        for _ in range(reps):
-            g.replay()
-        e.record()
-        torch.cuda.synchronize()
-        return s.elapsed_time(e) / (reps * n)
-
-    if cold_l2 is None:
-        return replay_ms(fn)
-
-    def both():
-        cold_l2.zero_()
-        fn()
-    return replay_ms(both) - replay_ms(cold_l2.zero_)
-
-
 def call_ms(torch, fn, n: int) -> float:
     """Time per call when calls are issued back to back (CUDA events):
     the larger of the device time and the host's launch cost."""
@@ -250,7 +221,9 @@ def call_ms(torch, fn, n: int) -> float:
 
 def profile_flush(torch, fn) -> dict:
     """One call of ``fn`` under torch.profiler: wall time, summed kernel
-    time on the device, and the device's busy share of the wall time."""
+    time on the device, the device's busy share of the wall time, the
+    eight longest kernels, the number of kernels launched and how many of
+    them are ``fused_step``'s."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -267,6 +240,9 @@ def profile_flush(torch, fn) -> dict:
     top = sorted(kernels, key=lambda k: -k[1])[:8]
     return {"wall_ms": wall * 1e3, "device_ms": dev_us / 1e3,
             "busy_share": (dev_us / 1e6) / wall if kernels else None,
+            "launches": sum(k[2] for k in kernels),
+            "fused_step_kernels": sum(k[2] for k in kernels
+                                      if "fused_step" in k[0]),
             "kernels": [{"name": k[0][:60], "us": k[1], "count": k[2]}
                         for k in top]}
 
@@ -318,7 +294,8 @@ def main(argv=None) -> int:
         packed_clause_tile_plain)
     from repro_torch.core.dtm import STAT_KEYS
     from repro_torch.core.prng import PRNG
-    from repro_torch.kernels.fused_step import fused_step, fused_step_plain
+    from repro_torch.kernels.fused_step import (
+        fused_step, fused_step_plain, prepare_fused_step)
     from repro_torch.kernels.ta_update import (
         prepare_ta_update, prepare_ta_update_sparse,
         prepare_ta_update_streamed, stream_rands, ta_update, ta_update_plain,
@@ -327,6 +304,7 @@ def main(argv=None) -> int:
     from repro_torch.core.booleanize import unpack_literals
     from repro_torch.kernels.clause_eval import clause_eval, clause_eval_plain
     from repro_torch.kernels.tm_infer import tm_infer, tm_infer_plain
+    from repro_torch.launch.kernel_bench import graph_ms
     from repro_torch.launch.serve_tm import TMServer
     from repro_torch.kernels.ref import NEG_INF_SUM
     # float32 products (the plain versions, the yardsticks) in full float32
@@ -581,7 +559,8 @@ def main(argv=None) -> int:
               and same_state(torch, tm_.prng, r0),
               "the dense and streamed fits start from other states")
     ops.reset_launch_counts()
-    with Capture(ops, "clause_eval") as cap_ce_train:
+    with Capture(ops, "clause_eval") as cap_ce_train, \
+            Capture(ops, "class_sum") as cap_cs_train:
         hist_m, fit_m_s = fit(tm_m)
     counts_fit_mxu = ops.launch_counts()
     ops.reset_launch_counts()
@@ -741,6 +720,13 @@ def main(argv=None) -> int:
         step_s.append(time.perf_counter() - t)
     step_prof = profile_flush(torch, lambda: eng.train_step(
         tm_a.program, tm_a.prng, lits32, lab32))
+    check(step_prof["fused_step_kernels"] == 1,
+          f"the profiled step ran {step_prof['fused_step_kernels']} "
+          "fused_step kernels")
+    fs_prof = profile_flush(torch, lambda: fused_step(*f_a, **f_kw))
+    check(fs_prof["launches"] == 1 and fs_prof["fused_step_kernels"] == 1,
+          f"a fused_step call launched {fs_prof['launches']} kernels "
+          f"({fs_prof['kernels']})")
     step_ms_by_path = {"default": float(np.median(step_s) * 1e3)}
     step_prof_by_path = {}
     for name, e in (("mxu", eng_mxu), ("stream", eng_stream),
@@ -761,7 +747,7 @@ def main(argv=None) -> int:
     cold = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
     it = ITERS
     K, R, W, H = lits.shape[0], inc.shape[1], inc.shape[2], weights.shape[1]
-    clf, wf = cl.float(), weights.float()
+    wf = weights.float()
     rows_out = []
 
     def yardstick(fn, what: str):
@@ -834,15 +820,28 @@ def main(argv=None) -> int:
         4 * (W + R * W + R), R * W + R, f"K=1 B=1 R={R} W={W}",
         library_note="torch.matmul float32, TF32 off, on the unpacked "
         "operands (violation counts)")
-    row("class_sum", cu + "class_sum.cu",
-        "src/repro/kernels/class_sum.py:57",
-        counts_stacked["class_sum"] + counts_edge["class_sum"],
-        max(err_sum, err_sum1),
-        lambda: class_sum(cl, weights),
-        lambda: class_sum_plain(cl, weights),
-        lambda: torch.matmul(clf, wf.transpose(-1, -2)),
-        4 * (K * B * R + K * H * R + K * B * H), K * B * R * H,
-        f"K={K} B={B} R={R} H={H}")
+    # class_sum: the serving bank (K=4) and the mxu fit's step (K=1); its
+    # launches are every main path's: serving stacked, dense and edge, the
+    # mxu fit and edge training
+    cs_launches = (counts_stacked["class_sum"] + counts_edge["class_sum"]
+                   + counts_dense_serve["class_sum"]
+                   + counts_fit_mxu["class_sum"]
+                   + counts_edge_train["class_sum"])
+    cst_a = copies(cap_cs_train.args[0])
+    _, err_cst = compare_one(class_sum, class_sum_plain, cst_a, {})
+    for label, (c_, w_), err in (("serving", (cl, weights),
+                                  max(err_sum, err_sum1)),
+                                 ("training", cst_a, err_cst)):
+        k_, b_, r_ = c_.shape
+        h_ = w_.shape[1]
+        c_f, w_f = c_.float(), w_.float()
+        row("class_sum", cu + "class_sum.cu",
+            "src/repro/kernels/class_sum.py:57", cs_launches, err,
+            lambda c_=c_, w_=w_: class_sum(c_, w_),
+            lambda c_=c_, w_=w_: class_sum_plain(c_, w_),
+            lambda c_f=c_f, w_f=w_f: torch.matmul(c_f, w_f.transpose(-1, -2)),
+            4 * (k_ * b_ * r_ + k_ * h_ * r_ + k_ * b_ * h_),
+            k_ * b_ * r_ * h_, f"{label} K={k_} B={b_} R={r_} H={h_}")
     cs1_ms = graph_ms(torch, lambda: class_sum(cl1, w1), it)
     for n in roster:
         stacked.enqueue(n, reqs[n][:B])
@@ -856,7 +855,8 @@ def main(argv=None) -> int:
     row("fused_step", cu + "fused_step.cu",
         "src/repro/kernels/fused_step.py:150",
         counts_fit["fused_step"] + counts_dense["fused_step"]
-        + counts_bank["fused_step"], err_front,
+        + counts_fit_stream["fused_step"] + counts_bank["fused_step"]
+        + counts_bank_stream["fused_step"], err_front,
         lambda: fused_step(*f_a, **f_kw),
         lambda: fused_step_plain(*f_a, **f_kw), None,
         4 * (fK * fB * fW + fK * fR * fW + fK * fH * fR + 2 * fK * fB
@@ -864,7 +864,8 @@ def main(argv=None) -> int:
              + 3 * fK * fB * fR + fK * fB * fH),
         fK * fB * fR * fW + fK * fB * fR + fired_front * fH
         + 2 * 3 * fK * fB * fR,
-        f"K={fK} B={fB} R={fR} W={fW} H={fH}")
+        f"K={fK} B={fB} R={fR} W={fW} H={fH}",
+        bare=prepare_fused_step(*f_a, **f_kw)[0])
 
     def ta_cost(a, kw_, sparse: bool, streamed: bool = False,
                 earlier: bool = False):
@@ -1050,6 +1051,7 @@ def main(argv=None) -> int:
         "train_acc": [h["train_acc"] for h in hist],
         "group_skip_frac": [h["group_skip_frac"] for h in hist],
         "test_acc": test_acc, "step_profile": step_prof,
+        "fused_step_call_profile": fs_prof,
         "step_profile_by_path": step_prof_by_path,
         "fit_s_dense_front": fit_m_s, "fit_s_streamed": fit_s_s,
         "stream_vs_inkernel": stream_cmp,

@@ -6,11 +6,14 @@
 tensors and runs the plain version on CPU tensors; it raises for anything
 else.  It replaces ``repro/kernels/class_sum.py:class_sum``.  Bound by the
 bytes of the clause matrix and the weights it reads; the source note gives
-the design.  ``class_sum.launches`` counts kernel launches.
+the design: a thread-block cluster per (program, batch tile) splits the
+clause axis (:func:`class_sum_split`).  ``class_sum.launches`` counts
+kernel launches.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
@@ -18,8 +21,31 @@ from . import _build, ref
 
 class_sum_plain = ref.class_sum_ref
 
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + \
-    [ctypes.c_longlong] * 3 + [ctypes.c_void_p]
+ROWS = 4              # batch rows per tile (csrc kRows: 1 or 4)
+MAX_CLUSTER = 16      # blocks of a cluster over R (csrc kMaxCluster)
+MIN_SPAN = 128        # clauses a block takes at least: 32 threads of 4
+BLOCKS_PER_SM = 2     # blocks in flight the split aims at
+MAX_CLASSES = 2048    # classes exchanged at once (shared memory)
+
+# cl, w, out; K, B, R, H; cl_sk, w_sk, out_sk; rows, cs, span, hc, vec; stream
+_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+             + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 5
+             + [ctypes.c_void_p])
+
+
+def class_sum_split(K: int, B: int, R: int, sms: int
+                    ) -> Tuple[int, int, int]:
+    """(batch rows per tile, blocks of a cluster, clauses per block) of a
+    launch: one row a tile at B = 1, else ``ROWS``; enough blocks for
+    ``BLOCKS_PER_SM`` on each of ``sms`` SMs, at most ``MAX_CLUSTER`` a
+    cluster, each taking at least ``MIN_SPAN`` clauses (a multiple of 4).
+    Pure: the CPU tests check it."""
+    rows = 1 if B == 1 else ROWS
+    clusters = max(K * -(-B // rows), 1)
+    want = -(-BLOCKS_PER_SM * sms // clusters)
+    cs = max(1, min(want, MAX_CLUSTER, -(-R // MIN_SPAN)))
+    span = max(4, 4 * -(-R // (4 * cs)))
+    return rows, max(1, -(-R // span)), span
 
 
 def _operands(cl: torch.Tensor, w: torch.Tensor):
@@ -40,8 +66,8 @@ def _operands(cl: torch.Tensor, w: torch.Tensor):
         if t.stride(2) != 1 or (t.shape[1] > 1 and t.stride(1) != R):
             raise ValueError(f"{name} rows must be contiguous, strides "
                              f"{t.stride()}")
-    if K > 65535:
-        raise ValueError(f"K={K} programs exceed the grid's y limit")
+    if K > 65535 or -(-B // ROWS) > 65535:
+        raise ValueError(f"K={K}, B={B} exceed the grid's z or y limit")
     return K, B, R, H
 
 
@@ -59,14 +85,17 @@ def class_sum(cl: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     out = torch.empty((K, B, H), dtype=torch.int32, device=cl.device)
     if out.numel() == 0:
         return out
-    lib = _build.load("class_sum")
-    fn = lib.dtm_class_sum
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
+    lib, fn = _build.entry("class_sum", "dtm_class_sum", _ARGTYPES)
+    from .clause_eval import sm_count
+    rows, cs, span = class_sum_split(K, B, R, sm_count(cl.device.index or 0))
+    vec = int(R % 4 == 0 and all(t.data_ptr() % 16 == 0 and
+                                 (t.shape[0] == 1 or t.stride(0) % 4 == 0)
+                                 for t in (cl, w)))
     with torch.cuda.device(cl.device):
         stream = torch.cuda.current_stream(cl.device).cuda_stream
         status = fn(cl.data_ptr(), w.data_ptr(), out.data_ptr(), K, B, R, H,
-                    cl.stride(0), w.stride(0), out.stride(0), stream)
+                    cl.stride(0), w.stride(0), out.stride(0), rows, cs, span,
+                    min(H, MAX_CLASSES), vec, stream)
     _build.check(lib, status, "dtm_class_sum")
     class_sum.launches += 1
     return out

@@ -15,20 +15,29 @@ and the per-program ``T`` and ``w_frozen`` ``[K]``.
 
 :func:`fused_step` launches ``csrc/fused_step.cu`` on CUDA tensors and runs
 :func:`fused_step_plain` on CPU tensors; it raises for anything else.  It
-replaces ``repro/kernels/fused_step.py:fused_step``.  ``fused_step.launches``
-counts kernel launches.
+replaces ``repro/kernels/fused_step.py:fused_step``.  The kernel splits the
+clause axis over a thread-block cluster (:func:`fused_split`) and needs no
+scratch, so a call is one launch.  :func:`prepare_fused_step` returns
+``(launch, outputs)``: ``launch()`` is the bare kernel launch, so a caller
+can time the kernel apart from its wrapper.  ``fused_step.launches`` counts
+kernel launches.
 """
 from __future__ import annotations
 
 import ctypes
-
 import torch
 
 from . import _build, ref
+from .ta_update import _route
 
-_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-_ROWS = 4                   # csrc kRows: batch rows per block
-_SMEM_LIMIT = 48 * 1024
+ROWS = 4              # batch rows per tile (csrc kRows)
+TILE = 256            # clause rows per tile, one per thread (csrc kTile)
+MAX_CLUSTER = 16      # blocks of a cluster over R (csrc kMaxCluster)
+SMEM_LIMIT = 227 * 1024   # dynamic shared memory a block may opt into
+
+# lit, inc, w, labels, neg, rand, cl_mask, h_mask, T, w_frozen, clause,
+# sums, sel_lab, sel_neg; K, B, R, W, H, n_bits, rand_bits, cs, bulk; stream
+_ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 
 
 def fused_step_plain(lit, inc, weights, labels, neg, rand, cl_mask, h_mask,
@@ -37,6 +46,23 @@ def fused_step_plain(lit, inc, weights, labels, neg, rand, cl_mask, h_mask,
     return ref.packed_step_ref(lit, inc, weights, labels, neg, rand[:, 0],
                                rand[:, 1], cl_mask, h_mask, T, w_frozen,
                                rand_bits, n_bits=n_bits)
+
+
+def fused_split(R: int) -> int:
+    """Blocks of a cluster: one cluster per (program, tile of ``ROWS``
+    batch rows) whose blocks share the ``TILE``-row clause tiles, at most
+    ``MAX_CLUSTER`` of them (block q takes tiles q, q + cs, ...).  Pure:
+    the CPU tests check it."""
+    return max(1, min(-(-R // TILE), MAX_CLUSTER))
+
+
+def fused_bulk(W: int, R: int, aligned: bool, bulk_smem: int) -> bool:
+    """Whether the kernel stages each warp's include rows in one bulk copy:
+    W and R multiples of 4, the operands 16-byte aligned and the whole
+    rows within shared memory (``bulk_smem`` bytes with them); else it
+    copies 4 bytes at a time, 64 words a pass."""
+    return (W % 4 == 0 and R % 4 == 0 and aligned
+            and bulk_smem <= SMEM_LIMIT)
 
 
 def _check(lit, inc, weights, labels, neg, rand, cl_mask, h_mask, T,
@@ -65,6 +91,56 @@ def _check(lit, inc, weights, labels, neg, rand, cl_mask, h_mask, T,
     return K, B, R, W, H, n_bits
 
 
+def _int32(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the kernel reads it: the tensor itself when it is
+    contiguous int32, else a contiguous int32 copy."""
+    if t.dtype == torch.int32 and t.is_contiguous():
+        return t
+    return t.to(torch.int32).contiguous()
+
+
+def prepare_fused_step(lit, inc, weights, labels, neg, rand, cl_mask,
+                       h_mask, T, w_frozen, rand_bits: int = 16,
+                       n_bits=None):
+    """(launch or None, (clause, sums, sel_lab, sel_neg)) of
+    :func:`fused_step` on CUDA operands; the outputs hold the result once
+    ``launch()`` has run.  Raises for a shape the kernel does not take."""
+    args = (lit, inc, weights, labels, neg, rand, cl_mask, h_mask, T,
+            w_frozen)
+    K, B, R, W, H, n_bits = _check(*args, rand_bits, n_bits)
+    if lit.dtype != torch.int32 or inc.dtype != torch.int32:
+        raise TypeError(f"packed words must be int32, got {lit.dtype}, "
+                        f"{inc.dtype}")
+    dev = lit.device
+    clause = torch.empty((K, B, R), dtype=torch.int32, device=dev)
+    sums = torch.empty((K, B, H), dtype=torch.int32, device=dev)
+    sel_lab = torch.empty_like(clause)
+    sel_neg = torch.empty_like(clause)
+    outs = (clause, sums, sel_lab, sel_neg)
+    if clause.numel() == 0 or H == 0:
+        return None, outs
+    if K > 65535 or -(-B // ROWS) > 65535:
+        raise ValueError(f"K={K}, B={B} exceed the grid's z or y limit")
+    lib, fn = _build.entry("fused_step", "dtm_fused_step", _ARGTYPES)
+    _, smem_fn = _build.entry("fused_step", "dtm_fused_step_smem",
+                              [ctypes.c_int] * 3, ctypes.c_size_t)
+    ops_ = [_int32(t) for t in args]
+    aligned = all(ops_[i].data_ptr() % 16 == 0 for i in (1, 2, 5, 6))
+    bulk = fused_bulk(W, R, aligned, smem_fn(H, W, 1))
+    if smem_fn(H, W, int(bulk)) > SMEM_LIMIT:
+        raise ValueError(f"H={H} classes overflow the kernel's shared memory")
+    cargs = ([t.data_ptr() for t in ops_] + [t.data_ptr() for t in outs]
+             + [K, B, R, W, H, n_bits, int(rand_bits), fused_split(R),
+                int(bulk)])
+
+    def launch():
+        status = fn(*cargs, torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(lib, status, "dtm_fused_step")
+        fused_step.launches += 1
+    launch.keep = ops_
+    return launch, outs
+
+
 def fused_step(lit: torch.Tensor, inc: torch.Tensor, weights: torch.Tensor,
                labels: torch.Tensor, neg: torch.Tensor, rand: torch.Tensor,
                cl_mask: torch.Tensor, h_mask: torch.Tensor, T: torch.Tensor,
@@ -74,47 +150,15 @@ def fused_step(lit: torch.Tensor, inc: torch.Tensor, weights: torch.Tensor,
     Labels must lie in [0, H)."""
     args = (lit, inc, weights, labels, neg, rand, cl_mask, h_mask, T,
             w_frozen)
-    K, B, R, W, H, n_bits = _check(*args, rand_bits, n_bits)
-    kinds = {t.device.type for t in args}
-    if kinds == {"cpu"}:
+    if _route(*args) == "cpu":
+        _check(*args, rand_bits, n_bits)
         return fused_step_plain(*args, rand_bits=rand_bits, n_bits=n_bits)
-    if kinds != {"cuda"} or len({t.device for t in args}) != 1:
-        raise ValueError(f"no kernel for operands on "
-                         f"{sorted(str(t.device) for t in args)}")
-    if lit.dtype != torch.int32 or inc.dtype != torch.int32:
-        raise TypeError(f"packed words must be int32, got {lit.dtype}, "
-                        f"{inc.dtype}")
-    # the kernel reads dense int32 rows: cast and compact what is not
-    ops_ = [t.to(torch.int32).contiguous() for t in args]
-    dev = lit.device
-    clause = torch.empty((K, B, R), dtype=torch.int32, device=dev)
-    sums = torch.empty((K, B, H), dtype=torch.int32, device=dev)
-    sel_lab = torch.empty_like(clause)
-    sel_neg = torch.empty_like(clause)
-    # scratch: class-sum accumulators and per-batch-tile block counters
-    acc = torch.zeros((K, B, H), dtype=torch.int32, device=dev)
-    done = torch.zeros((K, -(-B // _ROWS)), dtype=torch.int32, device=dev)
-    if clause.numel() == 0 or H == 0:
-        return clause, sums, sel_lab, sel_neg
-    lib = _build.load("fused_step")
-    lib.dtm_fused_step_smem.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.dtm_fused_step_smem.restype = ctypes.c_size_t
-    if lib.dtm_fused_step_smem(W, H) > _SMEM_LIMIT:
-        raise ValueError(f"W={W}, H={H} overflow the kernel's shared memory")
-    if K > 65535 or -(-B // _ROWS) > 65535:
-        raise ValueError(f"K={K}, B={B} exceed the grid's z or y limit")
-    fn = lib.dtm_fused_step
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        status = fn(*(t.data_ptr() for t in ops_), clause.data_ptr(),
-                    sums.data_ptr(), sel_lab.data_ptr(), sel_neg.data_ptr(),
-                    acc.data_ptr(), done.data_ptr(), K, B, R, W, H, n_bits,
-                    rand_bits, stream)
-    _build.check(lib, status, "dtm_fused_step")
-    fused_step.launches += 1
-    return clause, sums, sel_lab, sel_neg
+    launch, outs = prepare_fused_step(*args, rand_bits=rand_bits,
+                                      n_bits=n_bits)
+    if launch is not None:
+        with torch.cuda.device(lit.device):
+            launch()
+    return outs
 
 
 fused_step.launches = 0

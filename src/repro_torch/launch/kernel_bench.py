@@ -1,0 +1,144 @@
+"""Time the class-sum and fused-step kernels at the main paths' shapes.
+
+    PYTHONPATH=src python3 src/repro_torch/launch/kernel_bench.py
+
+Times ``class_sum`` and ``fused_step`` of whichever ``repro_torch`` Python
+imports: this checkout's, or another's put first on ``PYTHONPATH``, so
+one run on one card can hold two versions of the kernels against each
+other.  Each call goes through the public wrapper, and each result is
+first held against the kernel's plain version (exact); the operands are
+made from seed 0.  Device time per
+call: 200 calls captured in one CUDA graph and replayed (warm), and the
+same with L2 overwritten before each call (cold).  Prints the card's name
+and power limit, then one JSON line.  Exits 1 without a CUDA card.
+
+Shapes: ``class_sum`` at the serving bank (K=4, B=32, R=4224), the
+``mxu`` fit's step (K=1, B=32, R=2048) and the edge (B=1, R=4224 serving,
+R=2048 training), H=16; ``fused_step`` at the MNIST and KWS-6 CoTM
+training steps (B=32, R=2048, W=52 and 100, H=16) and a K=2 bank.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+
+HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
+CALLS = 200
+
+CLASS_SUM = [(4, 32, 4224, 16), (1, 32, 2048, 16), (1, 1, 4224, 16),
+             (1, 1, 2048, 16)]                       # K, B, R, H
+FUSED = [(1, 32, 2048, 52, 16), (1, 32, 2048, 100, 16),
+         (2, 32, 2048, 52, 16)]                      # K, B, R, W, H
+
+
+def graph_ms(torch, fn, n: int, cold_l2=None, reps: int = 5) -> float:
+    """Device time per call of ``fn``: ``n`` calls captured in one CUDA
+    graph and replayed ``reps`` times, so no host launch cost is counted.
+    With ``cold_l2`` (a buffer larger than L2) each call follows an
+    overwrite of it, whose own time is subtracted."""
+    def replay(body):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                body()
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(n):
+                body()
+        g.replay()
+        s, e = torch.cuda.Event(True), torch.cuda.Event(True)
+        s.record()
+        for _ in range(reps):
+            g.replay()
+        e.record()
+        torch.cuda.synchronize()
+        return s.elapsed_time(e) / (reps * n)
+
+    if cold_l2 is None:
+        return replay(fn)
+
+    def both():
+        cold_l2.zero_()
+        fn()
+    return replay(both) - replay(cold_l2.zero_)
+
+
+def words(torch, gen, shape, density):
+    """int32 words whose 32 bits are each set with ``density``."""
+    bits = torch.rand((*shape, 32), generator=gen) < density
+    w = (bits.to(torch.int64) << torch.arange(32)).sum(-1)
+    return torch.where(w >= 2 ** 31, w - 2 ** 32, w).to(torch.int32)
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_bench: no CUDA card; nothing was run", file=sys.stderr)
+        return 1
+    import repro_torch
+    from repro_torch import api  # noqa: F401  (the package before its kernels)
+    from repro_torch.kernels.class_sum import class_sum, class_sum_plain
+    from repro_torch.kernels.fused_step import fused_step, fused_step_plain
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip().splitlines()[0]
+    print(card)
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(0)
+    cold = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
+    rows = []
+
+    def timed(name, shape, fn, plain, nbytes):
+        got, want = fn(), plain()
+        torch.cuda.synchronize()
+        for g, w in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            if not torch.equal(g, w):
+                raise RuntimeError(f"{name} {shape}: kernel != plain")
+        rows.append({"name": name, "shape": shape,
+                     "ms": graph_ms(torch, fn, CALLS),
+                     "ms_cold_l2": graph_ms(torch, fn, CALLS // 4, cold),
+                     "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                     "bound_by": "bytes"})
+
+    for K, B, R, H in CLASS_SUM:
+        cl = (torch.rand((K, B, R), generator=gen) < 0.3).to(torch.int32)
+        w = torch.randint(-2047, 2048, (K, H, R), generator=gen,
+                          dtype=torch.int32)
+        cl, w = cl.to(dev), w.to(dev)
+        timed("class_sum", f"K={K} B={B} R={R} H={H}",
+              lambda cl=cl, w=w: class_sum(cl, w),
+              lambda cl=cl, w=w: class_sum_plain(cl, w),
+              4 * (K * B * R + K * H * R + K * B * H))
+    for K, B, R, W, H in FUSED:
+        ops = [words(torch, gen, (K, B, W), 0.5),
+               words(torch, gen, (K, R, W), 0.002),
+               torch.randint(-7, 8, (K, H, R), generator=gen,
+                             dtype=torch.int32),
+               torch.randint(0, 10, (K, B), generator=gen, dtype=torch.int32)]
+        ops.append(((ops[3] + 1) % 10).to(torch.int32))
+        ops += [torch.randint(0, 1 << 16, (K, 2, B, R), generator=gen,
+                              dtype=torch.int32),
+                torch.ones((K, R), dtype=torch.int32),
+                (torch.arange(H) < 10).to(torch.int32).repeat(K, 1),
+                torch.full((K,), 500, dtype=torch.int32),
+                torch.arange(K, dtype=torch.int32) % 2]
+        ops = [t.to(dev) for t in ops]
+        n_bits = 32 * W - 16
+        timed("fused_step", f"K={K} B={B} R={R} W={W} H={H}",
+              lambda ops=ops, n=n_bits: fused_step(*ops, n_bits=n),
+              lambda ops=ops, n=n_bits: fused_step_plain(*ops, n_bits=n),
+              4 * (K * B * W + K * R * W + K * H * R + 2 * K * B
+                   + 2 * K * B * R + K * R + K * H + 2 * K
+                   + 3 * K * B * R + K * B * H))
+    print(json.dumps({"kernel_bench": {
+        "card": card, "repro_torch": repro_torch.__file__, "calls": CALLS,
+        "rows": rows}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

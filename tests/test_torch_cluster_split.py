@@ -1,0 +1,64 @@
+"""Launch geometry of the cluster kernels ``fused_step`` and ``class_sum``
+(CPU: pure functions of the shapes).
+
+Each clause row belongs to exactly one block of a cluster, a cluster has
+at most 16 blocks, and the main path's shapes put enough blocks in flight.
+The card tests (``test_torch_cuda.py``) hold the kernels themselves
+against their plain versions.
+"""
+import pytest
+
+from repro_torch import api  # noqa: F401  (the package before its kernels)
+from repro_torch.kernels import class_sum as cs_mod
+from repro_torch.kernels import fused_step as fs_mod
+
+SHAPES = [(1, 1, 1), (1, 1, 17), (1, 5, 300), (3, 33, 4224), (4, 32, 4224),
+          (1, 32, 2048), (1, 1, 4224), (2, 7, 4101), (1, 1, 100000)]
+
+
+@pytest.mark.parametrize("K,B,R", SHAPES)
+@pytest.mark.parametrize("sms", [1, 132])
+def test_class_sum_split_covers_every_clause_once(K, B, R, sms):
+    rows, cs, span = cs_mod.class_sum_split(K, B, R, sms)
+    assert rows == (1 if B == 1 else cs_mod.ROWS)
+    assert 1 <= cs <= cs_mod.MAX_CLUSTER and span % 4 == 0 and span >= 4
+    owner = [r // span for r in range(R)]
+    assert owner[-1] == cs - 1 and all(0 <= o < cs for o in owner)
+
+
+@pytest.mark.parametrize("K,B,R,blocks", [(4, 32, 4224, 264),
+                                          (1, 32, 2048, 128),
+                                          (1, 1, 4224, 16), (1, 1, 2048, 16)])
+def test_class_sum_split_fills_the_card_on_the_main_path(K, B, R, blocks):
+    """Serving bank, mxu fit and edge: about two blocks an SM where the
+    clause axis allows it, each block at least MIN_SPAN clauses."""
+    rows, cs, span = cs_mod.class_sum_split(K, B, R, 132)
+    assert K * -(-B // rows) * cs >= blocks
+    assert span >= min(R, cs_mod.MIN_SPAN)
+
+
+@pytest.mark.parametrize("R", [1, 17, 255, 256, 257, 2048, 4096, 4224,
+                               100000])
+def test_fused_split_gives_every_block_a_tile(R):
+    cs = fs_mod.fused_split(R)
+    tiles = -(-R // fs_mod.TILE)
+    assert 1 <= cs <= min(tiles, fs_mod.MAX_CLUSTER)
+    owned = sorted(t for q in range(cs) for t in range(q, tiles, cs))
+    assert owned == list(range(tiles))
+
+
+def test_fused_split_at_the_training_shape():
+    """MNIST CoTM (R=2048): 8 blocks of 256 clause rows, one cluster per
+    tile of 4 batch rows, so B=32 runs 64 blocks."""
+    assert fs_mod.fused_split(2048) == 8
+    assert fs_mod.ROWS == 4 and fs_mod.TILE == 256
+
+
+@pytest.mark.parametrize("W,R,aligned,fits,bulk", [
+    (52, 2048, True, True, True), (100, 4224, True, True, True),
+    (256, 2048, True, False, False), (101, 2048, True, True, False),
+    (52, 2047, True, True, False), (52, 2048, False, True, False)])
+def test_fused_bulk_copies_only_aligned_rows_that_fit(W, R, aligned, fits,
+                                                      bulk):
+    smem = fs_mod.SMEM_LIMIT + (0 if fits else 1)
+    assert fs_mod.fused_bulk(W, R, aligned, smem) == bulk

@@ -18,7 +18,8 @@ from repro_torch.kernels import _build, ops
 from repro_torch.kernels.class_sum import class_sum, class_sum_plain
 from repro_torch.kernels.clause_eval import clause_eval, clause_eval_plain
 from repro_torch.kernels.tm_infer import tm_infer, tm_infer_plain
-from repro_torch.kernels.fused_step import fused_step, fused_step_plain
+from repro_torch.kernels.fused_step import (fused_step, fused_step_plain,
+                                            prepare_fused_step)
 from repro_torch.kernels.ta_update import (stream_rands, ta_update,
                                            ta_update_plain, ta_update_sparse,
                                            ta_update_sparse_plain,
@@ -200,6 +201,144 @@ def test_fused_step_takes_strided_operands(dev):
         assert torch.equal(g, w)
     with pytest.raises(ValueError):
         fused_step(*args[:5], args[5].cpu(), *args[6:])
+
+
+# The cluster geometry of fused_step and class_sum: R below one block's
+# share, R not a multiple of the 256-row tile or the class_sum span, R
+# past one cluster's worth (4224 and 4100 = 17 tiles of 256), B off the
+# batch tile (1, 5, 33), K=3, H=1, 20 and 40, W=1 and 101 (two staged word
+# chunks).  fused_step stages the include rows two ways: one bulk copy a
+# warp (W=4, 52, 100) and 4-byte copies (W or R not a multiple of 4, or
+# W=256: the whole rows do not fit in shared memory).
+FRONT_GEOMETRY = [(1, 1, 17, 1, 1), (1, 5, 300, 3, 40), (3, 33, 4224, 4, 16),
+                  (2, 33, 1000, 101, 5), (1, 32, 2048, 52, 16),
+                  (3, 1, 129, 8, 1), (2, 7, 512, 100, 20),
+                  (1, 5, 4100, 256, 3)]
+
+
+def _select_operands(K, B, R, W, H, dev, seed, rand_bits, t_max, frozen):
+    """Front-half operands whose selection runs at its arithmetic edges:
+    random words of ``rand_bits`` bits, T up to ``t_max`` (8000 makes
+    ``p_num << rand_bits`` wrap in int32 at 24 bits), weights up to ±2047
+    so the class sums leave [-T, T], and ``frozen`` per program."""
+    gen = torch.Generator().manual_seed(seed)
+    lit, inc = _operands(K, B, R, W, dev, seed=seed)
+    w = torch.randint(-2047, 2048, (K, H, R), generator=gen,
+                      dtype=torch.int32)
+    w[:, :, ::3] = 0
+    labels = torch.randint(0, H, (K, B), generator=gen, dtype=torch.int32)
+    neg = (labels + 1) % H
+    rand = torch.randint(0, 1 << rand_bits, (K, 2, B, R), generator=gen,
+                         dtype=torch.int32)
+    cl_mask = (torch.arange(R) < R - R // 5).to(torch.int32).expand(K, R)
+    h_mask = (torch.arange(H) < max(H - 2, 1)).to(torch.int32).expand(K, H)
+    T = torch.randint(max(t_max // 2, 1), t_max + 1, (K,), generator=gen,
+                      dtype=torch.int32)
+    wf = torch.tensor(frozen, dtype=torch.int32)
+    return [t.contiguous().to(dev) for t in (lit, inc, w, labels, neg, rand,
+                                             cl_mask, h_mask, T, wf)]
+
+
+def _same_front(args, rand_bits=16, n_bits=None):
+    got = fused_step(*args, rand_bits=rand_bits, n_bits=n_bits)
+    torch.cuda.synchronize()
+    want = fused_step_plain(*args, rand_bits=rand_bits, n_bits=n_bits)
+    for name, g, w in zip(("clause", "sums", "sel_lab", "sel_neg"), got,
+                          want):
+        assert g.dtype == torch.int32 and torch.equal(g, w), name
+    return got
+
+
+@pytest.mark.parametrize("K,B,R,W,H", FRONT_GEOMETRY)
+def test_fused_step_cluster_geometry_matches_plain(dev, K, B, R, W, H):
+    args = _front_operands(K, B, R, W, H, dev, 7 * K + B + R + W + H,
+                           False)
+    args[9] = (torch.arange(K, device=dev) % 2).to(torch.int32)
+    for n_bits in (32 * W, 32 * W - 7 if W > 1 else 25):
+        _same_front(args, n_bits=n_bits)
+
+
+@pytest.mark.parametrize("rand_bits", [8, 16, 24])
+@pytest.mark.parametrize("t_max", [60, 8000])
+def test_fused_step_selection_edges_match_plain(dev, rand_bits, t_max):
+    args = _select_operands(3, 33, 300, 4, 10, dev, rand_bits + t_max,
+                            rand_bits, t_max, [0, 1, 1])
+    got = _same_front(args, rand_bits=rand_bits, n_bits=120)
+    assert got[2].sum() > 0 and got[3].sum() > 0
+
+
+def test_fused_step_is_one_launch_without_scratch(dev):
+    """A call on the engine's operands (contiguous int32) launches one
+    kernel and nothing else: no fill, no cast, no copy."""
+    from torch.profiler import ProfilerActivity, profile
+    args = _select_operands(1, 32, 2048, 52, 16, dev, 3, 16, 500, [0])
+    fused_step(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fused_step(*args)
+        torch.cuda.synchronize()
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA}
+    assert len(kernels) == 1 and "fused_step" in next(iter(kernels)), kernels
+    assert next(iter(kernels.values())) == 3, kernels
+
+
+def test_fused_step_takes_unaligned_include_words(dev):
+    """An include view off 16-byte alignment takes the 4-byte copies."""
+    args = _select_operands(1, 6, 512, 52, 16, dev, 9, 16, 500, [1])
+    base = torch.zeros(args[1].numel() + 1, dtype=torch.int32, device=dev)
+    base[1:] = args[1].reshape(-1)
+    shifted = args[:1] + [base[1:].view(args[1].shape)] + args[2:]
+    want = fused_step_plain(*args)
+    for g, w in zip(fused_step(*shifted), want):
+        assert torch.equal(g, w)
+
+
+def test_prepare_fused_step_is_the_bare_launch(dev):
+    args = _select_operands(2, 5, 300, 3, 7, dev, 4, 16, 60, [1, 0])
+    want = fused_step(*args)
+    before = fused_step.launches
+    launch, got = prepare_fused_step(*args)
+    assert fused_step.launches == before
+    launch()
+    torch.cuda.synchronize()
+    assert fused_step.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("K,B,R,H", [(1, 1, 50, 1), (1, 5, 300, 40),
+                                     (3, 33, 4224, 16), (1, 1, 4224, 16),
+                                     (1, 32, 2048, 16), (2, 5, 4101, 1),
+                                     (1, 33, 130, 40), (4, 32, 4224, 16)])
+def test_class_sum_cluster_geometry_matches_plain(dev, K, B, R, H):
+    gen = torch.Generator().manual_seed(3 * K + B + R + H)
+    cl = torch.randint(0, 2, (K, B, R), generator=gen,
+                       dtype=torch.int32).to(dev)
+    w = torch.randint(-2047, 2048, (K, H, R), generator=gen,
+                      dtype=torch.int32).to(dev)
+    got = class_sum(cl, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, class_sum_plain(cl, w))
+
+
+def test_class_sum_takes_strided_and_unaligned_operands(dev):
+    """Program strides off a multiple of 4 and a pointer off 16-byte
+    alignment take the scalar loads."""
+    gen = torch.Generator().manual_seed(5)
+    cl = torch.randint(0, 2, (3, 6, 257), generator=gen,
+                       dtype=torch.int32).to(dev)
+    w = torch.randint(-9, 10, (3, 5, 257), generator=gen,
+                      dtype=torch.int32).to(dev)
+    want = class_sum_plain(cl, w)
+    base = torch.zeros(cl.numel() + 1, dtype=torch.int32, device=dev)
+    base[1:] = cl.reshape(-1)
+    assert torch.equal(class_sum(base[1:].view(cl.shape), w), want)
+    pad = torch.zeros((3, 7, 257), dtype=torch.int32, device=dev)
+    pad[:, :6] = cl
+    assert torch.equal(class_sum(pad[:, :6], w), want)
 
 
 def _ta_operands(K, B2, C, L, dev, seed, ta_bits):
