@@ -32,7 +32,11 @@ Serving phases:
      latency with the host clock, and one flush under torch.profiler;
      class_sum at the serving bank (K=4) and at the mxu fit's shape
      (K=1, B=32, captured in phase 7b), its launches counted over every
-     path that runs it, and at B=1 (``class_sum_b1_ms``).
+     path that runs it, and at B=1 (``class_sum_b1_ms``); tm_infer also
+     as ``kernel_ms``, its bare launch without the wrapper's fill
+     (``prepare_tm_infer``); and the rate of the tensor cores'
+     single-bit product (``b1_mma_probe``: back-to-back
+     ``mma.m16n8k256 .b1 .and.popc``), which bounds packed_clause_tile.
 
 Training phases (the paper's MNIST CoTM at full width, L=1664, R=2048,
 H=16, W=52, on the MNIST-like synthetic set: 2048 training and 512
@@ -92,7 +96,11 @@ rows with Type I feedback (Type II reads no random word), no output
 shift, and the LFSR refresh count only where a refresh can fire within
 the call, 2B >= 2^lfsr_bits - 1.  ``bound_ms_before`` is the earlier
 count: streams for every clause row with feedback, the shift out and the
-refresh count on every step.  No kernel here does float work.
+refresh count on every step.  packed_clause_tile runs its violation
+counts on the tensor cores: its operations are the m16n8k256 products
+its tiles need on these inputs (K · ceil(B/8) · ceil(R/16) · ceil(W/8))
+at the probe's measured rate, and its ``bound_ms_before`` is the LOP3
+count at the integer rate.  No kernel here does float work.
 
 Prints the card line, ``serving`` and ``training`` JSON lines, a
 ``kernels`` JSON line and, last, ``{"ok": true, "device": {...}}``.  Any
@@ -219,32 +227,62 @@ def call_ms(torch, fn, n: int) -> float:
     return s.elapsed_time(e) / n
 
 
-def profile_flush(torch, fn) -> dict:
+def profile_flush(torch, fn, captures: int = 1) -> dict:
     """One call of ``fn`` under torch.profiler: wall time, summed kernel
     time on the device, the device's busy share of the wall time, the
     eight longest kernels, the number of kernels launched and how many of
-    them are ``fused_step``'s."""
+    them are ``fused_step``'s.  A capture that holds no device activity at
+    all (the profiler now and then returns none for a call that launched
+    kernels) is taken again with another call, up to ``captures`` calls;
+    ``captures`` in the result counts them."""
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        fn()
+    for n in range(1, captures + 1):
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-    kernels = [(e.key, e.self_device_time_total, e.count)
-               for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        kernels = [(e.key, e.self_device_time_total, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0]
+        if kernels:
+            break
     dev_us = sum(k[1] for k in kernels)
     top = sorted(kernels, key=lambda k: -k[1])[:8]
-    return {"wall_ms": wall * 1e3, "device_ms": dev_us / 1e3,
+    return {"wall_ms": wall * 1e3, "device_ms": dev_us / 1e3, "captures": n,
             "busy_share": (dev_us / 1e6) / wall if kernels else None,
             "launches": sum(k[2] for k in kernels),
             "fused_step_kernels": sum(k[2] for k in kernels
                                       if "fused_step" in k[0]),
             "kernels": [{"name": k[0][:60], "us": k[1], "count": k[2]}
                         for k in top]}
+
+
+def b1_mma_per_s(torch, _build) -> float:
+    """m16n8k256 .b1 products per second: ``b1_mma_probe`` on 2 blocks of
+    8 warps an SM, each warp running its chains of back-to-back products,
+    timed with CUDA events over 3 launches after a warm one."""
+    import ctypes
+    lib, fn = _build.entry("packed_clause", "dtm_b1_mma_probe",
+                           [ctypes.c_void_p] + [ctypes.c_int] * 3
+                           + [ctypes.c_void_p])
+    chains = _build.load("packed_clause").dtm_b1_mma_probe_chains()
+    blocks = 2 * torch.cuda.get_device_properties(0).multi_processor_count
+    warps, iters, reps = 8, 2048, 3
+    out = torch.empty(blocks * warps * 32, dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    s, e = torch.cuda.Event(True), torch.cuda.Event(True)
+    for i in range(reps + 1):
+        if i == 1:
+            s.record()
+        _build.check(lib, fn(out.data_ptr(), blocks, warps, iters, stream),
+                     "dtm_b1_mma_probe")
+    e.record()
+    torch.cuda.synchronize()
+    return blocks * warps * chains * iters * reps / (s.elapsed_time(e) * 1e-3)
 
 
 def bound(nbytes: int, ops: int, rate: float):
@@ -303,7 +341,8 @@ def main(argv=None) -> int:
         ta_update_streamed_plain)
     from repro_torch.core.booleanize import unpack_literals
     from repro_torch.kernels.clause_eval import clause_eval, clause_eval_plain
-    from repro_torch.kernels.tm_infer import tm_infer, tm_infer_plain
+    from repro_torch.kernels.tm_infer import (prepare_tm_infer, tm_infer,
+                                              tm_infer_plain)
     from repro_torch.launch.kernel_bench import graph_ms
     from repro_torch.launch.serve_tm import TMServer
     from repro_torch.kernels.ref import NEG_INF_SUM
@@ -318,6 +357,7 @@ def main(argv=None) -> int:
     print(card)
     int_rate = int_ops_per_s(torch)
     print(f"build: {build_s:.1f} s, {sorted(p.name for p in libs.values())}")
+    b1_rate = b1_mma_per_s(torch, _build)
 
     # ---- 2. programs --------------------------------------------------------
     roster = {"mnist_cotm": (tm_paper.TM_MNIST_COTM, datasets.MNIST_LIKE),
@@ -719,11 +759,12 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t)
     step_prof = profile_flush(torch, lambda: eng.train_step(
-        tm_a.program, tm_a.prng, lits32, lab32))
+        tm_a.program, tm_a.prng, lits32, lab32), captures=3)
     check(step_prof["fused_step_kernels"] == 1,
           f"the profiled step ran {step_prof['fused_step_kernels']} "
           "fused_step kernels")
-    fs_prof = profile_flush(torch, lambda: fused_step(*f_a, **f_kw))
+    fs_prof = profile_flush(torch, lambda: fused_step(*f_a, **f_kw),
+                            captures=3)
     check(fs_prof["launches"] == 1 and fs_prof["fused_step_kernels"] == 1,
           f"a fused_step call launched {fs_prof['launches']} kernels "
           f"({fs_prof['kernels']})")
@@ -767,16 +808,17 @@ def main(argv=None) -> int:
 
     def row(name, source, replaces, launches, err, kernel, plain, library,
             nbytes, nops, shape, plain_graph=True, rate=None,
-            library_note=None, bare=None, nops_before=None):
+            library_note=None, bare=None, nops_before=None, extra=None):
         """One kernels-line entry.  The plain version is timed by graph
         replay, or (``plain_graph=False``: it reads the device on the
         host) with events around back-to-back calls.  ``rate`` is the
         operations rate of the bound (default: the integer rate).
         ``bare``: the kernel's bare launch, operands and scalars prepared
         outside the graph (``kernel_ms``); ``nops_before``: the operations
-        of the earlier bound (``bound_ms_before``, ``ta_cost``)."""
+        of the earlier bound (``bound_ms_before``, ``ta_cost``);
+        ``extra``: more keys of the row."""
         b_ms, b_by = bound(nbytes, nops, rate or int_rate)
-        extra = {}
+        extra = dict(extra or {})
         if bare is not None:
             extra["kernel_ms"] = graph_ms(torch, bare, it)
         if nops_before is not None:
@@ -808,10 +850,15 @@ def main(argv=None) -> int:
         counts_stacked["packed_clause_tile"], err_tile,
         lambda: packed_clause_tile(lits, inc, True, L),
         lambda: packed_clause_tile_plain(lits, inc, True, L), lib_tile,
-        4 * (K * B * W + K * R * W + K * B * R), K * B * R * W + K * B * R,
-        f"K={K} B={B} R={R} W={W}",
-        library_note=f"torch._int_mm x{K} on the unpacked operands "
-        "(violation counts)")
+        4 * (K * B * W + K * R * W + K * B * R),
+        K * -(-B // 8) * -(-R // 16) * -(-W // 8), f"K={K} B={B} R={R} W={W}",
+        rate=b1_rate, library_note=f"torch._int_mm x{K} on the unpacked "
+        "operands (violation counts)",
+        extra={"b1_mma_per_s": b1_rate,
+               "b1_bit_macs_per_s": b1_rate * 16 * 8 * 256,
+               "bound_ms_before": bound(
+                   4 * (K * B * W + K * R * W + K * B * R),
+                   K * B * R * W + K * B * R, int_rate)[0]})
     row("packed_clause_eval", cu + "packed_clause.cu",
         "src/repro/kernels/packed_clause.py:107",
         counts_edge["packed_clause_eval"], err_edge,
@@ -981,7 +1028,8 @@ def main(argv=None) -> int:
         2 * k_ * b_ * c_ * l_ + 2 * k_ * b_ * c_ * h_,
         f"K={k_} B={b_} C={c_} L={l_} H={h_}", rate=INT8_TC_OPS_PER_S,
         library_note=f"torch._int_mm x{k_} + torch.matmul float32 "
-        f"({k_ + 1} calls: violation counts, then clauses x weights)")
+        f"({k_ + 1} calls: violation counts, then clauses x weights)",
+        bare=prepare_tm_infer(*tmi_a, **tmi_kw)[0])
     def ms_of(name, shape):
         """``ms`` of the kernels-line row ``name`` whose shape starts
         with ``shape``."""

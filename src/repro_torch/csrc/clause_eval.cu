@@ -1,5 +1,5 @@
-// Dense clause evaluation and fused inference on Hopper (sm_90a): two
-// entry points.
+// Dense clause evaluation and fused inference on Hopper (sm_90a): one
+// clause body, two epilogues.
 //
 //   viol[k, b, c]   = Σ_l (1 − lit[k, b, l]) · inc[k, c, l]
 //   clause[k, b, c] = viol == 0   (and, in eval mode, row c of inc has an include)
@@ -7,10 +7,11 @@
 //
 // dtm_clause_eval replaces repro/kernels/clause_eval.py: clause_eval (the
 // Pallas int8 product on the MXU, violation and include counts carried
-// across the literal grid axis).  dtm_tm_infer replaces
-// repro/kernels/tm_infer.py: tm_infer, whose clause tile feeds the class
-// sums on chip; here too the clause tile never goes to device memory.
-// The sums are unpinned, as in the JAX kernel.
+// across the literal grid axis); its epilogue stores the int32 clauses.
+// dtm_tm_infer replaces repro/kernels/tm_infer.py: tm_infer, whose clause
+// tile feeds the class sums on chip; its epilogue adds the weights of the
+// fired clauses, so the clause tile never goes to device memory.  The sums
+// are unpinned, as in the JAX kernel.
 //
 // Operands: literals int8 [K, B, L] and include int8 [K, C, L], one byte per
 // literal (any nonzero byte counts as 1); weights int32 [K, H, C]; all
@@ -21,8 +22,8 @@
 // work is a violation test per (b, c, l), far below the byte time once
 // literals are bits.
 //
-// dtm_clause_eval, the streaming bit-packed kernel.  A clause fires iff no
-// bit of inc & (lit == 0) is set, so no count is needed.
+// The clause body (clause_stream), a streaming bit-packed tile.  A clause
+// fires iff no bit of inc & (lit == 0) is set, so no count is needed.
 //  * Pack to bits on the way in: 32 literal bytes become one word (bit
 //    8j + i = byte j of word i is nonzero, one LOP3/IADD/LOP3 per 4 bytes
 //    and a shift-or), the same permutation for both operands, so one LOP3
@@ -50,137 +51,26 @@
 //    before it stores its clauses' violated-row masks and nonempty bits
 //    (one 64-bit word per clause) into the shared memory of rank 0
 //    (distributed shared memory), so rank 0 has started before it is
-//    written; then each arrives again and rank 0 alone waits, ORs the
-//    words and writes the int32 outputs.  No scratch, no atomics, no memset; without a split
-//    the block writes from registers.
-//
-// dtm_tm_infer keeps the first version's clause tile (clause_tile below): a
-// block owns 32 batch rows × 64 clauses and walks the literal axis in
-// 128-byte chunks staged in shared memory as {0, 1} bytes (one LOP3 per 4
-// literals, rows of 33 words to keep shared loads conflict-free), then
-// turns the tile into one 64-bit fired mask per batch row (warp ballots),
-// stages the weights of its 64 clauses, adds the weights of the fired
-// clauses per (row, class) and adds each nonzero partial sum into the
-// zeroed [K, B, H] output with an integer atomic: exact in any order.
+//    written; then each arrives again and rank 0 alone waits and ORs the
+//    words.  No scratch, no memset between the splits.
+//  * The epilogue runs in rank 0 (or in the block, without a split) once
+//    each lane knows which of the 32 batch rows its clause fires for, the
+//    c < C and eval-mode nonempty gates applied:
+//    - Clauses (dtm_clause_eval) writes the int32 outputs;
+//    - ClassSums (dtm_tm_infer) has had the weights of the block's 128
+//      clauses for the first 16 classes in flight since the first stages
+//      (4-byte cp.async copies in the third ring stage's group, issued by
+//      the epilogue's block only), turns the lanes' fired masks into one
+//      128-bit mask per batch
+//      row (32 ballots a warp), adds the weights of the set bits with a
+//      thread per (row, class) and adds each nonzero partial into the
+//      zeroed [K, B, H] output with an integer atomic: exact in any order.
+//      Classes run in passes of 16, so any H works.
 #include "common.cuh"
 
 #include <cooperative_groups.h>
 
 namespace {
-
-constexpr int kRows = 32;          // batch rows per block
-constexpr int kClauses = 64;       // clauses per block
-constexpr int kThreads = 128;
-constexpr int kChunk = 128;        // literal bytes per stage
-constexpr int kWords = kChunk / 4; // words per staged row
-constexpr int kStride = kWords + 1;
-constexpr int kClasses = 16;       // classes per pass of the sum stage
-
-struct Ones {    // byte != 0 -> 1
-  __device__ __forceinline__ uint32_t operator()(uint32_t x) const {
-    return __vcmpne4(x, 0u) & 0x01010101u;
-  }
-};
-
-struct Zeros {   // byte == 0 -> 1
-  __device__ __forceinline__ uint32_t operator()(uint32_t x) const {
-    return __vcmpeq4(x, 0u) & 0x01010101u;
-  }
-};
-
-// The 4 bytes at l..l+3 of a row of n bytes, bytes past n read as zero.
-__device__ __forceinline__ uint32_t load_word(const int8_t* row, int l, int n) {
-  uint32_t v = 0u;
-#pragma unroll
-  for (int e = 0; e < 4; ++e)
-    if (l + e < n) v |= static_cast<uint32_t>(static_cast<uint8_t>(__ldg(row + l + e))) << (8 * e);
-  return v;
-}
-
-// Stage chunk [l0, l0 + kChunk) of `rows` rows (from row0 of nrows) into
-// s[row][kStride], each word passed through f.
-template <bool kVec, typename F>
-__device__ __forceinline__ void stage(uint32_t* s, const int8_t* base, int row0, int nrows,
-                                      int rows, int L, int l0, F f) {
-  if (kVec) {
-    for (int i = threadIdx.x; i < rows * (kChunk / 16); i += kThreads) {
-      const int r = i / (kChunk / 16), q = i % (kChunk / 16);
-      const int l = l0 + 16 * q;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (row0 + r < nrows && l < L)
-        v = __ldg(reinterpret_cast<const uint4*>(base + static_cast<long long>(row0 + r) * L + l));
-      uint32_t* d = s + r * kStride + 4 * q;
-      d[0] = f(v.x);
-      d[1] = f(v.y);
-      d[2] = f(v.z);
-      d[3] = f(v.w);
-    }
-  } else {
-    for (int i = threadIdx.x; i < rows * kWords; i += kThreads) {
-      const int r = i / kWords, q = i % kWords;
-      uint32_t v = 0u;
-      if (row0 + r < nrows)
-        v = load_word(base + static_cast<long long>(row0 + r) * L, l0 + 4 * q, L);
-      s[r * kStride + q] = f(v);
-    }
-  }
-}
-
-struct Tile {
-  uint32_t acc[4][4];   // [batch j][clause i]: OR of the violation bytes
-  uint32_t nz[4];       // [clause i]: OR of the include bytes
-};
-
-// The clause tile of block (blockIdx.x: clause chunk, blockIdx.y: batch
-// chunk, blockIdx.z: program).  Thread t holds batch rows bg + 8j and
-// clauses cg + 16i of the tile (bg = t / 16, cg = t % 16).
-template <bool kVec>
-__device__ __forceinline__ void clause_tile(const int8_t* __restrict__ lit,
-                                            const int8_t* __restrict__ inc, int B, int C,
-                                            int L, Tile& t) {
-  __shared__ uint32_t s_neg[kRows * kStride];
-  __shared__ uint32_t s_inc[kClauses * kStride];
-  const int k = blockIdx.z;
-  const int b0 = blockIdx.y * kRows, c0 = blockIdx.x * kClauses;
-  const int8_t* lit_k = lit + static_cast<long long>(k) * B * L;
-  const int8_t* inc_k = inc + static_cast<long long>(k) * C * L;
-  const int cg = threadIdx.x & 15, bg = threadIdx.x >> 4;
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) t.acc[j][i] = 0u;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) t.nz[i] = 0u;
-
-  for (int l0 = 0; l0 < L; l0 += kChunk) {
-    stage<kVec>(s_neg, lit_k, b0, B, kRows, L, l0, Zeros());
-    stage<kVec>(s_inc, inc_k, c0, C, kClauses, L, l0, Ones());
-    __syncthreads();
-#pragma unroll 4
-    for (int w = 0; w < kWords; ++w) {
-      uint32_t iw[4], nw[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) iw[i] = s_inc[(cg + 16 * i) * kStride + w];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) nw[j] = s_neg[(bg + 8 * j) * kStride + w];
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) t.acc[j][i] |= iw[i] & nw[j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) t.nz[i] |= iw[i];
-    }
-    __syncthreads();
-  }
-}
-
-__device__ __forceinline__ bool fired(const Tile& t, int j, int i, bool eval_mode) {
-  return t.acc[j][i] == 0u && (!eval_mode || t.nz[i] != 0u);
-}
-
-// ---- dtm_clause_eval: the streaming bit-packed kernel ----------------------
-
-namespace ce {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
@@ -196,19 +86,6 @@ constexpr int kRingBytes = kWarps * kStages * kStageBytes;
 constexpr int kMaxChunks = 32768 / (kWordsPerChunk * kTileB * 4);   // packed literals <= 32 KB
 constexpr int kMaxSplits = 8;         // blocks of a cluster (the portable limit)
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // bit 7 of each byte: the byte is nonzero
 __device__ __forceinline__ uint32_t nonzero7(uint32_t x) {
   return (((x & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | x) & 0x80808080u;
@@ -221,6 +98,15 @@ __device__ __forceinline__ uint32_t pack32(const uint32_t* x) {
 #pragma unroll
   for (int i = 0; i < 8; ++i) p |= nonzero7(x[i]) >> (7 - i);
   return p;
+}
+
+// The 4 bytes at l..l+3 of a row of n bytes, bytes past n read as zero.
+__device__ __forceinline__ uint32_t load_word(const int8_t* row, int l, int n) {
+  uint32_t v = 0u;
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    if (l + e < n) v |= static_cast<uint32_t>(static_cast<uint8_t>(__ldg(row + l + e))) << (8 * e);
+  return v;
 }
 
 // 16 bytes at l of a row of n bytes, bytes past n read as zero.
@@ -243,7 +129,7 @@ __device__ __forceinline__ void load_stage(uint8_t* dst, const int8_t* inc_k, in
     const bool ok = c < C && l < L;
     if (kVec) {
       const int8_t* src = ok ? inc_k + static_cast<long long>(c) * L + l : inc_k;
-      cp_async16(d, src, ok ? 16 : 0);
+      dtm_cp_async16(d, src, ok ? 16 : 0);
     } else {
       *reinterpret_cast<uint4*>(d) =
           ok ? load16_bytes(inc_k + static_cast<long long>(c) * L, l, L) : make_uint4(0u, 0u, 0u, 0u);
@@ -251,33 +137,139 @@ __device__ __forceinline__ void load_stage(uint8_t* dst, const int8_t* inc_k, in
   }
 }
 
+// The tile a block evaluates: program k, batch rows [b0, b0 + nb) of B,
+// clauses [c0, c0 + kTileC) of C.
+struct TileAt {
+  int k, B, C, b0, nb, c0;
+};
+
+// An epilogue's finish(smem, tile, c, fired) runs in every thread of the
+// block that holds the tile's clauses (rank 0 after a split): the lane's
+// clause c, and bit b of fired set iff it fires for batch row b0 + b (the
+// c < C and eval-mode nonempty gates applied).  An epilogue with kPerLane
+// writes each lane's clause alone: without a split it stores straight
+// from the lane's accumulators (from_acc), and lanes past C leave early.
+
+// Epilogue of dtm_clause_eval: the int32 clause outputs.
+struct Clauses {
+  int32_t* out;
+  static constexpr int kSmem = 0;
+  static constexpr bool kPerLane = true;
+  __device__ void prefetch(uint8_t*, const TileAt&) const {}
+  // acc[b] != 0: the clause is violated for batch row b0 + b
+  __device__ void from_acc(const TileAt& t, int c, const uint32_t (&acc)[kTileB],
+                           bool gate) const {
+    int32_t* out_k = out + static_cast<long long>(t.k) * t.B * t.C;
+    if (c < t.C)
+#pragma unroll
+      for (int b = 0; b < kTileB; ++b)   // unrolled: acc stays in registers
+        if (b < t.nb) out_k[static_cast<long long>(t.b0 + b) * t.C + c] = (acc[b] == 0u && gate) ? 1 : 0;
+  }
+  __device__ void finish(uint8_t*, const TileAt& t, int c, uint32_t fired) const {
+    if (c >= t.C) return;
+    int32_t* out_k = out + static_cast<long long>(t.k) * t.B * t.C;
+    for (int b = 0; b < t.nb; ++b)
+      out_k[static_cast<long long>(t.b0 + b) * t.C + c] = static_cast<int32_t>((fired >> b) & 1u);
+  }
+};
+
+// Epilogue of dtm_tm_infer: the class sums of the fired clauses, added into
+// the zeroed output.
+constexpr int kClasses = 16;          // classes per pass
+constexpr int kWStride = kTileC + 1;  // padded weight row: a warp's 16 classes hit 16 banks
+
+struct ClassSums {
+  const int32_t* w;
+  int32_t* out;
+  int H;
+  // weights [kClasses][kWStride], then the fired masks [kTileB rows][kWarps]
+  static constexpr int kSmem = (kClasses * kWStride + kTileB * kWarps) * 4;
+  static constexpr bool kPerLane = false;   // the block's lanes vote together
+
+  // weights of classes [h0, h0 + kClasses) of the tile's clauses, zero past H or C
+  __device__ void load_weights(uint8_t* smem, const TileAt& t, int h0) const {
+    int32_t* s_w = reinterpret_cast<int32_t*>(smem);
+    const int32_t* w_k = w + static_cast<long long>(t.k) * H * t.C;
+    for (int i = threadIdx.x; i < kClasses * kTileC; i += kThreads) {
+      const int h = i / kTileC, c = i % kTileC;
+      const bool ok = h0 + h < H && t.c0 + c < t.C;
+      const int32_t* src = ok ? w_k + static_cast<long long>(h0 + h) * t.C + t.c0 + c : w;
+      dtm_cp_async4(s_w + h * kWStride + c, src, ok ? 4 : 0);
+    }
+  }
+  __device__ void prefetch(uint8_t* smem, const TileAt& t) const { load_weights(smem, t, 0); }
+
+  __device__ void finish(uint8_t* smem, const TileAt& t, int, uint32_t fired) const {
+    const int32_t* s_w = reinterpret_cast<const int32_t*>(smem);
+    uint32_t* s_mask = reinterpret_cast<uint32_t*>(smem + kClasses * kWStride * 4);
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    // lane b keeps the warp's 32 clause bits of batch row b
+    uint32_t mine = 0u;
+#pragma unroll
+    for (int b = 0; b < kTileB; ++b) {
+      const uint32_t m = __ballot_sync(0xffffffffu, (fired >> b) & 1u);
+      if (lane == b) mine = m;
+    }
+    s_mask[lane * kWarps + warp] = mine;
+    dtm_cp_async_wait<0>();
+    __syncthreads();
+    int32_t* out_k = out + static_cast<long long>(t.k) * t.B * H;
+    for (int h0 = 0; h0 < H; h0 += kClasses) {
+      if (h0 > 0) {       // the next pass's weights, once every thread is done with these
+        __syncthreads();
+        load_weights(smem, t, h0);
+        dtm_cp_async_commit();
+        dtm_cp_async_wait<0>();
+        __syncthreads();
+      }
+      for (int p = threadIdx.x; p < kTileB * kClasses; p += kThreads) {
+        const int r = p / kClasses, h = p % kClasses;
+        if (r >= t.nb || h0 + h >= H) continue;
+        int32_t s = 0;
+#pragma unroll
+        for (int q = 0; q < kWarps; ++q) {
+          uint32_t m = s_mask[r * kWarps + q];
+          while (m) {
+            s += s_w[h * kWStride + 32 * q + __ffs(m) - 1];
+            m &= m - 1u;
+          }
+        }
+        if (s != 0) atomicAdd(out_k + static_cast<long long>(t.b0 + r) * H + h0 + h, s);
+      }
+    }
+  }
+};
+
 // Block (blockIdx.x = clause tile · splits + split, blockIdx.y = batch
 // tile, blockIdx.z = program).  cps: chunks per split, walked in ranges of
 // at most kMaxChunks (the packed literals of a range fill s_neg) when
 // kRanges, else in one range (cps <= kMaxChunks: no range loop, which
 // slows small shapes); splits: the number of splits, the blocks of one
-// cluster (launched with that cluster size when it is above 1).
-template <bool kVec, bool kRanges>
+// cluster (launched with that cluster size when it is above 1).  Dynamic
+// shared memory: the rings, the epilogue's Epi::kSmem bytes, then the
+// packed literals of a range.
+template <bool kVec, bool kRanges, class Epi>
 __global__ void __launch_bounds__(kThreads)
-clause_eval_stream(const int8_t* __restrict__ lit, const int8_t* __restrict__ inc,
-                   int32_t* __restrict__ out, int B, int C, int L, int cps, int splits,
-                   bool eval_mode) {
+clause_stream(const int8_t* __restrict__ lit, const int8_t* __restrict__ inc, Epi epi, int B,
+              int C, int L, int cps, int splits, bool eval_mode) {
   extern __shared__ __align__(16) uint8_t smem[];
   uint8_t* ring = smem;
-  uint32_t* s_neg = reinterpret_cast<uint32_t*>(smem + kRingBytes);   // [word][32 rows]
+  uint8_t* epi_smem = smem + kRingBytes;
+  uint32_t* s_neg = reinterpret_cast<uint32_t*>(epi_smem + Epi::kSmem);   // [word][32 rows]
   // rank 0 of a cluster: every split's violated rows | nonempty << 32
   __shared__ unsigned long long s_part[kMaxSplits][kTileC];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int k = blockIdx.z, bt = blockIdx.y;
   const int ct = blockIdx.x / splits, sp = blockIdx.x % splits;
-  const int b0 = bt * kTileB, c0 = ct * kTileC;
+  const TileAt tile{static_cast<int>(blockIdx.z), B, C, static_cast<int>(blockIdx.y) * kTileB,
+                    min(kTileB, B - static_cast<int>(blockIdx.y) * kTileB), ct * kTileC};
+  const int b0 = tile.b0;
   const int ch0 = sp * cps;
   const int nchunks = (L + kChunk - 1) / kChunk;
   const int nst = min(cps, nchunks - ch0);   // this split's chunks
-  const int8_t* inc_k = inc + static_cast<long long>(k) * C * L;
-  const int8_t* lit_k = lit + static_cast<long long>(k) * B * L;
+  const int8_t* inc_k = inc + static_cast<long long>(tile.k) * C * L;
+  const int8_t* lit_k = lit + static_cast<long long>(tile.k) * B * L;
   uint8_t* wring = ring + warp * kStages * kStageBytes;
-  const int c0w = c0 + warp * 32;
+  const int c0w = tile.c0 + warp * 32;
 
   uint32_t acc[kTileB];
 #pragma unroll
@@ -311,13 +303,16 @@ clause_eval_stream(const int8_t* __restrict__ lit, const int8_t* __restrict__ in
     };
 
     // this thread's first literal loads go out first, then the first
-    // kStages − 1 include stages, then the rest of the literals
+    // kStages − 1 include stages (the epilogue's prefetch joins the last
+    // of them, so the ring waits for nothing more), then the rest of the
+    // literals
     uint4 f0, f1;
     if (static_cast<int>(threadIdx.x) < nwords * kTileB) lit_load(threadIdx.x, f0, f1);
 #pragma unroll
     for (int s = 0; s < kStages - 1; ++s) {
       if (s < nr) load_stage<kVec>(wring + s * kStageBytes, inc_k, c0w, C, L, l_lo + s * kChunk, lane);
-      cp_async_commit();
+      if (s == kStages - 2 && r0 == 0 && sp == 0) epi.prefetch(epi_smem, tile);
+      dtm_cp_async_commit();
     }
     // Every split says that it has started, once its first copies are in
     // flight (an arrive at entry would stall them), and waits for the
@@ -334,13 +329,13 @@ clause_eval_stream(const int8_t* __restrict__ lit, const int8_t* __restrict__ in
     __syncthreads();
 
     for (int i = 0; i < nr; ++i) {
-      cp_async_wait<kStages - 2>();   // this lane's copies of stage i
+      dtm_cp_async_wait<kStages - 2>();   // this lane's copies of stage i
       __syncwarp();                   // ... and every lane's; slot (i − 1) is free
       const int nxt = i + kStages - 1;
       if (nxt < nr)
         load_stage<kVec>(wring + (nxt % kStages) * kStageBytes, inc_k, c0w, C, L,
                          l_lo + nxt * kChunk, lane);
-      cp_async_commit();
+      dtm_cp_async_commit();
       const uint4* row = reinterpret_cast<const uint4*>(wring + (i % kStages) * kStageBytes +
                                                         lane * kRowBytes);
 #pragma unroll
@@ -360,137 +355,74 @@ clause_eval_stream(const int8_t* __restrict__ lit, const int8_t* __restrict__ in
         }
       }
     }
-    cp_async_wait<0>();
+    dtm_cp_async_wait<0>();
     if (!kRanges) break;
   }
 
   const int c = c0w + lane;
-  const int nb = min(kTileB, B - b0);
-  int32_t* out_k = out + static_cast<long long>(k) * B * C;
-  if (splits == 1) {
-    const bool gate = !eval_mode || nz != 0u;
-    if (c < C)
-#pragma unroll
-      for (int b = 0; b < kTileB; ++b)   // unrolled: acc stays in registers
-        if (b < nb) out_k[static_cast<long long>(b0 + b) * C + c] = (acc[b] == 0u && gate) ? 1 : 0;
-    return;
+  if constexpr (Epi::kPerLane) {
+    if (splits == 1) {
+      epi.from_acc(tile, c, acc, !eval_mode || nz != 0u);
+      return;
+    }
   }
-  // once every split has started, each stores its partial masks into rank
-  // 0's shared memory (distributed shared memory) and arrives on the
-  // cluster barrier again; rank 0 waits, ORs the splits' words and writes
-  // the tile
+  // violated rows of this lane's clause (unrolled: acc stays in registers)
   uint32_t vm = 0u;
 #pragma unroll
   for (int b = 0; b < kTileB; ++b) vm |= (acc[b] != 0u ? 1u : 0u) << b;
-  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
-  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
-  cluster.map_shared_rank(&s_part[0][0], 0)[sp * kTileC + threadIdx.x] =
-      vm | (static_cast<unsigned long long>(nz != 0u) << 32);
-  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
-  if (sp != 0) return;
-  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
-  if (c >= C) return;
-  unsigned long long all = 0ull;
-  for (int r = 0; r < splits; ++r) all |= s_part[r][threadIdx.x];
-  const uint32_t viol = static_cast<uint32_t>(all);
-  const bool gate = !eval_mode || (all >> 32) != 0ull;
-  for (int b = 0; b < nb; ++b)
-    out_k[static_cast<long long>(b0 + b) * C + c] = (((viol >> b) & 1u) == 0u && gate) ? 1 : 0;
+  if (splits > 1) {
+    // once every split has started, each stores its partial masks into
+    // rank 0's shared memory (distributed shared memory) and arrives on the
+    // cluster barrier again; rank 0 waits and ORs the splits' words
+    cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+    asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+    cluster.map_shared_rank(&s_part[0][0], 0)[sp * kTileC + threadIdx.x] =
+        vm | (static_cast<unsigned long long>(nz != 0u) << 32);
+    asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+    if (sp != 0) return;
+    asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+    if constexpr (Epi::kPerLane) {
+      if (c >= C) return;
+    }
+    unsigned long long all = 0ull;
+    for (int r = 0; r < splits; ++r) all |= s_part[r][threadIdx.x];
+    vm = static_cast<uint32_t>(all);
+    nz = static_cast<uint32_t>(all >> 32);
+  }
+  const bool on = c < C && (!eval_mode || nz != 0u);
+  epi.finish(epi_smem, tile, c, on ? ~vm : 0u);
 }
 
-// dynamic shared memory of a launch: the rings and the packed literals of
-// a range
+// dynamic shared memory of a launch: the rings, the epilogue's and the
+// packed literals of a range
+template <class Epi>
 size_t smem_bytes(int cps) {
-  return static_cast<size_t>(kRingBytes) +
+  return static_cast<size_t>(kRingBytes) + Epi::kSmem +
          static_cast<size_t>(min(cps, kMaxChunks)) * kWordsPerChunk * kTileB * 4;
 }
 
-}  // namespace ce
-
-template <bool kVec>
-__global__ void __launch_bounds__(kThreads)
-tm_infer_kernel(const int8_t* __restrict__ lit, const int8_t* __restrict__ inc,
-                const int32_t* __restrict__ w, int32_t* __restrict__ out, int B, int C,
-                int L, int H, bool eval_mode) {
-  __shared__ __align__(8) uint16_t s_mask[kRows][4];   // fired clauses per row
-  __shared__ int32_t s_w[kClasses * (kClauses + 1)];
-  Tile t;
-  clause_tile<kVec>(lit, inc, B, C, L, t);
-  const int k = blockIdx.z;
-  const int b0 = blockIdx.y * kRows, c0 = blockIdx.x * kClauses;
-  const int cg = threadIdx.x & 15, bg = threadIdx.x >> 4;
-  const int lane = threadIdx.x & 31;
-
-  // lanes 0-15 hold row bg = 2·warp, lanes 16-31 row 2·warp + 1: one ballot
-  // per (j, i) gives 16 fired bits of each of the two rows
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const bool on = fired(t, j, i, eval_mode) && c0 + cg + 16 * i < C;
-      const uint32_t m = __ballot_sync(0xffffffffu, on);
-      if (lane == 0) {
-        const int r = bg + 8 * j;   // lane 0's row; lane 16's is r + 1
-        s_mask[r][i] = static_cast<uint16_t>(m & 0xffffu);
-        s_mask[r + 1][i] = static_cast<uint16_t>(m >> 16);
-      }
-    }
-
-  const int32_t* w_k = w + static_cast<long long>(k) * H * C;
-  int32_t* out_k = out + static_cast<long long>(k) * B * H;
-  for (int h0 = 0; h0 < H; h0 += kClasses) {
-    __syncthreads();   // the masks are written; s_w is free
-    for (int i = threadIdx.x; i < kClasses * kClauses; i += kThreads) {
-      const int h = i / kClauses, c = i % kClauses;
-      s_w[h * (kClauses + 1) + c] =
-          (h0 + h < H && c0 + c < C) ? __ldg(w_k + static_cast<long long>(h0 + h) * C + c0 + c) : 0;
-    }
-    __syncthreads();
-    for (int p = threadIdx.x; p < kRows * kClasses; p += kThreads) {
-      const int r = p / kClasses, h = p % kClasses;
-      if (b0 + r >= B || h0 + h >= H) continue;
-      unsigned long long m = *reinterpret_cast<const unsigned long long*>(s_mask[r]);
-      int32_t s = 0;
-      while (m) {
-        const int c = __ffsll(static_cast<long long>(m)) - 1;
-        s += s_w[h * (kClauses + 1) + c];
-        m &= m - 1ull;
-      }
-      if (s != 0) atomicAdd(out_k + static_cast<long long>(b0 + r) * H + h0 + h, s);
-    }
-  }
-}
-
-dim3 grid_of(int K, int B, int C) {
-  return dim3((C + kClauses - 1) / kClauses, (B + kRows - 1) / kRows, K);
-}
-
-}  // namespace
-
-// vec = 1 when L is a multiple of 16 and both operand pointers are 16-byte
-// aligned (cp.async 16-byte copies); else the kernel loads bytes.  The
-// literal axis is cut into splits of cps chunks (kernels/clause_eval.py
-// clause_split); the splits of a tile form one cluster.
-extern "C" int dtm_clause_eval(const void* lit, const void* inc, void* out, int K, int B,
-                               int C, int L, int eval_mode, int vec, int cps, void* stream) {
-  const int nchunks = (L + ce::kChunk - 1) / ce::kChunk;
+// The literal axis is cut into splits of cps chunks; the splits of a tile
+// form one cluster.
+template <class Epi>
+int launch(const void* lit, const void* inc, Epi epi, int K, int B, int C, int L,
+           int eval_mode, int vec, int cps, void* stream) {
+  const int nchunks = (L + kChunk - 1) / kChunk;
   if (cps < 1) return static_cast<int>(cudaErrorInvalidValue);
   const int splits = max(1, (nchunks + cps - 1) / cps);
-  if (splits > ce::kMaxSplits) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = ce::smem_bytes(cps);
-  const bool ranges = cps > ce::kMaxChunks;
-  auto kernel = vec ? (ranges ? ce::clause_eval_stream<true, true> : ce::clause_eval_stream<true, false>)
-                    : (ranges ? ce::clause_eval_stream<false, true> : ce::clause_eval_stream<false, false>);
+  if (splits > kMaxSplits) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = smem_bytes<Epi>(cps);
+  const bool ranges = cps > kMaxChunks;
+  auto kernel = vec ? (ranges ? clause_stream<true, true, Epi> : clause_stream<true, false, Epi>)
+                    : (ranges ? clause_stream<false, true, Epi> : clause_stream<false, false, Epi>);
   // static (s_part) and dynamic shared memory above 48 KB only after opting in
-  if (smem + sizeof(unsigned long long) * ce::kMaxSplits * ce::kTileC > 48 * 1024) {
+  if (smem + sizeof(unsigned long long) * kMaxSplits * kTileC > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(((C + ce::kTileC - 1) / ce::kTileC) * splits,
-                     (B + ce::kTileB - 1) / ce::kTileB, K);
-  cfg.blockDim = dim3(ce::kThreads);
+  cfg.gridDim = dim3(((C + kTileC - 1) / kTileC) * splits, (B + kTileB - 1) / kTileB, K);
+  cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = static_cast<cudaStream_t>(stream);
   cudaLaunchAttribute attr[1];
@@ -501,26 +433,28 @@ extern "C" int dtm_clause_eval(const void* lit, const void* inc, void* out, int 
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, static_cast<const int8_t*>(lit),
-                                           static_cast<const int8_t*>(inc),
-                                           static_cast<int32_t*>(out), B, C, L, cps, splits,
-                                           eval_mode != 0);
+                                           static_cast<const int8_t*>(inc), epi, B, C, L, cps,
+                                           splits, eval_mode != 0);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
+}  // namespace
+
+// vec = 1 when L is a multiple of 16 and both operand pointers are 16-byte
+// aligned (cp.async 16-byte copies); else the kernel loads bytes.  cps:
+// chunks per split (kernels/clause_eval.py clause_split).
+extern "C" int dtm_clause_eval(const void* lit, const void* inc, void* out, int K, int B,
+                               int C, int L, int eval_mode, int vec, int cps, void* stream) {
+  return launch(lit, inc, Clauses{static_cast<int32_t*>(out)}, K, B, C, L, eval_mode, vec, cps,
+                stream);
+}
+
 // out must be zeroed: the kernel adds into it.
 extern "C" int dtm_tm_infer(const void* lit, const void* inc, const void* w, void* out, int K,
-                            int B, int C, int L, int H, int eval_mode, int vec, void* stream) {
-  auto st = static_cast<cudaStream_t>(stream);
-  const auto* l8 = static_cast<const int8_t*>(lit);
-  const auto* i8 = static_cast<const int8_t*>(inc);
-  const auto* w32 = static_cast<const int32_t*>(w);
-  auto* o = static_cast<int32_t*>(out);
-  if (vec)
-    tm_infer_kernel<true><<<grid_of(K, B, C), kThreads, 0, st>>>(l8, i8, w32, o, B, C, L, H,
-                                                                 eval_mode != 0);
-  else
-    tm_infer_kernel<false><<<grid_of(K, B, C), kThreads, 0, st>>>(l8, i8, w32, o, B, C, L, H,
-                                                                  eval_mode != 0);
-  return static_cast<int>(cudaGetLastError());
+                            int B, int C, int L, int H, int eval_mode, int vec, int cps,
+                            void* stream) {
+  return launch(lit, inc,
+                ClassSums{static_cast<const int32_t*>(w), static_cast<int32_t*>(out), H}, K, B,
+                C, L, eval_mode, vec, cps, stream);
 }

@@ -91,24 +91,6 @@ struct Params {
   int B, R, W, H, n_bits, rand_bits;
 };
 
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
-               "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // One TMA bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
 // aligned) into shared memory, completing on the mbarrier `bar`.
 __device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
@@ -167,9 +149,9 @@ __device__ __forceinline__ void stage_rows(int32_t* dst, int dst_stride, const i
     const bool ok = c0 + q < R;
     const int32_t* from = ok ? src + row * stride + c0 + q : src;
     if (kVec)
-      cp_async16(dst + row * dst_stride + q, from, ok ? 16 : 0);
+      dtm_cp_async16(dst + row * dst_stride + q, from, ok ? 16 : 0);
     else
-      cp_async4(dst + row * dst_stride + q, from, ok ? 4 : 0);
+      dtm_cp_async4(dst + row * dst_stride + q, from, ok ? 4 : 0);
   }
 }
 
@@ -224,11 +206,11 @@ fused_step_kernel(const Params p) {
   // per-program operands the exchange and the selection read, staged with
   // the first tile's words
   if (tid < 2 * kRows && tid % kRows < nb)
-    cp_async4(&s_cls[tid / kRows][tid % kRows],
-              (tid < kRows ? p.labels : p.neg) + kB + b0 + tid % kRows, 4);
-  if (tid == 0) cp_async4(&s_scalar[0], p.T + k, 4);
-  if (tid == 1) cp_async4(&s_scalar[1], p.frozen + k, 4);
-  for (int i = tid; i < H; i += kThreads) cp_async4(s_hm + i, p.h_mask + static_cast<long long>(k) * H + i, 4);
+    dtm_cp_async4(&s_cls[tid / kRows][tid % kRows],
+                  (tid < kRows ? p.labels : p.neg) + kB + b0 + tid % kRows, 4);
+  if (tid == 0) dtm_cp_async4(&s_scalar[0], p.T + k, 4);
+  if (tid == 1) dtm_cp_async4(&s_scalar[1], p.frozen + k, 4);
+  for (int i = tid; i < H; i += kThreads) dtm_cp_async4(s_hm + i, p.h_mask + static_cast<long long>(k) * H + i, 4);
   for (int i = tid; i < kRows * H; i += kThreads) s_part[i] = 0;
   if (kBulk && lane == 0) {
     const unsigned b = static_cast<unsigned>(__cvta_generic_to_shared(&s_bar[warp]));
@@ -265,10 +247,10 @@ fused_step_kernel(const Params p) {
           const bool ok = rw + row < R;
           const uint32_t* src = ok ? inc_k + static_cast<long long>(rw + row) * W + w0 : inc_k;
           for (int q = lane; q < nw; q += 32)
-            cp_async4(s_own + row * stride + q, ok ? src + q : src, ok ? 4 : 0);
+            dtm_cp_async4(s_own + row * stride + q, ok ? src + q : src, ok ? 4 : 0);
         }
       }
-      cp_async_commit();   // group 1: the include words (and the scalars)
+      dtm_cp_async_commit();   // group 1: the include words (and the scalars)
       if (w0 == 0) {       // group 2: what the votes and the selection read
         stage_rows<kBulk>(s_w, kWStride, w_k, R, hs, c0, kTile, R, tid, kThreads);
         stage_rows<kBulk>(s_clm, kTile, clm_k, 0, 1, c0, kTile, R, tid, kThreads);
@@ -276,7 +258,7 @@ fused_step_kernel(const Params p) {
           for (int y = 0; y < 2; ++y)
             stage_rows<kBulk>(s_rand + y * kRows * kTile, kTile, rand_k + static_cast<long long>(y) * B * R,
                              R, nb, c0, kTile, R, tid, kThreads);
-        cp_async_commit();
+        dtm_cp_async_commit();
       }
       // s_lit[word][row], 4 loads a thread in flight before their stores;
       // clamped, so each load is unconditional; padded rows and words read
@@ -297,9 +279,9 @@ fused_step_kernel(const Params p) {
         }
       }
       if (w0 == 0)
-        cp_async_wait<1>();   // group 1; group 2 may still be in flight
+        dtm_cp_async_wait<1>();   // group 1; group 2 may still be in flight
       else
-        cp_async_wait<0>();
+        dtm_cp_async_wait<0>();
       if (bulk_rows) bar_wait(&s_bar[warp], bar_phase);
       bar_phase ^= kBulk ? 1u : 0u;
       __syncthreads();
@@ -336,7 +318,7 @@ fused_step_kernel(const Params p) {
         }
       }
     }
-    cp_async_wait<0>();   // group 2
+    dtm_cp_async_wait<0>();   // group 2
     __syncthreads();
     const bool real = in && s_clm[tid] != 0;
     bool fired[kRows];

@@ -1,4 +1,5 @@
-// Packed clause evaluation on Hopper (sm_90a): two kernels, one function.
+// Packed clause evaluation on Hopper (sm_90a): two kernels, one function
+// (and b1_mma_probe, which times the tensor cores' single-bit product).
 //
 //   clause[k, b, r] = OR_w(inc[k, r, w] & ~lit[k, b, w]) == 0
 //                     and, in eval mode, OR_w inc[k, r, w] != 0
@@ -6,7 +7,7 @@
 // Operands are 32-literal words (uint32 bit patterns; PyTorch hands them
 // over as int32).  k is the program axis of a bank (blockIdx.z, one stride
 // per operand), so K tenants are served by one launch.  Ragged B, R and W
-// are masked here; include bits at positions >= n_bits are masked on load.
+// are masked here; include bits at positions >= n_bits are masked.
 //
 // packed_clause_edge replaces repro/kernels/packed_clause.py:
 // packed_clause_eval (the Pallas VPU word-OR kernel), used for B <= 4.
@@ -21,16 +22,26 @@
 // packed_clause_eval_mxu (the Pallas popcount-as-matmul kernel on the MXU),
 // used for B > 4.
 //   Bound: at the serving shapes (K=4, B=32, R=4224, W=100) device-memory
-//   bytes (6.8 MB include + 2.2 MB clause output) against ~54 M word
-//   operations.  Design: a GEMM-shaped tile of 32 batch rows × 64 clause
-//   rows per block; include and literal words are staged in shared memory
-//   32 words at a time, so each include word is read from device memory
-//   once per block and reused by 32 batch rows.  Each word pair costs one
-//   AND-NOT-OR (a LOP3) instead of the MXU's popcount; the output is the
-//   same because only viol == 0 matters.  The literal rows are read as
-//   16-byte shared-memory broadcasts.  Later step: tensor-core tiles with
-//   mma.sync .b1.and.popc compute the same popcount-as-matmul at the
-//   tensor-core rate.
+//   bytes (6.8 MB include + 2.2 MB clause output); as one LOP3 per word
+//   pair the work would take longer still (~54 M operations), so the
+//   violation counts go to the tensor cores instead.
+//   Design: the count Σ_w popc(inc & ~lit) is exactly what
+//   mma.m16n8k256 .b1 .and.popc computes, with A = 16 include rows × 256
+//   bits, B = 256 bits × 8 negated literal rows and s32 counts; the count
+//   does not depend on bit order, so the packed words go into the
+//   fragments as they are (a k-step is 8 words).  A block owns 32 batch
+//   rows (4 n-tiles) and 16 clause rows per warp (1, 2 or 4 warps, chosen
+//   by the wrapper so that about two blocks run per SM).  Include and
+//   literal rows stream through a 4-stage cp.async ring of 32 words a row
+//   (16-byte copies when W, the program strides and the pointers allow,
+//   else 4-byte copies), rows padded to 36 words so the fragment loads
+//   are conflict-free; one block barrier a stage.  Words past W read as
+//   zero and k-steps past W are skipped, so only the last k-step carries
+//   padding.  Include bits past n_bits are masked in the A fragments of
+//   the k-steps that reach past n_bits; the eval-mode nonempty gate ORs
+//   the (masked) A fragments.  The epilogue writes count == 0 && gate
+//   from the C fragments: 8 neighbouring clause rows per batch row, one
+//   32-byte sector per store.
 #include <algorithm>
 
 #include "common.cuh"
@@ -102,71 +113,159 @@ packed_clause_edge(const uint32_t* __restrict__ lit, const uint32_t* __restrict_
   }
 }
 
-constexpr int kTileB = 32;        // batch rows per block
-constexpr int kTileR = 64;        // clause rows per block
-constexpr int kTileW = 32;        // words staged per step
-constexpr int kTileThreads = 256;
-constexpr int kRowsPerThread = kTileB / (kTileThreads / kTileR);  // 8
+// ---- packed_clause_tile: .b1 tensor-core tiles --------------------------
 
-__global__ void __launch_bounds__(kTileThreads)
+constexpr int kTileB = 32;         // batch rows per block: 4 n-tiles of 8
+constexpr int kMmaRows = 16;       // clause rows per warp: one m-tile
+constexpr int kMaxWarps = 4;
+constexpr int kStepWords = 8;      // words per k-step: 256 bits
+constexpr int kChunkWords = 32;    // words a row per ring stage: 4 k-steps
+constexpr int kRingStages = 4;
+constexpr int kRowWords = kChunkWords + 4;   // padded staged row
+
+// d += popc(A & B) over a 256-bit k-step: A 16 × 256 (a[0], a[2]: row g,
+// words t and t + 4 of the step; a[1], a[3]: row g + 8), B 256 × 8 (b0, b1:
+// column g, words t and t + 4), d[0..1]: row g, columns 2t and 2t + 1;
+// d[2..3]: row g + 8 (g = lane / 4, t = lane % 4).
+__device__ __forceinline__ void mma_b1(int32_t (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Block (blockIdx.x: clause tile of 16 · warps rows, blockIdx.y: batch
+// tile, blockIdx.z: program); blockDim.x = 32 · warps.  Dynamic shared
+// memory: kRingStages stages of (16 · warps include rows, then kTileB
+// literal rows) × kRowWords words.
+template <bool kVec>
+__global__ void __launch_bounds__(kMaxWarps * 32)
 packed_clause_tile(const uint32_t* __restrict__ lit, const uint32_t* __restrict__ inc,
                    int32_t* __restrict__ out, int B, int R, int W,
                    long long lit_sk, long long inc_sk, long long out_sk,
                    int n_bits, int eval_mode) {
-  __shared__ uint32_t s_inc[kTileR][kTileW + 1];          // +1: conflict-free column reads
-  __shared__ __align__(16) uint32_t s_lit[kTileB][kTileW];  // read as broadcasts
+  extern __shared__ __align__(16) uint32_t s_ring[];
+  const int rows = kMmaRows * static_cast<int>(blockDim.x >> 5);   // clause rows of the block
+  const int srows = rows + kTileB;                                  // staged rows a stage
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
   const int k = blockIdx.z;
-  const int r0 = blockIdx.x * kTileR;
-  const int b0 = blockIdx.y * kTileB;
-  const int tid = threadIdx.x;
-  const int rl = tid % kTileR;
-  const int bg = tid / kTileR;  // warp-uniform: kTileR is a multiple of 32
+  const int r0 = blockIdx.x * rows, b0 = blockIdx.y * kTileB;
+  const int ntiles = (min(kTileB, B - b0) + 7) >> 3;   // n-tiles with a real batch row
   const uint32_t* inc_k = inc + k * inc_sk;
   const uint32_t* lit_k = lit + k * lit_sk;
+  const int nch = (W + kChunkWords - 1) / kChunkWords;
 
-  uint32_t viol[kRowsPerThread];
-#pragma unroll
-  for (int j = 0; j < kRowsPerThread; ++j) viol[j] = 0u;
-  uint32_t ne = 0u;
+  // stage chunk ch (words [32 ch, 32 ch + 32) of every staged row) into its
+  // slot; words past W, and rows past R or B, read as zero
+  auto load = [&](int ch) {
+    uint32_t* dst = s_ring + (ch % kRingStages) * srows * kRowWords;
+    const int w0 = ch * kChunkWords;
+    constexpr int kPer = kVec ? 4 : 1;                  // words a copy
+    constexpr int kCopies = kChunkWords / kPer;         // copies a row
+    for (int i = threadIdx.x; i < srows * kCopies; i += blockDim.x) {
+      const int sr = i / kCopies, w = w0 + kPer * (i % kCopies);
+      const bool is_inc = sr < rows;
+      const int row = is_inc ? r0 + sr : b0 + sr - rows;
+      const bool ok = w < W && row < (is_inc ? R : B);
+      const uint32_t* src = ok ? (is_inc ? inc_k : lit_k) + static_cast<long long>(row) * W + w : inc;
+      uint32_t* d = dst + sr * kRowWords + (w - w0);
+      if (kVec) dtm_cp_async16(d, src, ok ? 16 : 0);
+      else dtm_cp_async4(d, src, ok ? 4 : 0);
+    }
+  };
 
-  for (int w0 = 0; w0 < W; w0 += kTileW) {
-    for (int i = tid; i < kTileR * kTileW; i += kTileThreads) {
-      const int rr = i / kTileW, ww = i % kTileW;
-      const int r = r0 + rr, w = w0 + ww;
-      s_inc[rr][ww] = (r < R && w < W)
-          ? (__ldg(inc_k + static_cast<long long>(r) * W + w) & dtm_tail_mask(w, n_bits))
-          : 0u;
-    }
-    for (int i = tid; i < kTileB * kTileW; i += kTileThreads) {
-      const int bb = i / kTileW, ww = i % kTileW;
-      const int b = b0 + bb, w = w0 + ww;
-      s_lit[bb][ww] = (b < B && w < W) ? __ldg(lit_k + static_cast<long long>(b) * W + w) : 0u;
-    }
-    __syncthreads();
+  int32_t acc[kTileB / 8][4];
 #pragma unroll
-    for (int ww = 0; ww < kTileW; ww += 4) {
-      const uint32_t i0 = s_inc[rl][ww], i1 = s_inc[rl][ww + 1];
-      const uint32_t i2 = s_inc[rl][ww + 2], i3 = s_inc[rl][ww + 3];
-      ne |= i0 | i1 | i2 | i3;
+  for (int n = 0; n < kTileB / 8; ++n)
 #pragma unroll
-      for (int j = 0; j < kRowsPerThread; ++j) {
-        const uint4 l = *reinterpret_cast<const uint4*>(&s_lit[bg * kRowsPerThread + j][ww]);
-        viol[j] |= (i0 & ~l.x) | (i1 & ~l.y) | (i2 & ~l.z) | (i3 & ~l.w);
+    for (int j = 0; j < 4; ++j) acc[n][j] = 0;
+  uint32_t nz_g = 0u, nz_g8 = 0u;   // include words of rows g and g + 8 seen by this lane
+
+#pragma unroll
+  for (int s = 0; s < kRingStages - 1; ++s) {
+    if (s < nch) load(s);
+    dtm_cp_async_commit();
+  }
+  for (int ch = 0; ch < nch; ++ch) {
+    dtm_cp_async_wait<kRingStages - 2>();   // this thread's copies of chunk ch
+    __syncthreads();                    // ... and every thread's; slot (ch − 1) is free
+    if (ch + kRingStages - 1 < nch) load(ch + kRingStages - 1);
+    dtm_cp_async_commit();
+    const uint32_t* st = s_ring + (ch % kRingStages) * srows * kRowWords;
+    const uint32_t* a_row = st + (warp * kMmaRows + g) * kRowWords + t;
+    const uint32_t* b_row = st + (rows + g) * kRowWords + t;
+    const int w0 = ch * kChunkWords;
+    const int nsteps = min(kChunkWords, W - w0 + kStepWords - 1) / kStepWords;
+#pragma unroll
+    for (int s = 0; s < kChunkWords / kStepWords; ++s) {
+      if (s >= nsteps) break;
+      const int o = s * kStepWords;
+      uint32_t a[4] = {a_row[o], a_row[o + 8 * kRowWords], a_row[o + 4],
+                       a_row[o + 8 * kRowWords + 4]};
+      const int w = w0 + o + t;
+      if (32 * (w0 + o + kStepWords) > n_bits) {   // a k-step past n_bits
+        const uint32_t m0 = dtm_tail_mask(w, n_bits), m1 = dtm_tail_mask(w + 4, n_bits);
+        a[0] &= m0;
+        a[1] &= m0;
+        a[2] &= m1;
+        a[3] &= m1;
       }
+      nz_g |= a[0] | a[2];
+      nz_g8 |= a[1] | a[3];
+#pragma unroll
+      for (int n = 0; n < kTileB / 8; ++n)
+        if (n < ntiles) {
+          const uint32_t* b = b_row + 8 * n * kRowWords + o;
+          mma_b1(acc[n], a, ~b[0], ~b[4]);
+        }
     }
-    __syncthreads();
   }
 
-  const int r = r0 + rl;
-  if (r < R) {
-    const bool gate = !eval_mode || ne != 0u;
-    int32_t* out_k = out + k * out_sk;
+  // a row's nonempty bit is spread over the 4 lanes of its group
+  nz_g |= __shfl_xor_sync(0xffffffffu, nz_g, 1);
+  nz_g |= __shfl_xor_sync(0xffffffffu, nz_g, 2);
+  nz_g8 |= __shfl_xor_sync(0xffffffffu, nz_g8, 1);
+  nz_g8 |= __shfl_xor_sync(0xffffffffu, nz_g8, 2);
+  const int ra = r0 + warp * kMmaRows + g, rb = ra + 8;
+  const bool gate_a = ra < R && (!eval_mode || nz_g != 0u);
+  const bool gate_b = rb < R && (!eval_mode || nz_g8 != 0u);
+  int32_t* out_k = out + k * out_sk;
 #pragma unroll
-    for (int j = 0; j < kRowsPerThread; ++j) {
-      const int b = b0 + bg * kRowsPerThread + j;
-      if (b < B) out_k[static_cast<long long>(b) * R + r] = (viol[j] == 0u && gate) ? 1 : 0;
+  for (int n = 0; n < kTileB / 8; ++n) {
+    if (n >= ntiles) break;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int b = b0 + 8 * n + 2 * t + j;
+      if (b >= B) continue;
+      int32_t* o = out_k + static_cast<long long>(b) * R;
+      if (ra < R) o[ra] = (acc[n][j] == 0 && gate_a) ? 1 : 0;
+      if (rb < R) o[rb] = (acc[n][j + 2] == 0 && gate_b) ? 1 : 0;
     }
   }
+}
+
+// The .b1 product's rate: kProbeChains independent chains of back-to-back
+// m16n8k256 products a warp (a measurement kernel; nothing else runs it).
+constexpr int kProbeChains = 8;
+
+__global__ void b1_mma_probe(int32_t* __restrict__ out, int iters) {
+  const uint32_t x = blockIdx.x * blockDim.x + threadIdx.x;
+  const uint32_t a[4] = {x * 0x9E3779B9u, ~x, x ^ 0x5A5A5A5Au, x << 7};
+  const uint32_t b0 = x ^ 0xF0F0F0F0u, b1 = x * 7u + 1u;
+  int32_t acc[kProbeChains][4];
+#pragma unroll
+  for (int c = 0; c < kProbeChains; ++c)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[c][j] = 4 * c + j;   // distinct chains: none is merged
+  for (int i = 0; i < iters; ++i)
+#pragma unroll
+    for (int c = 0; c < kProbeChains; ++c) mma_b1(acc[c], a, b0, b1);
+  int32_t s = 0;
+#pragma unroll
+  for (int c = 0; c < kProbeChains; ++c) s += acc[c][0] + acc[c][1] + acc[c][2] + acc[c][3];
+  out[x] = s;
 }
 
 }  // namespace
@@ -193,13 +292,38 @@ extern "C" int dtm_packed_clause_edge(const void* lit, const void* inc, void* ou
   return static_cast<int>(cudaGetLastError());
 }
 
+// warps: clause rows per block / 16, 1, 2 or 4 (kernels/packed_clause.py
+// tile_warps).  16-byte copies when W and both program strides are
+// multiples of 4 words and both pointers 16-byte aligned.
 extern "C" int dtm_packed_clause_tile(const void* lit, const void* inc, void* out,
                                       int K, int B, int R, int W,
                                       long long lit_sk, long long inc_sk, long long out_sk,
-                                      int n_bits, int eval_mode, void* stream) {
-  const dim3 grid((R + kTileR - 1) / kTileR, (B + kTileB - 1) / kTileB, K);
-  packed_clause_tile<<<grid, kTileThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+                                      int n_bits, int eval_mode, int warps, void* stream) {
+  if (warps < 1 || warps > kMaxWarps) return static_cast<int>(cudaErrorInvalidValue);
+  const int rows = kMmaRows * warps;
+  const dim3 grid((R + rows - 1) / rows, (B + kTileB - 1) / kTileB, K);
+  const size_t smem = sizeof(uint32_t) * kRingStages * (rows + kTileB) * kRowWords;
+  const bool vec = W % 4 == 0 && lit_sk % 4 == 0 && inc_sk % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(lit) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(inc) % 16 == 0;
+  auto kernel = vec ? packed_clause_tile<true> : packed_clause_tile<false>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  kernel<<<grid, 32 * warps, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(lit), static_cast<const uint32_t*>(inc),
       static_cast<int32_t*>(out), B, R, W, lit_sk, inc_sk, out_sk, n_bits, eval_mode);
   return static_cast<int>(cudaGetLastError());
 }
+
+// blocks × warps warps, each running kProbeChains chains of iters products
+// (out: one int32 a thread).
+extern "C" int dtm_b1_mma_probe(void* out, int blocks, int warps, int iters, void* stream) {
+  b1_mma_probe<<<blocks, 32 * warps, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int32_t*>(out), iters);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int dtm_b1_mma_probe_chains() { return kProbeChains; }

@@ -13,9 +13,11 @@ from packed int32 words (uint32 bit patterns), ``lit [K, B, W]`` and
   ``repro/kernels/packed_clause.py:packed_clause_eval``.  Bound by the
   bytes of the include bitplane it streams.
 * :func:`packed_clause_tile` — ``csrc/packed_clause.cu:packed_clause_tile``,
-  a GEMM-shaped tile kernel for throughput batches.  It replaces
-  ``repro/kernels/packed_clause.py:packed_clause_eval_mxu``.  Bound by
-  bytes at the serving shapes; the source note gives the design.
+  a GEMM-shaped tile kernel for throughput batches: the violation counts
+  are single-bit tensor-core products (``mma … .b1 .and.popc``).  It
+  replaces ``repro/kernels/packed_clause.py:packed_clause_eval_mxu``.
+  Bound by bytes at the serving shapes; the source note gives the design,
+  :func:`tile_warps` the clause-tile height.
 
 Each wrapper runs the plain version for CPU tensors, launches its kernel
 for CUDA tensors, and raises for anything else: a CUDA tensor never
@@ -28,6 +30,7 @@ import ctypes
 import torch
 
 from . import _build, ref
+from .clause_eval import sm_count
 
 # Plain versions: the JAX package's oracles for the two Pallas kernels.
 packed_clause_eval_plain = ref.packed_clause_eval_ref
@@ -35,8 +38,12 @@ packed_clause_tile_plain = ref.packed_clause_mxu_ref
 
 _EDGE_ROWS = 4            # csrc kEdgeRows: batch rows staged per block
 _SMEM_LIMIT = 48 * 1024   # static launch limit for dynamic shared memory
+TILE_B = 32               # csrc kTileB: batch rows per tile block
+MMA_ROWS = 16             # csrc kMmaRows: clause rows per warp (one m-tile)
+MAX_WARPS = 4             # csrc kMaxWarps
+BLOCKS_PER_SM = 2         # tile blocks an SM should hold at once
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + \
-    [ctypes.c_longlong] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    [ctypes.c_longlong] * 3 + [ctypes.c_int] * 2
 
 
 def _operands(lit: torch.Tensor, inc: torch.Tensor, n_bits):
@@ -66,21 +73,31 @@ def _operands(lit: torch.Tensor, inc: torch.Tensor, n_bits):
     return K, B, R, W, n_bits
 
 
-def _launch(wrapper, entry: str, lit, inc, eval_mode, n_bits
-            ) -> torch.Tensor:
+def tile_warps(K: int, B: int, R: int, sms: int) -> int:
+    """Warps of a tile block (16 clause rows each): the most, up to
+    ``MAX_WARPS``, that still give ``BLOCKS_PER_SM`` blocks on each of
+    ``sms`` SMs, else 1.  Pure: the CPU tests check it."""
+    tiles = K * -(-B // TILE_B)
+    for warps in (MAX_WARPS, 2):
+        if tiles * -(-R // (MMA_ROWS * warps)) >= BLOCKS_PER_SM * sms:
+            return warps
+    return 1
+
+
+def _launch(wrapper, entry: str, lit, inc, eval_mode, n_bits,
+            extra=()) -> torch.Tensor:
     K, B, R, W, n_bits = _operands(lit, inc, n_bits)
     out = torch.empty((K, B, R), dtype=torch.int32, device=lit.device)
     if out.numel() == 0:
         return out
-    lib = _build.load("packed_clause")
-    fn = getattr(lib, entry)
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
+    lib, fn = _build.entry("packed_clause", entry,
+                           _ARGTYPES + [ctypes.c_int] * len(extra)
+                           + [ctypes.c_void_p])
     with torch.cuda.device(lit.device):
         stream = torch.cuda.current_stream(lit.device).cuda_stream
         status = fn(lit.data_ptr(), inc.data_ptr(), out.data_ptr(),
                     K, B, R, W, lit.stride(0), inc.stride(0), out.stride(0),
-                    n_bits, int(bool(eval_mode)), stream)
+                    n_bits, int(bool(eval_mode)), *extra, stream)
     _build.check(lib, status, entry)
     wrapper.launches += 1
     return out
@@ -118,11 +135,14 @@ def packed_clause_tile(lit: torch.Tensor, inc: torch.Tensor,
                        n_bits: int | None = None) -> torch.Tensor:
     """Throughput-batch clause evaluation, same contract as
     :func:`packed_clause_eval`."""
+    K, B, R, _, _ = _operands(lit, inc, n_bits)
     if _route(lit, inc) == "cpu":
-        _operands(lit, inc, n_bits)
         return packed_clause_tile_plain(lit, inc, eval_mode, n_bits)
+    if -(-B // TILE_B) > 65535:
+        raise ValueError(f"B={B} batch rows exceed the grid's y limit")
+    warps = tile_warps(K, B, R, sm_count(lit.device.index or 0))
     return _launch(packed_clause_tile, "dtm_packed_clause_tile", lit, inc,
-                   eval_mode, n_bits)
+                   eval_mode, n_bits, (warps,))
 
 
 packed_clause_eval.launches = 0

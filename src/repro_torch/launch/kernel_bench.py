@@ -1,11 +1,12 @@
-"""Time the class-sum and fused-step kernels at the main paths' shapes.
+"""Time the class-sum, fused-step, fused-inference and packed tile
+kernels at the main paths' shapes.
 
     PYTHONPATH=src python3 src/repro_torch/launch/kernel_bench.py
 
-Times ``class_sum`` and ``fused_step`` of whichever ``repro_torch`` Python
-imports: this checkout's, or another's put first on ``PYTHONPATH``, so
-one run on one card can hold two versions of the kernels against each
-other.  Each call goes through the public wrapper, and each result is
+Times ``class_sum``, ``fused_step``, ``tm_infer`` and
+``packed_clause_tile`` of whichever ``repro_torch`` Python imports: this
+checkout's, or another's put first on ``PYTHONPATH``, so one run on one
+card can hold two versions of the kernels against each other.  Each call goes through the public wrapper, and each result is
 first held against the kernel's plain version (exact); the operands are
 made from seed 0.  Device time per
 call: 200 calls captured in one CUDA graph and replayed (warm), and the
@@ -15,7 +16,11 @@ and power limit, then one JSON line.  Exits 1 without a CUDA card.
 Shapes: ``class_sum`` at the serving bank (K=4, B=32, R=4224), the
 ``mxu`` fit's step (K=1, B=32, R=2048) and the edge (B=1, R=4224 serving,
 R=2048 training), H=16; ``fused_step`` at the MNIST and KWS-6 CoTM
-training steps (B=32, R=2048, W=52 and 100, H=16) and a K=2 bank.
+training steps (B=32, R=2048, W=52 and 100, H=16) and a K=2 bank;
+``tm_infer`` (H=16) and ``packed_clause_tile`` (eval mode, n_bits 16
+short of 32 W) at the serving bank (K=4, B=32, R=C=4224, W=100,
+L=3200) and at K=1, B=32 with MNIST widths (R=C=2048, W=52, L=1664).
+Bounds are the bytes each call must move.
 """
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ CLASS_SUM = [(4, 32, 4224, 16), (1, 32, 2048, 16), (1, 1, 4224, 16),
              (1, 1, 2048, 16)]                       # K, B, R, H
 FUSED = [(1, 32, 2048, 52, 16), (1, 32, 2048, 100, 16),
          (2, 32, 2048, 52, 16)]                      # K, B, R, W, H
+SERVE = [(4, 32, 4224, 100, 16), (1, 32, 2048, 52, 16)]   # K, B, R, W, H
 
 
 def graph_ms(torch, fn, n: int, cold_l2=None, reps: int = 5) -> float:
@@ -82,6 +88,9 @@ def main() -> int:
     from repro_torch import api  # noqa: F401  (the package before its kernels)
     from repro_torch.kernels.class_sum import class_sum, class_sum_plain
     from repro_torch.kernels.fused_step import fused_step, fused_step_plain
+    from repro_torch.kernels.packed_clause import (packed_clause_tile,
+                                                   packed_clause_tile_plain)
+    from repro_torch.kernels.tm_infer import tm_infer, tm_infer_plain
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip().splitlines()[0]
@@ -134,6 +143,25 @@ def main() -> int:
               4 * (K * B * W + K * R * W + K * H * R + 2 * K * B
                    + 2 * K * B * R + K * R + K * H + 2 * K
                    + 3 * K * B * R + K * B * H))
+    for K, B, R, W, H in SERVE:
+        L = 32 * W                                   # literals of the words
+        lit = words(torch, gen, (K, B, W), 0.5).to(dev)
+        inc = words(torch, gen, (K, R, W), 0.001).to(dev)
+        n_bits = 32 * W - 16
+        timed("packed_clause_tile", f"K={K} B={B} R={R} W={W}",
+              lambda lit=lit, inc=inc, n=n_bits: packed_clause_tile(
+                  lit, inc, True, n),
+              lambda lit=lit, inc=inc, n=n_bits: packed_clause_tile_plain(
+                  lit, inc, True, n),
+              4 * (K * B * W + K * R * W + K * B * R))
+        l8 = (torch.rand((K, B, L), generator=gen) < 0.5).to(torch.int8)
+        i8 = (torch.rand((K, R, L), generator=gen) < 0.001).to(torch.int8)
+        w = torch.randint(-7, 8, (K, H, R), generator=gen, dtype=torch.int32)
+        l8, i8, w = l8.to(dev), i8.to(dev), w.to(dev)
+        timed("tm_infer", f"K={K} B={B} C={R} L={L} H={H}",
+              lambda l8=l8, i8=i8, w=w: tm_infer(l8, i8, w, True),
+              lambda l8=l8, i8=i8, w=w: tm_infer_plain(l8, i8, w, True),
+              K * B * L + K * R * L + 4 * K * H * R + 4 * K * B * H)
     print(json.dumps({"kernel_bench": {
         "card": card, "repro_torch": repro_torch.__file__, "calls": CALLS,
         "rows": rows}}))

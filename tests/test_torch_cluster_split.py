@@ -1,5 +1,6 @@
 """Launch geometry of the cluster kernels ``fused_step`` and ``class_sum``
-(CPU: pure functions of the shapes).
+and of the tensor-core ``packed_clause_tile`` (CPU: pure functions of the
+shapes).
 
 Each clause row belongs to exactly one block of a cluster, a cluster has
 at most 16 blocks, and the main path's shapes put enough blocks in flight.
@@ -11,6 +12,7 @@ import pytest
 from repro_torch import api  # noqa: F401  (the package before its kernels)
 from repro_torch.kernels import class_sum as cs_mod
 from repro_torch.kernels import fused_step as fs_mod
+from repro_torch.kernels import packed_clause as pc_mod
 
 SHAPES = [(1, 1, 1), (1, 1, 17), (1, 5, 300), (3, 33, 4224), (4, 32, 4224),
           (1, 32, 2048), (1, 1, 4224), (2, 7, 4101), (1, 1, 100000)]
@@ -62,3 +64,33 @@ def test_fused_bulk_copies_only_aligned_rows_that_fit(W, R, aligned, fits,
                                                       bulk):
     smem = fs_mod.SMEM_LIMIT + (0 if fits else 1)
     assert fs_mod.fused_bulk(W, R, aligned, smem) == bulk
+
+
+@pytest.mark.parametrize("K,B,R", SHAPES + [(1, 8, 4224)])
+@pytest.mark.parametrize("sms", [1, 132])
+def test_tile_warps_covers_every_clause_once(K, B, R, sms):
+    """1, 2 or 4 warps of 16 clause rows a block; the tallest tile that
+    still gives two blocks an SM; every clause row in exactly one block;
+    the grid within its limits."""
+    warps = pc_mod.tile_warps(K, B, R, sms)
+    assert warps in (1, 2, pc_mod.MAX_WARPS)
+    rows = pc_mod.MMA_ROWS * warps
+    blocks = -(-R // rows)
+    owner = [r // rows for r in range(R)]
+    assert owner[-1] == blocks - 1 and all(0 <= o < blocks for o in owner)
+    assert blocks < 2 ** 31 and -(-B // pc_mod.TILE_B) <= 65535
+    tiles = K * -(-B // pc_mod.TILE_B)
+    if warps > 1:
+        assert tiles * blocks >= pc_mod.BLOCKS_PER_SM * sms
+    if warps < pc_mod.MAX_WARPS:
+        assert tiles * -(-R // (2 * rows)) < pc_mod.BLOCKS_PER_SM * sms
+
+
+@pytest.mark.parametrize("K,B,R,warps,blocks", [(4, 32, 4224, 4, 264),
+                                                (1, 8, 4224, 1, 264),
+                                                (1, 32, 2048, 1, 128)])
+def test_tile_warps_fills_the_card_on_the_main_path(K, B, R, warps, blocks):
+    """The serving bank, one program's batch of 8 and the MNIST widths."""
+    assert pc_mod.tile_warps(K, B, R, 132) == warps
+    rows = pc_mod.MMA_ROWS * warps
+    assert K * -(-B // pc_mod.TILE_B) * -(-R // rows) == blocks

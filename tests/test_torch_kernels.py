@@ -100,6 +100,42 @@ def test_packed_clause_matches_interpret_pallas(jax_op, port_op):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("B,C,W,n_bits", [(33, 70, 9, 283), (5, 20, 1, 27)])
+@pytest.mark.parametrize("eval_mode", [False, True])
+def test_packed_clause_mxu_matches_interpret_pallas_ragged_w(B, C, W, n_bits,
+                                                             eval_mode):
+    """The tile path at a W that ends inside a 256-bit step and an n_bits
+    inside the last word."""
+    lit, inc = _operands(W * 10 + B, B, C, W)
+    inc[2, -1] = 0xF8000000          # only bits past n_bits: empty
+    want = jops.packed_clause_mxu_op(jnp.asarray(lit), jnp.asarray(inc),
+                                     eval_mode=eval_mode, backend="pallas",
+                                     n_bits=n_bits)
+    got = tops.packed_clause_mxu_op(_t(lit), _t(inc), eval_mode=eval_mode,
+                                    n_bits=n_bits)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert 0 < int(got.sum()) < got.numel()
+
+
+@pytest.mark.parametrize("H", [1, 17])
+def test_tm_infer_matches_interpret_pallas_ragged_h(H):
+    """Fused inference at a class count that is not a multiple of the
+    kernel's 16-class passes, and a ragged literal count."""
+    rng = np.random.default_rng(H)
+    lit = (rng.random((5, 100)) < 0.7).astype(np.int8)
+    inc = (rng.random((20, 100)) < 0.02).astype(np.int8)
+    inc[0] = 0
+    w = rng.integers(-9, 10, (H, 20)).astype(np.int32)
+    for eval_mode in (False, True):
+        want = jops.tm_infer_op(jnp.asarray(lit), jnp.asarray(inc),
+                                jnp.asarray(w), eval_mode=eval_mode,
+                                backend="pallas")
+        got = tops.tm_infer_op(torch.from_numpy(lit), torch.from_numpy(inc),
+                               torch.from_numpy(w), eval_mode=eval_mode)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        assert got.abs().sum() > 0
+
+
 @pytest.mark.parametrize("B,C,H", [(1, 7, 2), (3, 40, 4), (32, 64, 3)])
 def test_class_sum_plain_matches_jax_oracle(B, C, H):
     rng = np.random.default_rng(B + C + H)
