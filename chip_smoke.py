@@ -17,7 +17,9 @@ Serving phases:
   4. edge serving: ``TMServer(batch_slot=1)``, ``predict`` per request,
      4 requests per tenant (edge clause kernel + class sums);
   5. checks: each kernel equals its plain version bit for bit at these
-     shapes, the server's answers equal those of a CPU engine running the
+     shapes (the edge clause kernel at B=1 and at B=4 of the bank's first
+     program; phase 10 adds its edge training shape), the server's
+     answers equal those of a CPU engine running the
      plain versions, clauses fire, answers are not all one class, and every
      kernel was launched by the phases above;
   5b. dense serving: ``TMServer(batch_slot=32)`` on an engine with
@@ -34,9 +36,13 @@ Serving phases:
      (K=1, B=32, captured in phase 7b), its launches counted over every
      path that runs it, and at B=1 (``class_sum_b1_ms``); tm_infer also
      as ``kernel_ms``, its bare launch without the wrapper's fill
-     (``prepare_tm_infer``); and the rate of the tensor cores'
+     (``prepare_tm_infer``); the rate of the tensor cores'
      single-bit product (``b1_mma_probe``: back-to-back
-     ``mma.m16n8k256 .b1 .and.popc``), which bounds packed_clause_tile.
+     ``mma.m16n8k256 .b1 .and.popc``), which bounds packed_clause_tile;
+     packed_clause_eval at B=1 (the row), B=4 and the edge training
+     shape (captured in phase 8), its launches counted over edge serving
+     and edge training, beside ``floor_ms``: 200 one-element ``zero_()``
+     calls replayed the same way, the least a graph node takes.
 
 Training phases (the paper's MNIST CoTM at full width, L=1664, R=2048,
 H=16, W=52, on the MNIST-like synthetic set: 2048 training and 512
@@ -53,7 +59,8 @@ held-out rows):
      tensor and read by ta_update_streamed, dense update); both must end
      in phase 7's program and PRNG;
   8. edge: 8 ``partial_fit`` steps at B=1 (counter PRNG), each checked
-     against the CPU engine;
+     against the CPU engine (edge clause kernel + class sums + torch
+     selection, then the compacted TA update);
   9. bank: one ``ProgramBank.train`` step of MNIST CoTM and MNIST Vanilla
      (K=2, 32 rows each, counter PRNGs), checked against the CPU engine,
      and the same step with ``ta_prng="stream"``, which must equal it;
@@ -62,7 +69,8 @@ held-out rows):
      from ``prepare_fused_step``, and under torch.profiler: one kernel a
      call, in the profiled step and alone; ta_update and ta_update_streamed K=1
      and K=2 with 2B=64; ta_update_sparse at the fit's last step;
-     clause_eval K=1 B=32), timed as in phase 6, the TA rows also as
+     clause_eval K=1 B=32; packed_clause_eval at the edge step's B=1,
+     R=2048, W=52), timed as in phase 6, the TA rows also as
      ``kernel_ms``: the bare launch, its operands and scalars prepared
      outside the graph (``prepare_ta_update*``), apart from the wrapper;
      the streamed update with its stream build beside the in-kernel update
@@ -462,6 +470,9 @@ def main(argv=None) -> int:
                                 lits, inc, True, L)
     cl_edge, err_edge = compare(packed_clause_eval, packed_clause_eval_plain,
                                 lit1, inc1, True, L)
+    lit4 = lits[:1, :4]                  # four requests of the first tenant
+    _, err_edge4 = compare(packed_clause_eval, packed_clause_eval_plain,
+                           lit4, inc1, True, L)
     check(torch.equal(cl_edge[0], cl_tile[:1, :1][0]),
           "edge and tile kernels disagree on one datapoint")
     cl = cl_tile * bank.progs.cl_mask[:, None, :]
@@ -637,8 +648,9 @@ def main(argv=None) -> int:
     for i in range(EDGE_STEPS):
         xb, yb = x_tr[i:i + 1], y_tr[i:i + 1]
         t = time.perf_counter()
-        sg = tm_e.partial_fit(xb, yb)
-        torch.cuda.synchronize()
+        with Capture(ops, "packed_clause_eval") as cap_edge_train:
+            sg = tm_e.partial_fit(xb, yb)
+            torch.cuda.synchronize()
         edge_train_s.append(time.perf_counter() - t)
         pc, rc, sc = eng_cpu.train_step(pc, rc, eng_cpu.encode(spec_c, xb),
                                         spec_c.encode_labels(yb))
@@ -732,6 +744,12 @@ def main(argv=None) -> int:
         check(n_bad == 0, f"{kernel.__name__}: {n_bad} mismatches")
         return got, int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
 
+    pe_a, pe_kw = cap_edge_train.args     # the last edge training step
+    pe_a = copies(pe_a)
+    check(all(t.is_cuda for t in pe_a[:2]),
+          "the captured edge training call is not on the card")
+    _, err_edge_train = compare_one(packed_clause_eval,
+                                    packed_clause_eval_plain, pe_a, pe_kw)
     ce4_a, ce4_kw = cap_ce_serve.args     # the last dense flush (K=4)
     _, err_ce4 = compare_one(clause_eval, clause_eval_plain, ce4_a, ce4_kw)
     ce1_a, ce1_kw = cap_ce_train.args     # the dense-front fit's last step
@@ -859,14 +877,40 @@ def main(argv=None) -> int:
                "bound_ms_before": bound(
                    4 * (K * B * W + K * R * W + K * B * R),
                    K * B * R * W + K * B * R, int_rate)[0]})
+    # packed_clause_eval: the serving edge request (the row), four requests
+    # of one tenant and the edge training step; launches over edge serving
+    # and edge training
+    pe_lit, pe_inc = pe_a[:2]
+    _, pe_B, pe_W = pe_lit.shape
+    pe_R = pe_inc.shape[1]
+    one = torch.zeros(1, dtype=torch.int32, device="cuda")
+    edge_extra = {
+        "floor_ms": graph_ms(torch, one.zero_, it),
+        "ms_b4": graph_ms(torch, lambda: packed_clause_eval(
+            lit4, inc1, True, L), it),
+        "ms_cold_l2_b4": graph_ms(torch, lambda: packed_clause_eval(
+            lit4, inc1, True, L), it // 4, cold),
+        "bound_ms_b4": bound(4 * (4 * W + R * W + 4 * R), 4 * (R * W + R),
+                             int_rate)[0],
+        "shape_training": f"K=1 B={pe_B} R={pe_R} W={pe_W} "
+                          f"eval_mode={pe_kw.get('eval_mode')}",
+        "ms_training": graph_ms(torch, lambda: packed_clause_eval(
+            *pe_a, **pe_kw), it),
+        "ms_cold_l2_training": graph_ms(torch, lambda: packed_clause_eval(
+            *pe_a, **pe_kw), it // 4, cold),
+        "bound_ms_training": bound(
+            4 * (pe_B * pe_W + pe_R * pe_W + pe_B * pe_R),
+            pe_B * (pe_R * pe_W + pe_R), int_rate)[0]}
     row("packed_clause_eval", cu + "packed_clause.cu",
         "src/repro/kernels/packed_clause.py:107",
-        counts_edge["packed_clause_eval"], err_edge,
+        counts_edge["packed_clause_eval"]
+        + counts_edge_train["packed_clause_eval"],
+        max(err_edge, err_edge4, err_edge_train),
         lambda: packed_clause_eval(lit1, inc1, True, L),
         lambda: packed_clause_eval_plain(lit1, inc1, True, L), lib_edge,
         4 * (W + R * W + R), R * W + R, f"K=1 B=1 R={R} W={W}",
         library_note="torch.matmul float32, TF32 off, on the unpacked "
-        "operands (violation counts)")
+        "operands (violation counts)", extra=edge_extra)
     # class_sum: the serving bank (K=4) and the mxu fit's step (K=1); its
     # launches are every main path's: serving stacked, dense and edge, the
     # mxu fit and edge training

@@ -13,10 +13,24 @@
 // packed_clause_eval (the Pallas VPU word-OR kernel), used for B <= 4.
 //   Bound: device-memory bytes.  At B <= 4 every include word is used by at
 //   most four AND-NOTs, so the kernel is a GEMV that streams the [R, W]
-//   include bitplane once.  Design: one warp per clause row, each lane
-//   loading 16-byte chunks of the row (coalesced, read-only path); the
-//   <= 4 literal rows sit in shared memory; the per-lane OR is reduced
-//   with warp shuffles.  No early exit on all-zero words.
+//   include bitplane once (1.7 MB at the serving edge shape, 0.4 MB in
+//   edge training).  At these sizes a call lasts a few microseconds, so
+//   what costs is each serial memory round trip, not the bytes.
+//   Design: G lanes per clause row (kernels/packed_clause.py edge_geometry:
+//   the fewest that leave each lane at most kEdgeChunks 16-byte chunks of
+//   the row), 32 / G rows per warp.  Each lane issues all of its include
+//   loads and the matching literal words together (read-only path, the
+//   literal rows straight from global memory: every warp reads the same
+//   <= 4 W words, so they come from L1), then reduces: one round trip and
+//   no block barrier.  Out-of-range chunks and rows load clamped addresses
+//   instead of branching (a repeated word cannot change an OR; a clamped
+//   row stores nothing).  Templated on NB, the live batch rows of a block:
+//   B = 1 carries one violation accumulator and the nonempty OR.  The OR
+//   over a row's G lanes is a log2 G shuffle tree; a warp's rows store
+//   side by side, one coalesced store per batch row.  Rows wider than
+//   G * kEdgeChunks chunks (W > 512 at G = 32) take passes of that width.
+//   16-byte loads when W, both program strides and both bases allow them,
+//   else each chunk is four 4-byte loads.
 //
 // packed_clause_tile replaces repro/kernels/packed_clause.py:
 // packed_clause_eval_mxu (the Pallas popcount-as-matmul kernel on the MXU),
@@ -48,69 +62,101 @@
 
 namespace {
 
-constexpr int kEdgeRows = 4;    // batch rows per block: the edge regime
-constexpr int kEdgeWarps = 8;   // clause rows in flight per block
+constexpr int kEdgeRows = 4;       // batch rows per block at most
+constexpr int kEdgeChunks = 4;     // 16-byte chunks a lane loads per pass
+constexpr int kEdgeMaxWarps = 4;
 
+// Words 4q .. 4q + 3 of a row of W words (q < ceil(W / 4)); on the 4-byte
+// path words past W repeat word W - 1 (the tail mask zeroes their include).
 template <bool kVec>
-__global__ void __launch_bounds__(kEdgeWarps * 32)
+__device__ __forceinline__ uint4 edge_chunk(const uint32_t* row, int q, int W) {
+  if (kVec) return __ldg(reinterpret_cast<const uint4*>(row) + q);
+  const int w = 4 * q, last = W - 1;
+  return make_uint4(__ldg(row + w), __ldg(row + min(w + 1, last)),
+                    __ldg(row + min(w + 2, last)), __ldg(row + min(w + 3, last)));
+}
+
+// One block of clause rows for NB batch rows.  lit_b: the first of the NB
+// literal rows, inc_k and out_b: the program's include and the first batch
+// row's outputs.
+template <bool kVec, int NB>
+__device__ __forceinline__ void edge_rows(const uint32_t* __restrict__ lit_b,
+                                          const uint32_t* __restrict__ inc_k,
+                                          int32_t* __restrict__ out_b, int R, int W,
+                                          int n_bits, int eval_mode, int lanes) {
+  const int lane = threadIdx.x & 31;
+  const int sub = lane & (lanes - 1);                      // lane within the row
+  const int log_lanes = __ffs(lanes) - 1;
+  const int r = ((blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5)) << (5 - log_lanes)) +
+                (lane >> log_lanes);
+  const uint32_t* row = inc_k + static_cast<long long>(min(r, R - 1)) * W;
+  const int nq = (W + 3) >> 2;                             // chunks a row
+  uint32_t v[NB], ne = 0u;
+#pragma unroll
+  for (int b = 0; b < NB; ++b) v[b] = 0u;
+  for (int q0 = 0; q0 < nq; q0 += lanes * kEdgeChunks) {
+    int q[kEdgeChunks];
+    uint4 ic[kEdgeChunks], lc[NB][kEdgeChunks];
+#pragma unroll
+    for (int j = 0; j < kEdgeChunks; ++j) {                // every load first
+      q[j] = min(q0 + sub + j * lanes, nq - 1);
+      ic[j] = edge_chunk<kVec>(row, q[j], W);
+#pragma unroll
+      for (int b = 0; b < NB; ++b) lc[b][j] = edge_chunk<kVec>(lit_b + b * W, q[j], W);
+    }
+#pragma unroll
+    for (int j = 0; j < kEdgeChunks; ++j) {
+      uint4 c = ic[j];
+      if (32 * (4 * q[j] + 4) > n_bits) {                  // a chunk reaching past n_bits
+        c.x &= dtm_tail_mask(4 * q[j], n_bits);
+        c.y &= dtm_tail_mask(4 * q[j] + 1, n_bits);
+        c.z &= dtm_tail_mask(4 * q[j] + 2, n_bits);
+        c.w &= dtm_tail_mask(4 * q[j] + 3, n_bits);
+      }
+      ne |= c.x | c.y | c.z | c.w;
+#pragma unroll
+      for (int b = 0; b < NB; ++b) {
+        const uint4 l = lc[b][j];
+        v[b] |= (c.x & ~l.x) | (c.y & ~l.y) | (c.z & ~l.z) | (c.w & ~l.w);
+      }
+    }
+  }
+  for (int off = lanes >> 1; off > 0; off >>= 1) {         // the row's lanes
+    ne |= __shfl_xor_sync(0xffffffffu, ne, off);
+#pragma unroll
+    for (int b = 0; b < NB; ++b) v[b] |= __shfl_xor_sync(0xffffffffu, v[b], off);
+  }
+  if (r >= R) return;
+  const bool gate = !eval_mode || ne != 0u;
+#pragma unroll
+  for (int b = 0; b < NB; ++b)
+    if ((b & (lanes - 1)) == sub)
+      out_b[static_cast<long long>(b) * R + r] = (v[b] == 0u && gate) ? 1 : 0;
+}
+
+// Block (blockIdx.x: 32 / lanes · warps clause rows, blockIdx.y: a group of
+// up to kEdgeRows batch rows, blockIdx.z: program).  kMaxNB = min(B, 4):
+// at B <= 4 the one group has NB = B; past 4 the last group takes its own.
+template <bool kVec, int kMaxNB>
+__global__ void __launch_bounds__(kEdgeMaxWarps * 32)
 packed_clause_edge(const uint32_t* __restrict__ lit, const uint32_t* __restrict__ inc,
                    int32_t* __restrict__ out, int B, int R, int W,
                    long long lit_sk, long long inc_sk, long long out_sk,
-                   int n_bits, int eval_mode) {
-  extern __shared__ __align__(16) uint32_t s_lit[];  // [kEdgeRows][W]
+                   int n_bits, int eval_mode, int lanes) {
   const int k = blockIdx.z;
   const int b0 = blockIdx.y * kEdgeRows;
-  const int nb = min(kEdgeRows, B - b0);
-  const uint32_t* lit_k = lit + k * lit_sk + static_cast<long long>(b0) * W;
-  for (int i = threadIdx.x; i < kEdgeRows * W; i += blockDim.x)
-    s_lit[i] = (i / W < nb) ? lit_k[i] : 0xffffffffu;
-  __syncthreads();
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+  const uint32_t* lit_b = lit + k * lit_sk + static_cast<long long>(b0) * W;
   const uint32_t* inc_k = inc + k * inc_sk;
-  int32_t* out_k = out + k * out_sk + static_cast<long long>(b0) * R;
-  for (int r = blockIdx.x * kEdgeWarps + warp; r < R; r += gridDim.x * kEdgeWarps) {
-    const uint32_t* row = inc_k + static_cast<long long>(r) * W;
-    uint32_t v[kEdgeRows];
-#pragma unroll
-    for (int b = 0; b < kEdgeRows; ++b) v[b] = 0u;
-    uint32_t ne = 0u;
-    if (kVec) {
-      const int w4 = W >> 2;
-      for (int q = lane; q < w4; q += 32) {
-        const uint4 c = __ldg(reinterpret_cast<const uint4*>(row) + q);
-        const uint32_t i0 = c.x & dtm_tail_mask(4 * q, n_bits);
-        const uint32_t i1 = c.y & dtm_tail_mask(4 * q + 1, n_bits);
-        const uint32_t i2 = c.z & dtm_tail_mask(4 * q + 2, n_bits);
-        const uint32_t i3 = c.w & dtm_tail_mask(4 * q + 3, n_bits);
-        ne |= i0 | i1 | i2 | i3;
-#pragma unroll
-        for (int b = 0; b < kEdgeRows; ++b) {
-          const uint4 l = reinterpret_cast<const uint4*>(s_lit + b * W)[q];
-          v[b] |= (i0 & ~l.x) | (i1 & ~l.y) | (i2 & ~l.z) | (i3 & ~l.w);
-        }
-      }
-    } else {
-      for (int w = lane; w < W; w += 32) {
-        const uint32_t i = __ldg(row + w) & dtm_tail_mask(w, n_bits);
-        ne |= i;
-#pragma unroll
-        for (int b = 0; b < kEdgeRows; ++b) v[b] |= i & ~s_lit[b * W + w];
-      }
-    }
-    ne = dtm_warp_or(ne);
-#pragma unroll
-    for (int b = 0; b < kEdgeRows; ++b) v[b] = dtm_warp_or(v[b]);
-    if (lane < nb) {
-      uint32_t mine = v[0];  // v[lane] without dynamic register indexing
-#pragma unroll
-      for (int b = 1; b < kEdgeRows; ++b)
-        if (lane == b) mine = v[b];
-      out_k[static_cast<long long>(lane) * R + r] =
-          (mine == 0u && (!eval_mode || ne != 0u)) ? 1 : 0;
+  int32_t* out_b = out + k * out_sk + static_cast<long long>(b0) * R;
+  if constexpr (kMaxNB == kEdgeRows) {
+    switch (min(kEdgeRows, B - b0)) {
+      case 1: edge_rows<kVec, 1>(lit_b, inc_k, out_b, R, W, n_bits, eval_mode, lanes); return;
+      case 2: edge_rows<kVec, 2>(lit_b, inc_k, out_b, R, W, n_bits, eval_mode, lanes); return;
+      case 3: edge_rows<kVec, 3>(lit_b, inc_k, out_b, R, W, n_bits, eval_mode, lanes); return;
+      default: break;
     }
   }
+  edge_rows<kVec, kMaxNB>(lit_b, inc_k, out_b, R, W, n_bits, eval_mode, lanes);
 }
 
 // ---- packed_clause_tile: .b1 tensor-core tiles --------------------------
@@ -270,25 +316,34 @@ __global__ void b1_mma_probe(int32_t* __restrict__ out, int iters) {
 
 }  // namespace
 
+// lanes (a power of two up to 32), warps (1 to kEdgeMaxWarps) and
+// blocks (clause-row blocks) come from kernels/packed_clause.py
+// edge_geometry; blocks · (32 / lanes) · warps >= R.  16-byte loads when W
+// and both program strides are multiples of 4 words and both pointers
+// 16-byte aligned.
 extern "C" int dtm_packed_clause_edge(const void* lit, const void* inc, void* out,
                                       int K, int B, int R, int W,
                                       long long lit_sk, long long inc_sk, long long out_sk,
-                                      int n_bits, int eval_mode, void* stream) {
-  const dim3 grid(std::min((R + kEdgeWarps - 1) / kEdgeWarps, 65535),
-                  (B + kEdgeRows - 1) / kEdgeRows, K);
-  const size_t smem = sizeof(uint32_t) * kEdgeRows * W;
-  const bool vec = (W % 4 == 0) && (inc_sk % 4 == 0) &&
-                   (reinterpret_cast<uintptr_t>(inc) % 16 == 0);
-  const auto* l = static_cast<const uint32_t*>(lit);
-  const auto* i = static_cast<const uint32_t*>(inc);
-  auto* o = static_cast<int32_t*>(out);
-  auto s = static_cast<cudaStream_t>(stream);
-  if (vec)
-    packed_clause_edge<true><<<grid, kEdgeWarps * 32, smem, s>>>(
-        l, i, o, B, R, W, lit_sk, inc_sk, out_sk, n_bits, eval_mode);
-  else
-    packed_clause_edge<false><<<grid, kEdgeWarps * 32, smem, s>>>(
-        l, i, o, B, R, W, lit_sk, inc_sk, out_sk, n_bits, eval_mode);
+                                      int n_bits, int eval_mode, int lanes, int warps,
+                                      int blocks, void* stream) {
+  if (lanes < 1 || lanes > 32 || (lanes & (lanes - 1)) != 0 || warps < 1 ||
+      warps > kEdgeMaxWarps || static_cast<long long>(blocks) * (32 / lanes) * warps < R)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(blocks, (B + kEdgeRows - 1) / kEdgeRows, K);
+  const bool vec = W % 4 == 0 && lit_sk % 4 == 0 && inc_sk % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(lit) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(inc) % 16 == 0;
+  using Edge = void (*)(const uint32_t*, const uint32_t*, int32_t*, int, int, int, long long,
+                        long long, long long, int, int, int);
+  static const Edge kernels[2][kEdgeRows] = {
+      {packed_clause_edge<false, 1>, packed_clause_edge<false, 2>,
+       packed_clause_edge<false, 3>, packed_clause_edge<false, 4>},
+      {packed_clause_edge<true, 1>, packed_clause_edge<true, 2>, packed_clause_edge<true, 3>,
+       packed_clause_edge<true, 4>}};
+  kernels[vec][std::min(B, kEdgeRows) - 1]<<<grid, 32 * warps, 0,
+                                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(lit), static_cast<const uint32_t*>(inc),
+      static_cast<int32_t*>(out), B, R, W, lit_sk, inc_sk, out_sk, n_bits, eval_mode, lanes);
   return static_cast<int>(cudaGetLastError());
 }
 

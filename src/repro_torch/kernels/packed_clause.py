@@ -9,9 +9,14 @@ from packed int32 words (uint32 bit patterns), ``lit [K, B, W]`` and
 ``inc [K, R, W]``, to ``clause [K, B, R]`` int32:
 
 * :func:`packed_clause_eval` — ``csrc/packed_clause.cu:packed_clause_edge``,
-  a GEMV-shaped kernel for edge batches (B <= 4).  It replaces
+  a GEMV-shaped kernel for edge batches (B <= 4; larger B runs in groups
+  of 4 batch rows).  It replaces
   ``repro/kernels/packed_clause.py:packed_clause_eval``.  Bound by the
-  bytes of the include bitplane it streams.
+  bytes of the include bitplane it streams, and at the edge shapes by the
+  latency of its one memory round trip: each lane issues all of its
+  16-byte include loads and the literal words together, with no shared
+  memory and no block barrier, so it takes any W; :func:`edge_geometry`
+  gives the lanes per clause row and the launch.
 * :func:`packed_clause_tile` — ``csrc/packed_clause.cu:packed_clause_tile``,
   a GEMM-shaped tile kernel for throughput batches: the violation counts
   are single-bit tensor-core products (``mma … .b1 .and.popc``).  It
@@ -36,8 +41,9 @@ from .clause_eval import sm_count
 packed_clause_eval_plain = ref.packed_clause_eval_ref
 packed_clause_tile_plain = ref.packed_clause_mxu_ref
 
-_EDGE_ROWS = 4            # csrc kEdgeRows: batch rows staged per block
-_SMEM_LIMIT = 48 * 1024   # static launch limit for dynamic shared memory
+EDGE_ROWS = 4             # csrc kEdgeRows: batch rows per block at most
+EDGE_CHUNKS = 4           # csrc kEdgeChunks: 16-byte chunks a lane loads
+EDGE_MAX_WARPS = 4        # csrc kEdgeMaxWarps
 TILE_B = 32               # csrc kTileB: batch rows per tile block
 MMA_ROWS = 16             # csrc kMmaRows: clause rows per warp (one m-tile)
 MAX_WARPS = 4             # csrc kMaxWarps
@@ -84,6 +90,29 @@ def tile_warps(K: int, B: int, R: int, sms: int) -> int:
     return 1
 
 
+def edge_geometry(B: int, R: int, W: int, sms: int):
+    """Launch of the edge kernel: ``(lanes, rows_per_warp, warps, grid)``.
+
+    ``lanes`` (a power of two) read one clause row: the fewest that leave
+    each lane at most ``EDGE_CHUNKS`` of the row's ceil(W / 4) 16-byte
+    chunks (32 at most; wider rows take passes), so a warp holds
+    ``32 // lanes`` rows.  ``warps`` a block: the most, up to
+    ``EDGE_MAX_WARPS``, that still give ``sms`` blocks over the groups of
+    ``EDGE_ROWS`` batch rows, so a launch spreads over every SM in one
+    wave.  ``grid`` = (clause blocks, batch groups).  Pure: the CPU tests
+    check it."""
+    chunks = -(-W // 4)
+    lanes = 1
+    while lanes < 32 and -(-chunks // lanes) > EDGE_CHUNKS:
+        lanes *= 2
+    rows_per_warp = 32 // lanes
+    groups = -(-B // EDGE_ROWS)
+    warps = next((w for w in (EDGE_MAX_WARPS, 2)
+                  if groups * -(-R // (rows_per_warp * w)) >= sms), 1)
+    return (lanes, rows_per_warp, warps,
+            (-(-R // (rows_per_warp * warps)), groups))
+
+
 def _launch(wrapper, entry: str, lit, inc, eval_mode, n_bits,
             extra=()) -> torch.Tensor:
     K, B, R, W, n_bits = _operands(lit, inc, n_bits)
@@ -120,14 +149,15 @@ def packed_clause_eval(lit: torch.Tensor, inc: torch.Tensor,
     """Edge-batch clause evaluation: lit [K, B, W], inc [K, R, W] ->
     clause [K, B, R] int32.  ``n_bits`` (default 32*W) masks include bits
     past the real literal count."""
+    _, B, R, W, _ = _operands(lit, inc, n_bits)
     if _route(lit, inc) == "cpu":
-        _operands(lit, inc, n_bits)
         return packed_clause_eval_plain(lit, inc, eval_mode, n_bits)
-    if 4 * _EDGE_ROWS * lit.shape[-1] > _SMEM_LIMIT:
-        raise ValueError(f"W={lit.shape[-1]} words overflow the edge "
-                         "kernel's shared literal rows")
+    lanes, _, warps, (blocks, groups) = edge_geometry(
+        B, R, W, sm_count(lit.device.index or 0))
+    if groups > 65535:
+        raise ValueError(f"B={B} batch rows exceed the grid's y limit")
     return _launch(packed_clause_eval, "dtm_packed_clause_edge", lit, inc,
-                   eval_mode, n_bits)
+                   eval_mode, n_bits, (lanes, warps, blocks))
 
 
 def packed_clause_tile(lit: torch.Tensor, inc: torch.Tensor,

@@ -1,16 +1,18 @@
-"""Time the class-sum, fused-step, fused-inference and packed tile
+"""Time the class-sum, fused-step, fused-inference and packed clause
 kernels at the main paths' shapes.
 
     PYTHONPATH=src python3 src/repro_torch/launch/kernel_bench.py
 
-Times ``class_sum``, ``fused_step``, ``tm_infer`` and
-``packed_clause_tile`` of whichever ``repro_torch`` Python imports: this
+Times ``class_sum``, ``fused_step``, ``tm_infer``, ``packed_clause_tile``
+and ``packed_clause_eval`` of whichever ``repro_torch`` Python imports: this
 checkout's, or another's put first on ``PYTHONPATH``, so one run on one
 card can hold two versions of the kernels against each other.  Each call goes through the public wrapper, and each result is
 first held against the kernel's plain version (exact); the operands are
 made from seed 0.  Device time per
 call: 200 calls captured in one CUDA graph and replayed (warm), and the
-same with L2 overwritten before each call (cold).  Prints the card's name
+same with L2 overwritten before each call (cold).  ``floor_ms`` is the
+same replay of 200 one-element ``zero_()`` calls: the least a graph node
+takes on this card, the floor under every row.  Prints the card's name
 and power limit, then one JSON line.  Exits 1 without a CUDA card.
 
 Shapes: ``class_sum`` at the serving bank (K=4, B=32, R=4224), the
@@ -19,8 +21,10 @@ R=2048 training), H=16; ``fused_step`` at the MNIST and KWS-6 CoTM
 training steps (B=32, R=2048, W=52 and 100, H=16) and a K=2 bank;
 ``tm_infer`` (H=16) and ``packed_clause_tile`` (eval mode, n_bits 16
 short of 32 W) at the serving bank (K=4, B=32, R=C=4224, W=100,
-L=3200) and at K=1, B=32 with MNIST widths (R=C=2048, W=52, L=1664).
-Bounds are the bytes each call must move.
+L=3200) and at K=1, B=32 with MNIST widths (R=C=2048, W=52, L=1664);
+``packed_clause_eval`` (eval mode, n_bits 16 short of 32 W) at the
+serving edge (K=1, R=4224, W=100, B=1 and 4) and the edge training step
+(K=1, B=1, R=2048, W=52).  Bounds are the bytes each call must move.
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ CLASS_SUM = [(4, 32, 4224, 16), (1, 32, 2048, 16), (1, 1, 4224, 16),
 FUSED = [(1, 32, 2048, 52, 16), (1, 32, 2048, 100, 16),
          (2, 32, 2048, 52, 16)]                      # K, B, R, W, H
 SERVE = [(4, 32, 4224, 100, 16), (1, 32, 2048, 52, 16)]   # K, B, R, W, H
+EDGE = [(1, 1, 4224, 100), (1, 4, 4224, 100), (1, 1, 2048, 52)]  # K, B, R, W
 
 
 def graph_ms(torch, fn, n: int, cold_l2=None, reps: int = 5) -> float:
@@ -88,8 +93,9 @@ def main() -> int:
     from repro_torch import api  # noqa: F401  (the package before its kernels)
     from repro_torch.kernels.class_sum import class_sum, class_sum_plain
     from repro_torch.kernels.fused_step import fused_step, fused_step_plain
-    from repro_torch.kernels.packed_clause import (packed_clause_tile,
-                                                   packed_clause_tile_plain)
+    from repro_torch.kernels.packed_clause import (
+        packed_clause_eval, packed_clause_eval_plain, packed_clause_tile,
+        packed_clause_tile_plain)
     from repro_torch.kernels.tm_infer import tm_infer, tm_infer_plain
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -162,9 +168,20 @@ def main() -> int:
               lambda l8=l8, i8=i8, w=w: tm_infer(l8, i8, w, True),
               lambda l8=l8, i8=i8, w=w: tm_infer_plain(l8, i8, w, True),
               K * B * L + K * R * L + 4 * K * H * R + 4 * K * B * H)
+    for K, B, R, W in EDGE:
+        lit = words(torch, gen, (K, B, W), 0.5).to(dev)
+        inc = words(torch, gen, (K, R, W), 0.001).to(dev)
+        n_bits = 32 * W - 16
+        timed("packed_clause_eval", f"K={K} B={B} R={R} W={W}",
+              lambda lit=lit, inc=inc, n=n_bits: packed_clause_eval(
+                  lit, inc, True, n),
+              lambda lit=lit, inc=inc, n=n_bits: packed_clause_eval_plain(
+                  lit, inc, True, n),
+              4 * (K * B * W + K * R * W + K * B * R))
+    one = torch.zeros(1, dtype=torch.int32, device=dev)
     print(json.dumps({"kernel_bench": {
         "card": card, "repro_torch": repro_torch.__file__, "calls": CALLS,
-        "rows": rows}}))
+        "floor_ms": graph_ms(torch, one.zero_, CALLS), "rows": rows}}))
     return 0
 
 

@@ -1,6 +1,6 @@
-"""Launch geometry of the cluster kernels ``fused_step`` and ``class_sum``
-and of the tensor-core ``packed_clause_tile`` (CPU: pure functions of the
-shapes).
+"""Launch geometry of the cluster kernels ``fused_step`` and ``class_sum``,
+of the tensor-core ``packed_clause_tile`` and of the edge kernel
+``packed_clause_eval`` (CPU: pure functions of the shapes).
 
 Each clause row belongs to exactly one block of a cluster, a cluster has
 at most 16 blocks, and the main path's shapes put enough blocks in flight.
@@ -94,3 +94,48 @@ def test_tile_warps_fills_the_card_on_the_main_path(K, B, R, warps, blocks):
     assert pc_mod.tile_warps(K, B, R, 132) == warps
     rows = pc_mod.MMA_ROWS * warps
     assert K * -(-B // pc_mod.TILE_B) * -(-R // rows) == blocks
+
+
+EDGE_R = [1, 31, 33, 2048, 4224, 4241, 100000]
+
+
+@pytest.mark.parametrize("W", [1, 3, 4, 13, 52, 100, 3100])
+@pytest.mark.parametrize("sms", [1, 132])
+def test_edge_geometry_covers_every_row_once(W, sms):
+    """For B = 1..8 and several R: lanes a power of two reading every
+    16-byte chunk of a row, at most EDGE_CHUNKS a lane unless the row takes
+    passes at 32 lanes, and no fewer lanes would do; every clause row in
+    exactly one (block, warp, lane group), every batch row in exactly one
+    group of at most EDGE_ROWS; the grid within its limits; fewer warps a
+    block only where more would leave SMs idle."""
+    chunks = -(-W // 4)
+    for B in range(1, 9):
+        for R in EDGE_R:
+            lanes, rpw, warps, (gx, gy) = pc_mod.edge_geometry(B, R, W, sms)
+            assert lanes in (1, 2, 4, 8, 16, 32) and rpw == 32 // lanes
+            assert 1 <= warps <= pc_mod.EDGE_MAX_WARPS
+            per_lane = -(-chunks // lanes)
+            assert per_lane <= pc_mod.EDGE_CHUNKS or lanes == 32
+            if lanes > 1:           # no fewer lanes would do
+                assert -(-chunks // (lanes // 2)) > pc_mod.EDGE_CHUNKS
+            rows = rpw * warps
+            owner = [r // rows for r in range(R)]
+            assert owner[-1] == gx - 1 and gx * rows >= R > (gx - 1) * rows
+            groups = [b // pc_mod.EDGE_ROWS for b in range(B)]
+            assert groups[-1] == gy - 1 and gy <= 65535
+            assert gx < 2 ** 31
+            if warps < pc_mod.EDGE_MAX_WARPS:
+                assert gy * -(-R // (rpw * 2 * warps)) < sms
+
+
+@pytest.mark.parametrize("B,R,W,geometry", [
+    (1, 4224, 100, (8, 4, 4, (264, 1))),     # serving edge request
+    (4, 4224, 100, (8, 4, 4, (264, 1))),     # four requests of one tenant
+    (1, 2048, 52, (4, 8, 1, (256, 1))),      # edge training (partial_fit)
+    (5, 2048, 52, (4, 8, 2, (128, 2))),      # a direct call past B = 4
+    (1, 4224, 3100, (32, 1, 4, (1056, 1)))])  # past the old width limit
+def test_edge_geometry_at_the_main_path(B, R, W, geometry):
+    """One wave over the 132 SMs at the edge shapes: 8 lanes a row at
+    W=100 (25 chunks, 7 idle lane slots of 32), 4 at W=52 (13 chunks, 3
+    idle of 16)."""
+    assert pc_mod.edge_geometry(B, R, W, 132) == geometry

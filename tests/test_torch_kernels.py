@@ -100,6 +100,29 @@ def test_packed_clause_matches_interpret_pallas(jax_op, port_op):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("B", [1, 2, 3, 4])
+@pytest.mark.parametrize("W", [13, 52])
+@pytest.mark.parametrize("eval_mode", [False, True])
+def test_packed_clause_edge_matches_interpret_pallas(B, W, eval_mode):
+    """The edge path at each live batch-row count of the edge kernel, the
+    training (52) and an odd word count, a ragged n_bits inside the last
+    word; exact equality with the Pallas kernel in interpret mode."""
+    lit, inc = _operands(B * 100 + W, B, 24, W)
+    lit[0] = 0xFFFFFFFF              # a row that violates only ...
+    lit[0, 0] = 0
+    inc[4:8, 0] |= 1                 # ... the rows that include bit 0
+    inc[2] = 0
+    inc[2, -1] = 0xF8000000          # only bits past n_bits: empty
+    n_bits = 32 * W - 9
+    want = jops.packed_clause_eval_op(jnp.asarray(lit), jnp.asarray(inc),
+                                      eval_mode=eval_mode, backend="pallas",
+                                      n_bits=n_bits)
+    got = tops.packed_clause_eval_op(_t(lit), _t(inc), eval_mode=eval_mode,
+                                     n_bits=n_bits)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert 0 < int(got.sum()) < got.numel()
+
+
 @pytest.mark.parametrize("B,C,W,n_bits", [(33, 70, 9, 283), (5, 20, 1, 27)])
 @pytest.mark.parametrize("eval_mode", [False, True])
 def test_packed_clause_mxu_matches_interpret_pallas_ragged_w(B, C, W, n_bits,
