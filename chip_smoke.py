@@ -81,6 +81,26 @@ held-out rows):
      default, skip-off (dense TA) and streamed engines under
      torch.profiler.
 
+ 11. the lfsr cluster kernel (``lfsr_bits``, every cycle of a
+     ``PRNG.bits`` call in one launch) against its plain loop on the card:
+     the flat step's draws and the conv step's from the fit's starting
+     cluster, widths 4, 8, 12 and 32 with and without the refresh (two
+     cycles short of it), rand_bits above and below the width, a K=2 bank
+     and lane counts off the block; words and state equal;
+ 12. conv at full width (the MNIST CoTM's hyperparameters on 28x28 images
+     with a 10x10 window: 361 patches, L=384, R=2048, H=16, W=12, P=361):
+     ``TM.fit`` of 2 epochs of 1024 MNIST-like rows (64 steps of 32)
+     under ``set_sync_debug_mode("error")``, its first two steps replayed
+     on the CPU engine and equal (program, PRNG, stats); a conv bank of
+     two tenants (the trained model, one lowered from another seed), 2
+     flushes of 32 rows each, and 4 edge ``predict`` requests of one row,
+     all equal to the CPU engine's answers; the host time of a conv step,
+     a profiled conv step and conv flush.  The kernels line gains the
+     lfsr row (the conv step's ta_rand draw; the patch and flat selection
+     draws as extra keys) and the tile and class_sum rows at the conv
+     flush's shapes (the tile also at the train step's and the edge
+     request's).
+
 Bounds: bytes over 3.35 TB/s; integer operations over 64 per clock per
 SM (the CUDA guide's rate for 32-bit integer add, logic, shift, compare
 and multiply-add on compute capability 9.0) × the SM count × the card's
@@ -108,9 +128,12 @@ refresh count on every step.  packed_clause_tile runs its violation
 counts on the tensor cores: its operations are the m16n8k256 products
 its tiles need on these inputs (K · ceil(B/8) · ceil(R/16) · ceil(W/8))
 at the probe's measured rate, and its ``bound_ms_before`` is the LOP3
-count at the integer rate.  No kernel here does float work.
+count at the integer rate.  ``lfsr_bits`` is bound by the larger of its
+int64 words' bytes and one lane's chain of ``steps`` dependent Galois
+steps, at the clocks per step that ``lfsr_chain_probe`` measures, over
+the maximum SM clock.  No kernel here does float work.
 
-Prints the card line, ``serving`` and ``training`` JSON lines, a
+Prints the card line, ``serving``, ``training`` and ``conv`` JSON lines, a
 ``kernels`` JSON line and, last, ``{"ok": true, "device": {...}}``.  Any
 failed check raises, and the exit code is then non-zero.  Without a CUDA
 card, or without the repository beside it, it exits non-zero and prints
@@ -147,6 +170,9 @@ EDGE = 4                     # single-datapoint requests per tenant
 ITERS = 200                  # kernel calls per timing graph
 N_TRAIN, N_TEST = 2048, 512  # MNIST-like rows for the training phases
 EDGE_STEPS = 8               # partial_fit steps at B=1
+CONV_PATCH, CONV_P = 10, 19 * 19   # 10x10 window on 28x28: 361 patches
+N_CONV, N_CONV_TEST = 1024, 256    # conv fit rows (2 epochs of 32 steps)
+CONV_ROUNDS = 2              # conv flushes, each 2 tenants x 32 requests
 
 
 def check(ok, what: str) -> None:
@@ -293,6 +319,24 @@ def b1_mma_per_s(torch, _build) -> float:
     return blocks * warps * chains * iters * reps / (s.elapsed_time(e) * 1e-3)
 
 
+def lfsr_step_clocks(torch, _build, taps: int) -> float:
+    """Clocks of one dependent Galois step of an lfsr lane
+    (``lfsr_chain_probe``: one warp, 2^16 steps between two clock64
+    reads, after a warm launch)."""
+    import ctypes
+    lib, fn = _build.entry("lfsr", "dtm_lfsr_chain_probe",
+                           [ctypes.c_uint, ctypes.c_int] + [ctypes.c_void_p] * 3)
+    iters = 1 << 16
+    clocks = torch.zeros(1, dtype=torch.int64, device="cuda")
+    sink = torch.empty(32, dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    for _ in range(2):
+        _build.check(lib, fn(taps, iters, clocks.data_ptr(), sink.data_ptr(),
+                             stream), "dtm_lfsr_chain_probe")
+    torch.cuda.synchronize()
+    return int(clocks) / iters
+
+
 def bound(nbytes: int, ops: int, rate: float):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
     return (max(t_bytes, t_ops) * 1e3,
@@ -339,7 +383,9 @@ def main(argv=None) -> int:
         packed_clause_eval, packed_clause_eval_plain, packed_clause_tile,
         packed_clause_tile_plain)
     from repro_torch.core.dtm import STAT_KEYS
+    from repro_torch.core import prng as tprng
     from repro_torch.core.prng import PRNG
+    from repro_torch.kernels.lfsr import lfsr_bits, lfsr_bits_plain
     from repro_torch.kernels.fused_step import (
         fused_step, fused_step_plain, prepare_fused_step)
     from repro_torch.kernels.ta_update import (
@@ -767,6 +813,177 @@ def main(argv=None) -> int:
     for g, w in zip(st1, ta_update(*copies(op_a), **ik_kw)):
         check(torch.equal(g, w), "streamed and in-kernel updates differ")
 
+    # ---- 11. the lfsr cluster kernel against its plain loop -----------------
+    # the flat step's draws and the full-width conv step's, from the fit's
+    # starting cluster; every width with and without the refresh (started
+    # two cycles short of it); rand_bits above and below the width; a K=2
+    # bank; lane counts off the block
+    r0g = r0.to("cuda").state
+    lfsr_cases = [(r0g, 24, 16, True, s_)
+                  for s_ in (32, 2 * 32 * 2048, 2, 32 * CONV_P * 2048,
+                             2 * 32 * 2048 * 384)]
+    for width in (4, 8, 12, 32):
+        for refresh in (True, False):
+            cl_ = tprng.make_cluster(args.seed + width, 8192, width, "cuda")
+            cl_.cycles += (1 << width) - 3 if width < 32 else 0
+            lfsr_cases.append((cl_, width, 16, refresh, 40 * 8192))
+    for width, rb in ((8, 16), (4, 32), (24, 8), (32, 32)):
+        cl_ = tprng.make_cluster(args.seed + 1, 8192, width, "cuda")
+        lfsr_cases.append((cl_, width, rb, True, 3 * 8192 + 5))
+    k2 = [tprng.make_cluster(args.seed + k, 8192, 4, "cuda")
+          for k in range(2)]
+    lfsr_cases.append((tprng.LFSRState(*(torch.stack(ls) for ls in zip(
+        *((c.lanes, c.master, c.cycles) for c in k2)))), 4, 16, True,
+        5 * 8192 + 17))
+    for n_ in (1, 100, 8191):
+        lfsr_cases.append((tprng.make_cluster(args.seed, n_, 4, "cuda"),
+                           4, 16, True, 37 * n_ + 1))
+    err_lfsr = 0
+    for st_, width, rb, refresh, size in lfsr_cases:
+        a_ = (st_.lanes, st_.master, st_.cycles, size, width, rb, refresh)
+        got, want = lfsr_bits(*a_), lfsr_bits_plain(*a_)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            check(g.shape == w.shape and torch.equal(g, w),
+                  f"lfsr_bits differs from its plain loop at width {width} "
+                  f"rand_bits {rb} refresh {refresh} size {size} lanes "
+                  f"{tuple(st_.lanes.shape)}")
+            err_lfsr = max(err_lfsr, int((g - w).abs().max()) if g.numel()
+                           else 0)
+
+    # ---- 12. conv at full width: fit, flush and edge request ----------------
+    mc = tm_paper.TM_MNIST_COTM          # its widths and hyperparameters
+    spec_cv = api.TMSpec.conv(28, 28, CONV_PATCH, classes=mc.classes,
+                              clauses=mc.clauses, T=mc.T, s=mc.s,
+                              ta_bits=mc.ta_bits, weight_bits=mc.weight_bits,
+                              prng_backend="lfsr", lfsr_bits=mc.lfsr_bits,
+                              rand_bits=mc.rand_bits)
+    ctile = api.tile_for(spec_cv)
+    eng_cv = api.compile(ctile, device="cuda")
+    cpu_cv = api.compile(ctile, device="cpu")
+    cgeo = (eng_cv.L, eng_cv.R, eng_cv.H, eng_cv.W, eng_cv.P)
+    check(cgeo == (384, 2048, 16, 12, CONV_P), f"conv engine geometry {cgeo}")
+    xc, yc = datasets.make_bool_dataset(task, N_CONV + N_CONV_TEST,
+                                        seed=args.seed + 300)
+    xc = xc.reshape(-1, 28, 28)
+    xc_tr, yc_tr = xc[:N_CONV], yc[:N_CONV]
+    xc_te, yc_te = xc[N_CONV:], yc[N_CONV:]
+    tm_c = api.TM(spec_cv, engine=eng_cv, seed=args.seed)
+    pc0, rc0 = tm_c.program.to("cpu"), tm_c.prng.to("cpu")
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    hist_c = tm_c.fit(xc_tr, yc_tr, epochs=2, batch=32,
+                      rng=np.random.default_rng(args.seed), sync_guard=True)
+    torch.cuda.synchronize()
+    fit_c_s = time.perf_counter() - t
+    counts_conv_fit = ops.launch_counts()
+    steps_c = 2 * (N_CONV // 32)
+    check(counts_conv_fit["packed_clause_tile"] == steps_c
+          and counts_conv_fit["class_sum"] == steps_c
+          and counts_conv_fit["lfsr_bits"] == 4 * steps_c
+          and counts_conv_fit["fused_step"] == 0
+          and counts_conv_fit["ta_update_sparse"] == 0
+          and counts_conv_fit["ta_update"] == 0,
+          f"the conv fit launched {counts_conv_fit}")
+    check(eng_cv.cache_report()["path_per_stage"] == {
+        "train_conv": "mxu_popcount"}, f"conv paths {eng_cv.cache_report()}")
+    check(all(0.0 <= h["train_acc"] <= 1.0 for h in hist_c)
+          and len(hist_c) == 2, f"conv history {hist_c}")
+    test_acc_c = tm_c.score(xc_te, yc_te)
+    # the conv fit's first two steps, on the card and on the CPU engine
+    plan_c = np.random.default_rng(args.seed).permutation(N_CONV).reshape(
+        -1, 32)
+    pg, rg, pc, rc = pc0.to("cuda"), rc0.to("cuda"), pc0, rc0
+    conv_cpu_s = 0.0
+    for s_ in range(2):
+        xb, lab = xc_tr[plan_c[s_]], spec_cv.encode_labels(yc_tr[plan_c[s_]])
+        pg, rg, sg = eng_cv.train_conv(pg, rg, eng_cv.encode(spec_cv, xb),
+                                       lab.cuda())
+        t = time.perf_counter()
+        pc, rc, sc = cpu_cv.train_conv(pc, rc, cpu_cv.encode(spec_cv, xb),
+                                       lab)
+        conv_cpu_s += time.perf_counter() - t
+        check(same_state(torch, pg, pc) and same_state(torch, rg, rc)
+              and all(int(sg[k]) == int(sc[k]) for k in STAT_KEYS),
+              f"conv fit step {s_} on the card differs from the CPU engine")
+    # a conv bank of two tenants (the trained model, one from another
+    # seed): stacked flushes against the CPU engine's, then edge requests
+    conv_progs = {"conv_trained": tm_c.program.to("cpu"),
+                  "conv_seed": cpu_cv.lower(spec_cv, torch.Generator()
+                                            .manual_seed(args.seed + 7))}
+
+    def conv_server(engine, slot):
+        srv = TMServer(engine, batch_slot=slot)
+        for n, prog_ in conv_progs.items():
+            srv.register(n, spec_cv, program=prog_)
+        return srv
+
+    creqs = {n: datasets.make_bool_dataset(task, CONV_ROUNDS * 32 + EDGE,
+                                           seed=args.seed + 400 + i)[0]
+             .reshape(-1, 28, 28) for i, n in enumerate(conv_progs)}
+    cflush = conv_server(eng_cv, 32)
+    ops.reset_launch_counts()
+    c_answers, cflush_s = [], []
+    for r in range(CONV_ROUNDS):
+        for n in conv_progs:
+            cflush.enqueue(n, creqs[n][r * 32:(r + 1) * 32])
+        t = time.perf_counter()
+        c_answers.append(cflush.flush())
+        torch.cuda.synchronize()
+        cflush_s.append(time.perf_counter() - t)
+    counts_conv_flush = ops.launch_counts()
+    check(counts_conv_flush["packed_clause_tile"] == CONV_ROUNDS
+          and counts_conv_flush["class_sum"] == CONV_ROUNDS,
+          f"conv flushes launched {counts_conv_flush}")
+    cedge = conv_server(eng_cv, 1)
+    ops.reset_launch_counts()
+    c_edge, cedge_s = [], []
+    for i in range(EDGE):
+        xi = creqs["conv_trained"][CONV_ROUNDS * 32 + i:][:1]
+        t = time.perf_counter()
+        c_edge.append(cedge.predict("conv_trained", xi))
+        cedge_s.append(time.perf_counter() - t)
+    counts_conv_edge = ops.launch_counts()
+    check(counts_conv_edge["packed_clause_tile"] == EDGE
+          and counts_conv_edge["class_sum"] == EDGE
+          and counts_conv_edge["packed_clause_eval"] == 0,
+          f"conv edge requests launched {counts_conv_edge}")
+    cref, cref_edge = conv_server(cpu_cv, 32), conv_server(cpu_cv, 1)
+    for r in range(CONV_ROUNDS):
+        for n in conv_progs:
+            cref.enqueue(n, creqs[n][r * 32:(r + 1) * 32])
+        want = cref.flush()
+        for n in conv_progs:
+            check(np.array_equal(c_answers[r][n], want[n]),
+                  f"conv flush answers of {n} differ from the CPU engine")
+    for i in range(EDGE):
+        xi = creqs["conv_trained"][CONV_ROUNDS * 32 + i:][:1]
+        check(np.array_equal(c_edge[i], cref_edge.predict("conv_trained",
+                                                          xi)),
+              "an edge conv answer differs from the CPU engine")
+    check(cflush.stats()["cache"]["path_per_stage"]["infer_conv_bank"]
+          == "mxu_popcount" and cedge.stats()["cache"]["path_per_stage"][
+              "infer_conv"] == "mxu_popcount",
+          f"conv serving paths {cflush.stats()['cache']}")
+    # conv step time (host clock), a profiled conv step and conv flush
+    lits_c = eng_cv.encode(spec_cv, xc_tr[:32])
+    lab_c = spec_cv.encode_labels(yc_tr[:32]).cuda()
+    conv_step_s = []
+    for _ in range(5):
+        t = time.perf_counter()
+        eng_cv.train_conv(tm_c.program, tm_c.prng, lits_c, lab_c)
+        torch.cuda.synchronize()
+        conv_step_s.append(time.perf_counter() - t)
+    conv_step_prof = profile_flush(torch, lambda: eng_cv.train_conv(
+        tm_c.program, tm_c.prng, lits_c, lab_c), captures=3)
+    for n in conv_progs:
+        cflush.enqueue(n, creqs[n][:32])
+    conv_flush_prof = profile_flush(torch, cflush.flush, captures=3)
+    torch.cuda.reset_peak_memory_stats()
+    eng_cv.train_conv(tm_c.program, tm_c.prng, lits_c, lab_c)
+    torch.cuda.synchronize()
+    conv_step_peak = torch.cuda.max_memory_allocated()
+
     # step time (host clock) and one profiled step, from the fit's end
     lits32 = eng.encode(spec, x_tr[:32])
     lab32 = spec.encode_labels(y_tr[:32]).cuda()
@@ -826,7 +1043,8 @@ def main(argv=None) -> int:
 
     def row(name, source, replaces, launches, err, kernel, plain, library,
             nbytes, nops, shape, plain_graph=True, rate=None,
-            library_note=None, bare=None, nops_before=None, extra=None):
+            library_note=None, bare=None, nops_before=None, extra=None,
+            iters=None):
         """One kernels-line entry.  The plain version is timed by graph
         replay, or (``plain_graph=False``: it reads the device on the
         host) with events around back-to-back calls.  ``rate`` is the
@@ -834,7 +1052,9 @@ def main(argv=None) -> int:
         ``bare``: the kernel's bare launch, operands and scalars prepared
         outside the graph (``kernel_ms``); ``nops_before``: the operations
         of the earlier bound (``bound_ms_before``, ``ta_cost``);
-        ``extra``: more keys of the row."""
+        ``extra``: more keys of the row; ``iters``: calls a timing graph
+        holds (default ``ITERS``)."""
+        it = iters or ITERS
         b_ms, b_by = bound(nbytes, nops, rate or int_rate)
         extra = dict(extra or {})
         if bare is not None:
@@ -1074,6 +1294,112 @@ def main(argv=None) -> int:
         library_note=f"torch._int_mm x{k_} + torch.matmul float32 "
         f"({k_ + 1} calls: violation counts, then clauses x weights)",
         bare=prepare_tm_infer(*tmi_a, **tmi_kw)[0])
+    # the lfsr cluster kernel at the conv step's largest draw (the row),
+    # the conv patch draw and the flat step's selection draw, from the flat
+    # fit's starting cluster; bound: the words' bytes, or `steps` dependent
+    # Galois steps of one lane at the probe's clocks per step
+    clk_hz = float(smi("clocks.max.sm").split()[0]) * 1e6
+    step_clk = lfsr_step_clocks(torch, _build, tprng._TAPS[24])
+    n_lanes = r0g.lanes.shape[-1]
+
+    def lfsr_at(size, fn=lfsr_bits):
+        return lambda: fn(r0g.lanes, r0g.master, r0g.cycles, size, 24, 16,
+                          True)
+
+    def lfsr_cost(size):
+        """(bytes, steps): the int64 words written and the state read and
+        written once; the cycles of one lane."""
+        return 8 * size + 2 * 8 * (n_lanes + 2), -(-size // n_lanes)
+
+    lfsr_sizes = {"ta_rand": 2 * 32 * 2048 * 384,
+                  "patch_rand": 32 * CONV_P * 2048,
+                  "flat_sel_rand": 2 * 32 * 2048}
+    lfsr_extra = {"step_clocks": step_clk, "max_sm_clock_hz": clk_hz}
+    for label in ("patch_rand", "flat_sel_rand"):
+        size = lfsr_sizes[label]
+        lfsr_extra[f"ms_{label}"] = graph_ms(torch, lfsr_at(size), 20)
+        lfsr_extra[f"ms_cold_l2_{label}"] = graph_ms(torch, lfsr_at(size), 5,
+                                                     cold)
+        lfsr_extra[f"bound_ms_{label}"] = bound(*lfsr_cost(size),
+                                                clk_hz / step_clk)[0]
+        lfsr_extra[f"plain_ms_{label}"] = call_ms(
+            torch, lfsr_at(size, lfsr_bits_plain), 2)
+    lfsr_launches = sum(c["lfsr_bits"] for c in (
+        counts_fit, counts_dense, counts_fit_mxu, counts_fit_stream,
+        counts_edge_train, counts_bank, counts_bank_stream, counts_conv_fit))
+    size = lfsr_sizes["ta_rand"]
+    row("lfsr_bits", cu + "lfsr.cu", "src/repro/core/prng.py:222",
+        lfsr_launches, err_lfsr, lfsr_at(size), lfsr_at(size, lfsr_bits_plain),
+        None, *lfsr_cost(size),
+        f"ta_rand K=1 size={size} lanes={n_lanes} steps={-(-size // n_lanes)}"
+        " lfsr_bits=24 rand_bits=16", plain_graph=False,
+        rate=clk_hz / step_clk, iters=20, extra=lfsr_extra)
+
+    # packed_clause_tile and class_sum at the conv shapes: the conv flush
+    # (K=2, B·P = 11,552 rows), the conv train step (K=1, train mode) and
+    # the edge conv request (K=1, 361 rows)
+    cbank = api.stack([conv_progs[n].to("cuda") for n in conv_progs], eng_cv,
+                      conv=True)
+    clits = torch.stack([eng_cv.encode(spec_cv, creqs[n][:32])
+                         for n in conv_progs])
+    cK, cB, cP, cW = clits.shape
+    cv = clits.reshape(cK, cB * cP, cW)
+    cinc, cwt, cL = cbank.progs.inc, cbank.progs.weights, eng_cv.L
+    cR, cH = cinc.shape[1], cwt.shape[1]
+    _, err_ct = compare(packed_clause_tile, packed_clause_tile_plain, cv,
+                        cinc, True, cL)
+    ct_train = (cv[:1].contiguous(), cinc[:1], False, cL)
+    ct_edge = (cv[:1, :cP].contiguous(), cinc[:1], True, cL)
+    _, err_ct_t = compare(packed_clause_tile, packed_clause_tile_plain,
+                          *ct_train)
+    _, err_ct_e = compare(packed_clause_tile, packed_clause_tile_plain,
+                          *ct_edge)
+
+    def tile_cost(k_, b_):
+        return (4 * (k_ * b_ * cW + k_ * cR * cW + k_ * b_ * cR),
+                k_ * -(-b_ // 8) * -(-cR // 16) * -(-cW // 8))
+    conv_tile_launches = sum(c["packed_clause_tile"] for c in (
+        counts_conv_fit, counts_conv_flush, counts_conv_edge))
+    cneg8 = (unpack_literals(cv, cL) == 0).to(torch.int8)
+    cinc8 = unpack_literals(cinc, cL)
+    row("packed_clause_tile", cu + "packed_clause.cu",
+        "src/repro/kernels/packed_clause.py:184", conv_tile_launches,
+        max(err_ct, err_ct_t, err_ct_e),
+        lambda: packed_clause_tile(cv, cinc, True, cL),
+        lambda: packed_clause_tile_plain(cv, cinc, True, cL),
+        yardstick(int_mm(cneg8, cinc8), "_int_mm"), *tile_cost(cK, cB * cP),
+        f"conv serving K={cK} B={cB * cP} (B={cB} x P={cP}) R={cR} W={cW}",
+        rate=b1_rate, library_note=f"torch._int_mm x{cK} on the unpacked "
+        "operands (violation counts)",
+        extra={"ms_training": graph_ms(
+                   torch, lambda: packed_clause_tile(*ct_train), it),
+               "ms_cold_l2_training": graph_ms(
+                   torch, lambda: packed_clause_tile(*ct_train), it // 4,
+                   cold),
+               "bound_ms_training": bound(*tile_cost(1, cB * cP),
+                                          b1_rate)[0],
+               "ms_edge": graph_ms(
+                   torch, lambda: packed_clause_tile(*ct_edge), it),
+               "ms_cold_l2_edge": graph_ms(
+                   torch, lambda: packed_clause_tile(*ct_edge), it // 4,
+                   cold),
+               "bound_ms_edge": bound(*tile_cost(1, cP), b1_rate)[0]})
+    _, ccl = eng_cv.infer_conv_bank(cbank.progs, clits)
+    _, err_ccs = compare(class_sum, class_sum_plain, ccl, cwt)
+    ccl1 = ccl[:1, :1].contiguous()
+    _, err_ccs1 = compare(class_sum, class_sum_plain, ccl1, cwt[:1])
+    ccl_f, cwt_f = ccl.float(), cwt.float()
+    row("class_sum", cu + "class_sum.cu", "src/repro/kernels/class_sum.py:57",
+        sum(c["class_sum"] for c in (counts_conv_fit, counts_conv_flush,
+                                     counts_conv_edge)),
+        max(err_ccs, err_ccs1), lambda: class_sum(ccl, cwt),
+        lambda: class_sum_plain(ccl, cwt),
+        lambda: torch.matmul(ccl_f, cwt_f.transpose(-1, -2)),
+        4 * (cK * cB * cR + cK * cH * cR + cK * cB * cH), cK * cB * cR * cH,
+        f"conv serving K={cK} B={cB} R={cR} H={cH}",
+        library_note="torch.matmul float32",
+        extra={"ms_edge": graph_ms(torch, lambda: class_sum(ccl1, cwt[:1]),
+                                   it)})
     def ms_of(name, shape):
         """``ms`` of the kernels-line row ``name`` whose shape starts
         with ``shape``."""
@@ -1166,8 +1492,30 @@ def main(argv=None) -> int:
         "flush_profile": prof, "dense": dense_cmp,
         "launches": {"stacked": counts_stacked, "edge": counts_edge},
         "build_s": build_s}
+    conv = {
+        "card": card, "model": "conv CoTM on 28x28, 10x10 window (361 "
+        "patches, 136 features), 2000 clauses, 10 classes, T=500, s=10, "
+        "ta_bits 8, lfsr_bits 24, rand_bits 16",
+        "engine": {"L": eng_cv.L, "R": eng_cv.R, "H": eng_cv.H,
+                   "W": eng_cv.W, "P": eng_cv.P},
+        "rows": {"train": N_CONV, "test": N_CONV_TEST}, "batch": 32,
+        "fit_s": fit_c_s, "epoch_s": tm_c.epoch_seconds,
+        "steps_per_s": [(N_CONV // 32) / e for e in tm_c.epoch_seconds],
+        "step_ms_median": float(np.median(conv_step_s) * 1e3),
+        "step_ms": [s_ * 1e3 for s_ in conv_step_s],
+        "step_peak_bytes": conv_step_peak,
+        "step_profile": conv_step_prof,
+        "flush_ms": [s_ * 1e3 for s_ in cflush_s],
+        "flush_profile": conv_flush_prof,
+        "edge_predict_ms": [s_ * 1e3 for s_ in cedge_s],
+        "edge_predict_ms_median": float(np.median(cedge_s) * 1e3),
+        "train_acc": [h["train_acc"] for h in hist_c],
+        "test_acc": test_acc_c, "cpu_reference_s": conv_cpu_s,
+        "launches": {"fit": counts_conv_fit, "flush": counts_conv_flush,
+                     "edge": counts_conv_edge}}
     print(json.dumps({"serving": serving}))
     print(json.dumps({"training": training}))
+    print(json.dumps({"conv": conv}))
     print(json.dumps({"kernels": rows_out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,12 +8,14 @@
 or the estimator shell, ``TM(spec).fit(x, y)`` / ``.partial_fit`` /
 ``.predict(x)`` / ``.score(x, y)``, and :func:`stack` for a
 :class:`ProgramBank` of K programs served and trained by one launch per
-kernel.  :class:`TMSpec` serialises to the same JSON as the JAX package's,
-so specs cross between the two packages.  The conv kind comes later.
+kernel (``stack(conv=True)``: a conv bank, served only).  :class:`TMSpec`
+serialises to the same JSON as the JAX package's, so specs cross between
+the two packages.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, List, Optional, Sequence
 
 import numpy as np
@@ -28,6 +30,21 @@ from repro_torch.core.types import (COALESCED, PRNG_BACKENDS, TMConfig,
                                     TileConfig, VANILLA)
 
 KINDS = ("vanilla", "coalesced", "conv", "regression", "head")
+
+
+@functools.lru_cache(maxsize=None)
+def _position_code(img_h: int, img_w: int, patch: int) -> np.ndarray:
+    """Thermometer patch-position bits [P, pos_bits] int8 of a conv
+    geometry, built once per geometry.  Every caller with the same
+    geometry gets the same array, so it is read-only."""
+    oh, ow = img_h - patch + 1, img_w - patch + 1
+    pi = np.arange(oh)[:, None].repeat(ow, 1).reshape(-1)            # [P]
+    pj = np.arange(ow)[None, :].repeat(oh, 0).reshape(-1)
+    rt = (pi[:, None] > np.arange(oh - 1)[None, :]).astype(np.int8)
+    ct = (pj[:, None] > np.arange(ow - 1)[None, :]).astype(np.int8)
+    out = np.concatenate([rt, ct], -1)
+    out.flags.writeable = False
+    return out
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -141,13 +158,28 @@ class TMSpec:
         unless the caller asks for another; raises without one).
 
         vanilla/coalesced/regression: [B, f] {0,1} passthrough; head:
-        [B, f_raw] float -> thermometer bits [B, f_raw*k]."""
-        if self.kind == "conv":
-            raise NotImplementedError("the conv kind is not ported yet")
+        [B, f_raw] float -> thermometer bits [B, f_raw*k]; conv: [B, H, W]
+        {0,1} images -> patch features [B, P, patch² + pos_bits] int8."""
         x = torch.as_tensor(x, device=resolve_device(device))
         if self.kind == "head":
             return Booleanizer(self.thresholds)(x)
+        if self.kind == "conv":
+            return self._patch_features(x)
         return x
+
+    def _patch_features(self, images: torch.Tensor) -> torch.Tensor:
+        """[B, H, W] {0,1} -> [B, P, patch² + pos_bits]: each patch's bits
+        (row-major within the patch, patches row-major) and its
+        thermometer position code, the Granmo conv literals without the
+        complement half (the engine layout adds it)."""
+        B, k = images.shape[0], self.patch
+        oh, ow = self.img_h - k + 1, self.img_w - k + 1
+        patches = images.unfold(1, k, 1).unfold(2, k, 1)   # [B, oh, ow, k, k]
+        patches = patches.reshape(B, oh * ow, k * k).to(torch.int8)
+        pos = torch.as_tensor(
+            np.array(_position_code(self.img_h, self.img_w, self.patch)),
+            device=images.device)
+        return torch.cat([patches, pos.expand(B, -1, -1)], dim=-1)
 
     def encode_labels(self, y) -> torch.Tensor:
         """Targets -> int32 labels: regression floats in [0, 1] become
@@ -328,28 +360,40 @@ class ProgramBank:
     :meth:`infer`/:meth:`predict`/:meth:`train` run all K through one
     launch per kernel.  :meth:`swap_in` writes a slot in place on the
     device; :meth:`swap_out` returns a copy, never a view, so a later
-    ``swap_in`` or ``train`` cannot change a program that was read out."""
+    ``swap_in`` or ``train`` cannot change a program that was read out.
+    Flat and conv programs cannot share a bank (their literals differ in
+    rank); a conv bank (``conv=True``) serves through :meth:`infer` only,
+    as in the JAX package: train conv programs through their sessions."""
 
     def __init__(self, engine: DTMEngine, progs: DTMProgram, k: int,
-                 prngs: Optional[PRNG] = None):
+                 conv: bool = False, prngs: Optional[PRNG] = None):
         self.engine = engine
         self.progs = progs          # stacked leaves: [K, ...]
         self.k = k
+        self.conv = conv
         self.prngs = prngs          # stacked PRNG (train-capable banks)
 
     def infer(self, lits):
-        """lits [K, B, W] (or K arrays [B, W]) ->
-        (sums [K, B, H], clause [K, B, R])."""
+        """lits [K, B, W] ([K, B, P, W] for a conv bank), or K arrays
+        without the K axis -> (sums [K, B, H], clause [K, B, R])."""
+        if self.conv:
+            return self.engine.infer_conv_bank(self.progs, lits)
         return self.engine.infer_bank(self.progs, lits)
 
     def predict(self, lits):
-        """-> (argmax preds [K, B] int32, clipped clause votes [K, B] int32)."""
+        """Flat banks: (argmax preds [K, B] int32, clipped clause votes
+        [K, B] int32).  A conv bank decodes on the host (use infer)."""
+        if self.conv:
+            raise ValueError("a conv bank decodes on the host; use infer")
         return self.engine.predict_bank(self.progs, lits)
 
     def train(self, lits, labels) -> dict:
         """One stacked train step: program k takes batch k (lits
         [K, B, W], labels [K, B]).  The bank's programs and PRNGs advance;
-        returns the stats, [K] int32 per key."""
+        returns the stats, [K] int32 per key.  Flat banks only."""
+        if self.conv:
+            raise ValueError("conv banks are inference-only; train conv "
+                             "programs through their own sessions")
         if self.prngs is None:
             raise ValueError("bank built without PRNGs; pass prngs= to "
                              "api.stack")
@@ -377,10 +421,12 @@ class ProgramBank:
 
 
 def stack(programs: Sequence[DTMProgram], engine: DTMEngine,
+          conv: bool = False,
           prngs: Optional[Sequence[PRNG]] = None) -> ProgramBank:
     """Stack same-geometry programs (lowered on one engine with uniform
     ta_bits) into a :class:`ProgramBank` on the engine's device.
-    ``prngs`` (one per program, one configuration) arm it for training."""
+    ``conv`` makes a conv bank; ``prngs`` (one per program, one
+    configuration) arm a flat bank for training."""
     programs = list(programs)
     if not programs:
         raise ValueError("stack() needs at least one program")
@@ -402,4 +448,5 @@ def stack(programs: Sequence[DTMProgram], engine: DTMEngine,
             raise ValueError(f"{len(prngs)} PRNGs for {len(programs)} "
                              "programs")
         stacked = PRNG.stack([p.to(engine.device) for p in prngs])
-    return ProgramBank(engine, progs, k=len(programs), prngs=stacked)
+    return ProgramBank(engine, progs, k=len(programs), conv=conv,
+                       prngs=stacked)

@@ -20,9 +20,6 @@ import dataclasses
 import numpy as np
 import torch
 
-_SHIFTS = tuple(range(32))
-
-
 def words_from_u32(values: torch.Tensor) -> torch.Tensor:
     """int64 values in [0, 2^32) -> int32 tensor holding the same 32 bits."""
     values = values.to(torch.int64)
@@ -39,8 +36,8 @@ def pack_literals(literals: torch.Tensor) -> torch.Tensor:
     pad = (-n) % 32
     bits = torch.nn.functional.pad(literals.to(torch.int64), (0, pad))
     bits = bits.reshape(*lead, (n + pad) // 32, 32)
-    weights = torch.tensor([1 << s for s in _SHIFTS], dtype=torch.int64,
-                           device=literals.device)
+    weights = 1 << torch.arange(32, dtype=torch.int64,
+                                device=literals.device)
     return words_from_u32((bits * weights).sum(dim=-1))
 
 

@@ -33,16 +33,29 @@ selection); ``ta_prng="stream"`` makes the TA update read its random
 words from a pre-made [K, 2B, R, L] tensor (the streamed baseline, dense
 update).  Both give the same results as the default paths.
 
+The conv kind runs around the same clause and class-sum stages: its
+packed literals are ``[B, P, W]`` (P patch slots, ``p_mask`` hiding the
+padded ones), the clause stage runs on the ``[B·P, W]`` view and the
+patches meet in an OR (``infer_conv``, ``infer_conv_bank``).  Its train
+step (``train_conv``, one program) follows the clause stage with class
+sums and both Alg-3 rounds, then gives Type I/II feedback against one
+random matching patch per (datapoint, clause): plain torch ops on the
+device, as the JAX engine's jnp stage, with its random words drawn from
+the PRNG (one ``lfsr_bits`` launch a draw on the card).
+
 Per stage the engine records the kernels it ran in
 ``cache_report()["path_per_stage"]``: ``packed_vpu``, ``mxu_popcount``,
 ``mxu`` or ``fused`` for the clause stage, ``<stage>_ta`` =
 ``compact``/``dense`` and ``<stage>_prng`` = ``<family>-inkernel`` or
-``<family>-stream`` (family ``counter`` or ``lfsr``).
+``<family>-stream`` (family ``counter`` or ``lfsr``).  The stages are
+``infer``, ``infer_bank``, ``train``, ``train_bank``, ``infer_conv``,
+``infer_conv_bank`` and ``train_conv``.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import time
 from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
@@ -229,11 +242,13 @@ class DTMEngine:
     def lower(self, spec, generator: Optional[torch.Generator] = None,
               ta=None, weights=None) -> DTMProgram:
         """Lower a :class:`repro_torch.api.TMSpec` (duck-typed: ``kind``,
-        ``tm_config()``) to a program.  The flat kinds (vanilla,
-        coalesced, regression, head) are in this port; conv is not yet."""
-        if getattr(spec, "kind", None) == "conv":
-            raise NotImplementedError("the conv kind is not ported yet")
+        ``tm_config()``, ``n_patches``) to a program; a conv spec's
+        ``p_mask`` marks its patch slots."""
         cfg = spec.tm_config()
+        n_p = int(getattr(spec, "n_patches", 1))
+        if n_p > self.P:
+            raise ValueError(f"spec needs {n_p} patch slots, engine has "
+                             f"{self.P} (TileConfig.max_patches)")
         if cfg.rand_bits != self.rand_bits:
             raise ValueError(f"spec rand_bits={cfg.rand_bits} != engine "
                              f"rand_bits={self.rand_bits}")
@@ -244,6 +259,9 @@ class DTMEngine:
                                   dtype=torch.int32)
             weights[0] = 1
         prog = self.program(cfg, generator, ta=ta, weights=weights)
+        if n_p != 1:
+            prog.p_mask = (torch.arange(self.P, device=self.device)
+                           < n_p).to(torch.int32)
         if regression:
             prog.w_frozen = torch.tensor(True, device=self.device)
             prog.regression = torch.tensor(True, device=self.device)
@@ -263,8 +281,14 @@ class DTMEngine:
             torch.as_tensor(bool_x, device=self.device)))
 
     def encode(self, spec, x) -> torch.Tensor:
-        """Raw model input -> packed engine literals [B, W] int32."""
-        return pack_literals(self._layout(spec.to_bool(x, device=self.device)))
+        """Raw model input -> packed engine literals int32: [B, W] for the
+        flat kinds, [B, P, W] for conv (patch slots past the spec's
+        zero-padded; ``p_mask`` hides them)."""
+        lits = self._layout(spec.to_bool(x, device=self.device))
+        if lits.dim() == 3:
+            lits = torch.nn.functional.pad(
+                lits, (0, 0, 0, self.P - lits.shape[1]))
+        return pack_literals(lits)
 
     def refresh_include(self, prog: DTMProgram) -> DTMProgram:
         """Rebuild the packed include bitplane from the TA states."""
@@ -315,6 +339,22 @@ class DTMEngine:
         cl = self._clause_outputs(progs, plits, eval_mode=True, stage=stage)
         return self._pin_class_sums(progs, self._class_sums_raw(progs, cl)), cl
 
+    def _conv_clauses(self, progs: DTMProgram, plits: torch.Tensor,
+                      eval_mode: bool, stage: str
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Conv clause stage: [K, B, P, W] -> (per-patch clauses
+        [K, B, P, R] with padded slots zeroed, their OR [K, B, R])."""
+        K, B, P, W = plits.shape
+        cl_p = self._clause_outputs(progs, plits.reshape(K, B * P, W),
+                                    eval_mode=eval_mode, stage=stage)
+        cl_p = cl_p.reshape(K, B, P, self.R) * progs.p_mask[:, None, :, None]
+        return cl_p, cl_p.amax(dim=2)
+
+    def _infer_conv_impl(self, progs: DTMProgram, plits: torch.Tensor,
+                         stage: str) -> Tuple[torch.Tensor, torch.Tensor]:
+        _, cl = self._conv_clauses(progs, plits, eval_mode=True, stage=stage)
+        return self._pin_class_sums(progs, self._class_sums_raw(progs, cl)), cl
+
     # ------------------------------------------------------------------ #
     # inference                                                           #
     # ------------------------------------------------------------------ #
@@ -337,6 +377,24 @@ class DTMEngine:
         if not isinstance(lits, torch.Tensor):
             lits = torch.stack(list(lits))
         return self._infer_impl(progs, lits, stage="infer_bank")
+
+    def infer_conv(self, prog: DTMProgram, plits: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Conv plits [B, P, W] packed -> (class_sums [B, H],
+        clause [B, R])."""
+        sums, cl = self._infer_conv_impl(prog.map(lambda t: t.unsqueeze(0)),
+                                         plits.unsqueeze(0),
+                                         stage="infer_conv")
+        return sums[0], cl[0]
+
+    def infer_conv_bank(self, progs: DTMProgram,
+                        plits: Union[torch.Tensor, Sequence[torch.Tensor]]
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Stacked conv programs, plits [K, B, P, W] (or K arrays
+        [B, P, W]) -> (sums [K, B, H], clause [K, B, R])."""
+        if not isinstance(plits, torch.Tensor):
+            plits = torch.stack(list(plits))
+        return self._infer_conv_impl(progs, plits, stage="infer_conv_bank")
 
     def predict_bank(self, progs: DTMProgram,
                      lits: Union[torch.Tensor, Sequence[torch.Tensor]]
@@ -503,6 +561,104 @@ class DTMEngine:
         return (new.map(lambda t: t[0]), prngs[0],
                 {k: v[0] for k, v in stats.items()})
 
+    def _train_conv_impl(self, progs: DTMProgram, prngs: PRNG,
+                         plits: torch.Tensor, labels: torch.Tensor):
+        """One batched conv train step in bank form (``plits``
+        [K, B, P, W], ``labels`` [K, B]; the engine runs it at K=1).
+
+        The clause stage on the [B·P, W] view in train mode, the OR over
+        the real patches, class sums and both Alg-3 rounds, then Type I/II
+        feedback against one random matching patch per (datapoint,
+        clause): the patch with the largest ``cl_p·1000 + noise`` (the
+        first on a tie, as ``jnp.argmax``), its literals gathered, the
+        deltas summed over the batch as integer products (no int32 GEMM
+        on the card), clipped, and the include bitplane packed anew.
+        The draws come in the JAX engine's order."""
+        K, B, P, W = plits.shape
+        L, R = self.L, self.R
+        labels = labels.to(torch.int32)
+        n_cls = progs.h_mask.sum(dim=-1)                               # [K]
+
+        prngs, c_rand = prngs.bits((B,))
+        prngs, patch_rand = prngs.bits((B, P, R))
+        prngs, sel_rand = prngs.bits((2, B, R))
+        prngs, ta_rand = prngs.bits((2, B, R, L))
+
+        # uint32 draws held in int64: the remainder is the unsigned one
+        rn = (c_rand % torch.clamp(n_cls - 1, min=1)[:, None]).to(torch.int32)
+        neg = torch.where(rn < labels, rn, rn + 1)                     # [K, B]
+
+        cl_p, cl = self._conv_clauses(progs, plits, eval_mode=False,
+                                      stage="train_conv")
+        sums = self._pin_class_sums(progs, self._class_sums_raw(progs, cl))
+        correct = (torch.argmax(sums, dim=-1) == labels).sum(
+            dim=-1, dtype=torch.int32)
+        wf = progs.w_frozen.to(torch.int32)
+        sel_lab = kops.round_select_op(
+            sums, labels, 1, sel_rand[:, 0], progs.weights, progs.cl_mask,
+            progs.T, wf, rand_bits=self.rand_bits)
+        sel_neg = kops.round_select_op(
+            sums, neg, 0, sel_rand[:, 1], progs.weights, progs.cl_mask,
+            progs.T, wf, rand_bits=self.rand_bits)
+
+        # one random matching patch per (datapoint, clause) and its
+        # literals: an index gather (the reference's one-hot product)
+        noise = (patch_rand % 997).to(torch.int32)                # [K,B,P,R]
+        patch_idx = torch.argmax(cl_p * 1000 + noise, dim=2)      # [K,B,R]
+        pl_dense = unpack_literals(plits, L)                      # [K,B,P,L]
+        litb = torch.gather(pl_dense, 2, patch_idx[..., None].expand(
+            K, B, R, L)) > 0                                      # [K,B,R,L]
+
+        def rows_of(cls):
+            return torch.gather(progs.weights, 1,
+                                cls.long()[..., None].expand(K, B, R))
+        w_lab, w_neg = rows_of(labels), rows_of(neg)
+        rounds = ((sel_lab * (w_lab >= 0), sel_lab * (w_lab < 0),
+                   ta_rand[:, 0]),
+                  (sel_neg * (w_neg < 0), sel_neg * (w_neg >= 0),
+                   ta_rand[:, 1]))
+
+        # Type I/II deltas against the selected patch's literals (Alg 5),
+        # gated by the OR-level clause output; include from the bitplane
+        clb = (cl > 0)[..., None]                                 # [K,B,R,1]
+        incb = (unpack_literals(progs.inc, L) > 0)[:, None]       # [K,1,R,L]
+        cl_and_lit = clb & litb
+        inc2 = (clb & ~litb & ~incb).to(torch.int32)
+        p_ta = (progs.p_ta.to(torch.int64) & M32)[:, None, None, None]
+        boost = progs.boost[:, None, None, None]
+        delta = torch.zeros((K, R, L), dtype=torch.int32, device=plits.device)
+        for t1, t2, tr in rounds:
+            low = tr < p_ta
+            inc1 = torch.where(boost, cl_and_lit, cl_and_lit & ~low)
+            d1 = inc1.to(torch.int32) - (~cl_and_lit & low).to(torch.int32)
+            delta += (t1[..., None] * d1 + t2[..., None] * inc2).sum(
+                dim=1, dtype=torch.int32)
+        delta = delta * progs.l_mask[:, None, :] * progs.cl_mask[:, :, None]
+        new_ta = torch.maximum(
+            torch.minimum(progs.ta.to(torch.int32) + delta,
+                          (progs.n_states - 1)[:, None, None]),
+            torch.zeros_like(delta))
+
+        new_w, stats = self._weights_and_stats(
+            progs, cl, sel_lab, sel_neg, labels, neg, correct,
+            torch.zeros_like(correct))
+        new = dataclasses.replace(progs, ta=new_ta.to(progs.ta.dtype),
+                                  weights=new_w,
+                                  inc=pack_include(new_ta, progs.n_states))
+        return new, prngs, stats
+
+    def train_conv(self, prog: DTMProgram, prng: PRNG, plits: torch.Tensor,
+                   labels: torch.Tensor):
+        """One conv train step: packed plits [B, P, W] and labels [B] on
+        the engine device -> (new program, new PRNG, stats: int32 0-d
+        tensors keyed by :data:`STAT_KEYS`).  ``prog`` is left as it
+        was."""
+        new, prngs, stats = self._train_conv_impl(
+            prog.map(lambda t: t[None]), prng.map(lambda t: t[None]),
+            plits[None], labels[None])
+        return (new.map(lambda t: t[0]), prngs[0],
+                {k: v[0] for k, v in stats.items()})
+
     def train_bank(self, progs: DTMProgram, prngs: PRNG, lits: torch.Tensor,
                    labels: torch.Tensor):
         """Stacked train step: program k takes batch k (lits [K, B, W],
@@ -513,14 +669,20 @@ class DTMEngine:
         return self._train_impl(progs, prngs, lits, labels,
                                 lanes=lits.shape[0], stage="train_bank")
 
-    def train_fn(self, spec) -> Callable:
+    def train_fn(self, spec, donate: bool = False) -> Callable:
+        """The train step of a spec's kind: ``train_conv`` for conv, else
+        ``train_step`` (with ``donate``: its compacted TA update writes in
+        place; the conv step always makes new states)."""
         if getattr(spec, "kind", None) == "conv":
-            raise NotImplementedError("conv training is not ported yet")
+            return self.train_conv
+        if donate:
+            return functools.partial(self.train_step, donate=True)
         return self.train_step
 
     def infer_fn(self, spec) -> Callable:
+        """The inference of a spec's kind: ``infer_conv`` or ``infer``."""
         if getattr(spec, "kind", None) == "conv":
-            raise NotImplementedError("the conv kind is not ported yet")
+            return self.infer_conv
         return self.infer
 
     def bind(self, program: DTMProgram, x=None, y=None, *, spec=None,
@@ -585,7 +747,7 @@ class TMSession:
         self.prng = prng
         self.steps = 0          # train batches consumed
         self.epoch_s: list = []  # host seconds per fit_epochs epoch
-        self._lits: Optional[torch.Tensor] = None   # staged [N, W]
+        self._lits: Optional[torch.Tensor] = None   # staged [N, (P,) W]
         self._labels: Optional[torch.Tensor] = None  # staged [N]
         self.n = 0
 
@@ -636,8 +798,9 @@ class TMSession:
         if steps == 0:
             raise ValueError(f"{self.n} staged rows make no batch of {batch}")
         dev = self.engine.device
+        train = self.engine.train_fn(self.spec, donate=True)
         # the session's own TA states and include bitplane, which every
-        # step below updates in place: nothing a caller holds changes
+        # step below may update in place: nothing a caller holds changes
         self.program = dataclasses.replace(
             self.program, ta=self.program.ta.clone(),
             inc=self.program.inc.clone())
@@ -650,10 +813,10 @@ class TMSession:
             with _sync_guard(dev, sync_guard):
                 for s in range(steps):
                     ib = plan[s]
-                    self.program, self.prng, stats = self.engine.train_step(
+                    self.program, self.prng, stats = train(
                         self.program, self.prng,
                         self._lits.index_select(0, ib),
-                        self._labels.index_select(0, ib), donate=True)
+                        self._labels.index_select(0, ib))
                     rows.append(torch.stack([stats[k] for k in STAT_KEYS]))
             self.steps += steps
             # exact integer epoch totals from the per-step stats

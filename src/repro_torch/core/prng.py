@@ -26,6 +26,7 @@ from typing import Sequence, Tuple, Union
 
 import torch
 
+from repro_torch.kernels.lfsr import lfsr_bits
 from .device import Device, resolve_device
 
 M32 = 0xFFFFFFFF
@@ -181,14 +182,11 @@ class PRNG:
         if self.backend != "lfsr":
             raise NotImplementedError(f"prng_backend={self.backend!r}")
         st: LFSRState = self.state
-        steps = -(-size // st.lanes.shape[-1])
-        rows = []
-        for _ in range(steps):
-            st, vals = cluster_next(st, self.lfsr_bits, self.seed_refresh,
-                                    self.rand_bits)
-            rows.append(vals)
-        out = torch.cat(rows, dim=-1)[..., :size]
-        return self._replace(st), out.reshape(*lead, *shape)
+        out, *leaves = lfsr_bits(st.lanes, st.master, st.cycles, size,
+                                 self.lfsr_bits, self.rand_bits,
+                                 self.seed_refresh)
+        return (self._replace(LFSRState(*leaves)),
+                out.reshape(*lead, *shape))
 
     def leaves(self) -> Tuple[torch.Tensor, ...]:
         st = self.state

@@ -137,7 +137,7 @@ def prepare_fused_step(lit, inc, weights, labels, neg, rand, cl_mask,
         status = fn(*cargs, torch.cuda.current_stream(dev).cuda_stream)
         _build.check(lib, status, "dtm_fused_step")
         fused_step.launches += 1
-    launch.keep = ops_
+    launch.keep = (ops_, outs)      # the tensors its pointers point into
     return launch, outs
 
 

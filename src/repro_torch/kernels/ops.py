@@ -19,6 +19,8 @@ groups) or the dense one (:data:`TA_DENSE`: skip off, program banks, or
 the streamed random words of :data:`TA_PRNG_STREAM`, which have no
 compacted kernel).  The names are the JAX package's, so
 ``cache_report()["path_per_stage"]`` reads the same in both.
+:func:`launch_counts` also counts ``lfsr_bits``, the lfsr PRNG cluster's
+kernel, which ``PRNG.bits`` launches.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ from . import ref
 from .class_sum import class_sum
 from .clause_eval import clause_eval
 from .fused_step import fused_step
+from .lfsr import lfsr_bits
 from .packed_clause import packed_clause_eval, packed_clause_tile
 from .ta_update import (GROUP, stream_rands, ta_update, ta_update_sparse,
                         ta_update_streamed)
@@ -60,7 +63,8 @@ _WRAPPERS = {"packed_clause_eval": packed_clause_eval,
              "ta_update_sparse": ta_update_sparse,
              "clause_eval": clause_eval,
              "tm_infer": tm_infer,
-             "ta_update_streamed": ta_update_streamed}
+             "ta_update_streamed": ta_update_streamed,
+             "lfsr_bits": lfsr_bits}
 
 
 def select_path(batch: int, force: Optional[str] = None,

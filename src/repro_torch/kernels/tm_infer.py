@@ -68,7 +68,7 @@ def prepare_tm_infer(lit: torch.Tensor, inc: torch.Tensor, w: torch.Tensor,
             status = fn(*cargs, torch.cuda.current_stream(dev).cuda_stream)
         _build.check(lib, status, "dtm_tm_infer")
         tm_infer.launches += 1
-    launch.keep = (lit, inc, w)
+    launch.keep = (lit, inc, w, out)   # the tensors its pointers point into
     return launch, out
 
 

@@ -1,10 +1,11 @@
-"""Time the class-sum, fused-step, fused-inference and packed clause
-kernels at the main paths' shapes.
+"""Time the class-sum, fused-step, fused-inference, packed clause and
+lfsr cluster kernels at the main paths' shapes.
 
     PYTHONPATH=src python3 src/repro_torch/launch/kernel_bench.py
 
-Times ``class_sum``, ``fused_step``, ``tm_infer``, ``packed_clause_tile``
-and ``packed_clause_eval`` of whichever ``repro_torch`` Python imports: this
+Times ``class_sum``, ``fused_step``, ``tm_infer``, ``packed_clause_tile``,
+``packed_clause_eval`` and ``lfsr_bits`` (where the tree has it) of
+whichever ``repro_torch`` Python imports: this
 checkout's, or another's put first on ``PYTHONPATH``, so one run on one
 card can hold two versions of the kernels against each other.  Each call goes through the public wrapper, and each result is
 first held against the kernel's plain version (exact); the operands are
@@ -24,7 +25,13 @@ short of 32 W) at the serving bank (K=4, B=32, R=C=4224, W=100,
 L=3200) and at K=1, B=32 with MNIST widths (R=C=2048, W=52, L=1664);
 ``packed_clause_eval`` (eval mode, n_bits 16 short of 32 W) at the
 serving edge (K=1, R=4224, W=100, B=1 and 4) and the edge training step
-(K=1, B=1, R=2048, W=52).  Bounds are the bytes each call must move.
+(K=1, B=1, R=2048, W=52); at the full-width conv model's shapes (R=2048,
+W=12, 361 patches), ``packed_clause_tile`` at the conv flush (K=2, 32
+requests × 361 patches) and edge request (K=1, 361 rows), ``class_sum``
+at the conv flush (K=2, B=32, H=16), and ``lfsr_bits`` (24-bit lanes,
+8192 of them, 16-bit words) at the flat step's selection draw
+(2·32·2048 words) and the conv step's patch and TA draws (32·361·2048
+and 2·32·2048·384).  Bounds are the bytes each call must move.
 """
 from __future__ import annotations
 
@@ -36,11 +43,13 @@ HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
 CALLS = 200
 
 CLASS_SUM = [(4, 32, 4224, 16), (1, 32, 2048, 16), (1, 1, 4224, 16),
-             (1, 1, 2048, 16)]                       # K, B, R, H
+             (1, 1, 2048, 16), (2, 32, 2048, 16)]    # K, B, R, H
 FUSED = [(1, 32, 2048, 52, 16), (1, 32, 2048, 100, 16),
          (2, 32, 2048, 52, 16)]                      # K, B, R, W, H
 SERVE = [(4, 32, 4224, 100, 16), (1, 32, 2048, 52, 16)]   # K, B, R, W, H
 EDGE = [(1, 1, 4224, 100), (1, 4, 4224, 100), (1, 1, 2048, 52)]  # K, B, R, W
+CONV_TILE = [(2, 32 * 361, 2048, 12), (1, 361, 2048, 12)]        # K, B, R, W
+LFSR = [2 * 32 * 2048, 32 * 361 * 2048, 2 * 32 * 2048 * 384]     # words
 
 
 def graph_ms(torch, fn, n: int, cold_l2=None, reps: int = 5) -> float:
@@ -106,7 +115,7 @@ def main() -> int:
     cold = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
     rows = []
 
-    def timed(name, shape, fn, plain, nbytes):
+    def timed(name, shape, fn, plain, nbytes, calls=CALLS):
         got, want = fn(), plain()
         torch.cuda.synchronize()
         for g, w in zip(got if isinstance(got, tuple) else (got,),
@@ -114,8 +123,8 @@ def main() -> int:
             if not torch.equal(g, w):
                 raise RuntimeError(f"{name} {shape}: kernel != plain")
         rows.append({"name": name, "shape": shape,
-                     "ms": graph_ms(torch, fn, CALLS),
-                     "ms_cold_l2": graph_ms(torch, fn, CALLS // 4, cold),
+                     "ms": graph_ms(torch, fn, calls),
+                     "ms_cold_l2": graph_ms(torch, fn, calls // 4, cold),
                      "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
                      "bound_by": "bytes"})
 
@@ -178,6 +187,30 @@ def main() -> int:
               lambda lit=lit, inc=inc, n=n_bits: packed_clause_eval_plain(
                   lit, inc, True, n),
               4 * (K * B * W + K * R * W + K * B * R))
+    for K, B, R, W in CONV_TILE:
+        lit = words(torch, gen, (K, B, W), 0.5).to(dev)
+        inc = words(torch, gen, (K, R, W), 0.01).to(dev)
+        n_bits = 32 * W - 112                        # L=384 of 272 literals
+        timed("packed_clause_tile", f"conv K={K} B={B} R={R} W={W}",
+              lambda lit=lit, inc=inc, n=n_bits: packed_clause_tile(
+                  lit, inc, True, n),
+              lambda lit=lit, inc=inc, n=n_bits: packed_clause_tile_plain(
+                  lit, inc, True, n),
+              4 * (K * B * W + K * R * W + K * B * R))
+    try:
+        from repro_torch.kernels.lfsr import lfsr_bits, lfsr_bits_plain
+    except ImportError:                  # a tree from before the kernel
+        lfsr_bits = None
+    if lfsr_bits is not None:
+        from repro_torch.core.prng import make_cluster
+        st = make_cluster(0, 8192, 24, dev)
+        for size in LFSR:
+            args = (st.lanes, st.master, st.cycles, size, 24, 16, True)
+            timed("lfsr_bits", f"size={size} lanes=8192 lfsr_bits=24 "
+                  "rand_bits=16",
+                  lambda a=args: lfsr_bits(*a),
+                  lambda a=args: lfsr_bits_plain(*a),
+                  8 * size + 2 * 8 * (8192 + 2), calls=20)
     one = torch.zeros(1, dtype=torch.int32, device=dev)
     print(json.dumps({"kernel_bench": {
         "card": card, "repro_torch": repro_torch.__file__, "calls": CALLS,

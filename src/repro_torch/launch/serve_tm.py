@@ -7,9 +7,11 @@ Two request paths:
 * :meth:`TMServer.predict` swaps to one tenant and serves its request
   (the edge path when the batch slot is <= 4 rows).
 * :meth:`TMServer.enqueue` queues requests; :meth:`TMServer.flush_async`
-  runs every tenant through ONE stacked :class:`ProgramBank` launch per
-  kernel and returns without waiting; :meth:`TMServer.collect` fetches and
-  decodes (the only host-device sync of the path).  :meth:`TMServer.flush`
+  runs the tenants of each stage family (flat, conv) with pending
+  requests through ONE stacked :class:`ProgramBank` launch per kernel and
+  returns without waiting; :meth:`TMServer.collect` fetches and decodes
+  (the only host-device sync of the path: flat banks decode on the
+  device, conv banks by an argmax on the host).  :meth:`TMServer.flush`
   is the two in one.
 
 Requests are padded to a fixed ``batch_slot`` by repeating their last row,
@@ -20,8 +22,8 @@ training step to its program (on-chip training on the same datapath);
 the tenant's bank slot is then stale, and the next stacked flush writes
 the fresh program back into it.  Each tenant keeps its own PRNG and step
 count, and a lifetime clause-skip fraction (``skip_frac`` in
-:meth:`TMServer.stats`).  Single device; the conv kind, bank membership
-and the scheduler come in later slices.
+:meth:`TMServer.stats`).  Single device; bank membership and the
+scheduler come in later slices.
 """
 from __future__ import annotations
 
@@ -54,9 +56,10 @@ class PendingFlush:
     t0: float                       # flush_async entry time
     served: Dict[str, float]        # tenant -> enqueue time
     n_real: Dict[str, int]          # tenant -> un-padded batch
-    names: List[str]                # bank slot order
-    preds: torch.Tensor             # [K, B] int32, on the device
-    votes: torch.Tensor             # [K, B] int32, on the device
+    # per launched family: (conv, bank slot order, then on the device
+    # preds and votes [K, B] int32 (flat), or sums [K, B, H] and clauses
+    # [K, B, R] (conv))
+    hot: List[Tuple[bool, List[str], torch.Tensor, torch.Tensor]]
 
 
 class TMServer:
@@ -74,7 +77,7 @@ class TMServer:
         self.stacked_launches = 0
         self.coalesced_requests = 0
         self._pending: List[Tuple[str, torch.Tensor, int, float]] = []
-        self._bank: Optional[Tuple[List[str], ProgramBank]] = None
+        self._banks: Dict[bool, Tuple[List[str], ProgramBank]] = {}
         self._last_flush: Dict[str, float] = {}
         self._dirty: set = set()    # trained tenants whose bank slot is stale
         self._skip_acc: Dict[str, List[int]] = {}   # [active, total] groups
@@ -87,16 +90,17 @@ class TMServer:
         ``seed``) or adopt an already-lowered ``program``.  ``prng`` and
         ``steps`` resume a tenant mid-stream; by default its PRNG is made
         from ``seed + 1`` when it first trains."""
-        if spec.kind == "conv":
-            raise NotImplementedError("the conv kind is not ported yet")
         if program is None:
             program = self.engine.lower(
                 spec, torch.Generator().manual_seed(seed))
         if prng is not None:
             prng = prng.to(self.engine.device)
+        if name in self.tenants:            # its old family loses it
+            self._banks.pop(self._is_conv(name), None)
         self.tenants[name] = _Tenant(spec, program.to(self.engine.device),
                                      prng, seed, steps)
-        self._bank = None           # roster changed: restack on next flush
+        # the family's roster changed: restack it at its next flush
+        self._banks.pop(spec.kind == "conv", None)
         self._skip_acc.pop(name, None)
 
     def _swap_to(self, name: str) -> _Tenant:
@@ -109,7 +113,7 @@ class TMServer:
     def _encode_request(self, tenant: _Tenant, x, encoded: bool
                         ) -> Tuple[torch.Tensor, int]:
         """Pad a request to the batch slot and encode it (unless it came
-        as packed engine literals [n, W])."""
+        as packed engine literals: [n, W], or [n, P, W] for conv)."""
         n = len(x)
         if not 0 < n <= self.batch_slot:
             raise ValueError(f"request of {n} rows; batch_slot is "
@@ -119,7 +123,8 @@ class TMServer:
         else:
             lits = self.engine.encode(tenant.spec, np.asarray(x))
         if n < self.batch_slot:
-            lits = torch.cat([lits, lits[-1:].expand(self.batch_slot - n, -1)])
+            lits = torch.cat([lits, lits[-1:].expand(
+                self.batch_slot - n, *lits.shape[1:])])
         return lits, n
 
     def _decode(self, name: str, preds: np.ndarray, votes: np.ndarray
@@ -183,19 +188,24 @@ class TMServer:
             return None
         return 1.0 - acc[0] / acc[1]
 
-    def _bank_for(self) -> Tuple[List[str], ProgramBank]:
-        """The resident bank over every tenant, built once per roster;
-        slots of tenants trained since are rewritten first."""
-        if self._bank is None:
-            names = sorted(self.tenants)
-            self._bank = (names, api.stack(
-                [self.tenants[n].program for n in names], self.engine))
-            self._dirty.clear()
-        names, bank = self._bank
-        for n in sorted(self._dirty):
+    def _is_conv(self, name: str) -> bool:
+        return self.tenants[name].spec.kind == "conv"
+
+    def _bank_for(self, conv: bool) -> Tuple[List[str], ProgramBank]:
+        """The resident bank over every tenant of a stage family (flat or
+        conv), built once per roster; slots of tenants trained since are
+        rewritten first."""
+        if conv not in self._banks:
+            names = sorted(n for n in self.tenants if self._is_conv(n) == conv)
+            self._banks[conv] = (names, api.stack(
+                [self.tenants[n].program for n in names], self.engine,
+                conv=conv))
+            self._dirty -= set(names)
+        names, bank = self._banks[conv]
+        for n in sorted(self._dirty & set(names)):
             bank.swap_in(names.index(n), self.tenants[n].program)
-        self._dirty.clear()
-        return self._bank
+        self._dirty -= set(names)
+        return names, bank
 
     def enqueue(self, name: str, x, encoded: bool = False) -> None:
         """Queue an inference request for the next stacked flush."""
@@ -203,10 +213,11 @@ class TMServer:
         self._pending.append((name, lits, n, time.perf_counter()))
 
     def flush_async(self) -> Optional[PendingFlush]:
-        """Launch every pending request in one stacked bank launch and
-        return without fetching (``None`` when nothing is pending).  Idle
-        slots replay a pending tenant's literals; their outputs are
-        dropped.  A tenant that queued twice is served its last request."""
+        """Launch the pending requests, one stacked bank launch per stage
+        family (flat, conv) that has any, and return without fetching
+        (``None`` when nothing is pending).  Idle slots replay a pending
+        tenant's literals; their outputs are dropped.  A tenant that
+        queued twice is served its last request."""
         if not self._pending:
             return None
         pending, self._pending = self._pending, []
@@ -215,28 +226,40 @@ class TMServer:
         for name, lits, n, t_enq in pending:
             by_name[name] = (lits, n, t_enq)
             self.requests += 1
-        names, bank = self._bank_for()
-        filler = next(iter(by_name.values()))[0]
-        lits = [by_name[n][0] if n in by_name else filler for n in names]
-        preds, votes = bank.predict(lits)
-        self.stacked_launches += 1
-        self.coalesced_requests += len(by_name)
+        hot = []
+        for conv in (False, True):
+            req = [n for n in by_name if self._is_conv(n) == conv]
+            if not req:
+                continue
+            names, bank = self._bank_for(conv)
+            filler = by_name[req[0]][0]
+            lits = [by_name[n][0] if n in by_name else filler for n in names]
+            out = bank.infer(lits) if conv else bank.predict(lits)
+            hot.append((conv, list(names), *out))
+            self.stacked_launches += 1
+            self.coalesced_requests += len(req)
         return PendingFlush(t0=t0,
                             served={n: v[2] for n, v in by_name.items()},
                             n_real={n: v[1] for n, v in by_name.items()},
-                            names=list(names), preds=preds, votes=votes)
+                            hot=hot)
 
     def collect(self, pf: Optional[PendingFlush]) -> Dict[str, np.ndarray]:
         """Fetch and decode a :class:`PendingFlush`; records each served
         tenant's enqueue-to-answer latency.  Returns {tenant: prediction}."""
         if pf is None:
             return {}
-        preds, votes = pf.preds.cpu().numpy(), pf.votes.cpu().numpy()
         out = {}
-        for k, name in enumerate(pf.names):
-            if name in pf.n_real:
-                n = pf.n_real[name]
-                out[name] = self._decode(name, preds[k], votes[k])[:n]
+        for conv, names, a, b in pf.hot:
+            if conv:      # sums [K, B, H]: argmax on the host
+                preds = np.argmax(a.cpu().numpy(), axis=-1)
+                votes = None
+            else:
+                preds, votes = a.cpu().numpy(), b.cpu().numpy()
+            for k, name in enumerate(names):
+                if name in pf.n_real:
+                    n = pf.n_real[name]
+                    out[name] = self._decode(
+                        name, preds[k], None if conv else votes[k])[:n]
         t_done = time.perf_counter()
         for name, t_enq in pf.served.items():
             self._last_flush[name] = t_done - t_enq
@@ -247,9 +270,10 @@ class TMServer:
         return self.collect(self.flush_async())
 
     # ---- bank slots --------------------------------------------------------
-    def unstack(self) -> Dict[str, DTMProgram]:
-        """Read every bank slot back to its tenant and return the programs."""
-        names, bank = self._bank_for()
+    def unstack(self, conv: bool = False) -> Dict[str, DTMProgram]:
+        """Read every slot of a family's bank (flat, or ``conv``) back to
+        its tenant and return the programs."""
+        names, bank = self._bank_for(conv)
         progs = {}
         for k, name in enumerate(names):
             progs[name] = bank.swap_out(k)
@@ -258,8 +282,8 @@ class TMServer:
 
     def swap_in(self, name: str, program: DTMProgram) -> int:
         """Replace a tenant's program and write it into its bank slot;
-        returns the slot index."""
-        names, bank = self._bank_for()
+        returns the slot index (in its family's bank)."""
+        names, bank = self._bank_for(self._is_conv(name))
         k = names.index(name)
         program = program.to(self.engine.device)
         self.tenants[name].program = program
@@ -269,7 +293,7 @@ class TMServer:
 
     def swap_out(self, name: str) -> DTMProgram:
         """A copy of a tenant's program read from its bank slot."""
-        names, bank = self._bank_for()
+        names, bank = self._bank_for(self._is_conv(name))
         prog = bank.swap_out(names.index(name))
         self.tenants[name].program = prog
         return prog

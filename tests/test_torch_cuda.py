@@ -116,7 +116,8 @@ def test_wrappers_count_launches_and_never_fall_back(dev):
                                    "packed_clause_tile": 1, "class_sum": 1,
                                    "fused_step": 0, "ta_update": 0,
                                    "ta_update_sparse": 0, "clause_eval": 0,
-                                   "tm_infer": 0, "ta_update_streamed": 0}
+                                   "tm_infer": 0, "ta_update_streamed": 0,
+                                   "lfsr_bits": 0}
     with pytest.raises(ValueError):
         packed_clause_eval(lit, inc.cpu())
     with pytest.raises(TypeError):
@@ -307,6 +308,31 @@ def test_prepare_fused_step_is_the_bare_launch(dev):
     assert fused_step.launches == before + 1
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+def test_bare_launches_hold_their_outputs(dev):
+    """A bare launch whose outputs the caller dropped still writes into
+    live memory: ``torch.cuda.graph`` empties the allocator's cache before
+    a capture, which would release the freed memory to CUDA."""
+    from repro_torch.kernels.tm_infer import prepare_tm_infer
+    args = _select_operands(2, 5, 300, 3, 7, dev, 4, 16, 60, [1, 0])
+    gen = torch.Generator().manual_seed(3)
+    lit = (torch.rand((1, 4, 100), generator=gen) < 0.5).to(torch.int8)
+    inc = (torch.rand((1, 64, 100), generator=gen) < 0.05).to(torch.int8)
+    w = torch.randint(-3, 4, (1, 5, 64), generator=gen, dtype=torch.int32)
+    for launch, outs in (prepare_fused_step(*args),
+                         prepare_tm_infer(lit.to(dev), inc.to(dev),
+                                          w.to(dev))):
+        ptrs = {t.data_ptr() for t in
+                (outs if isinstance(outs, tuple) else (outs,))}
+        del outs
+        kept = {t.data_ptr() for t in
+                torch.utils._pytree.tree_leaves(launch.keep)
+                if isinstance(t, torch.Tensor)}
+        assert ptrs <= kept
+        torch.cuda.empty_cache()
+        launch()
+        torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("K,B,R,H", [(1, 1, 50, 1), (1, 5, 300, 40),

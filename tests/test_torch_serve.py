@@ -171,8 +171,23 @@ def test_encoded_requests_and_empty_flush():
     assert ts.flush_async() is None and ts.flush() == {}
     with pytest.raises(ValueError):
         ts.enqueue("cotm", _request(spec, 7, 0))
-    with pytest.raises(NotImplementedError):
-        ts.register("conv", tapi.TMSpec.conv(6, 6, 3, classes=2))
+    # the conv kind registers, in its own bank on an engine with patch
+    # slots, beside a flat tenant
+    conv = tapi.TMSpec.conv(6, 6, 3, classes=2)
+    with pytest.raises(ValueError, match="patch slots"):
+        ts.register("conv", conv)       # this engine has one patch slot
+    cs = TServer(tapi.compile(tapi.tile_for(spec, conv, x=32, y=16, m=16,
+                                            n=4), device="cpu"),
+                 batch_slot=6)
+    cs.register("conv", conv, seed=1)
+    cs.register("cotm", spec, seed=2)
+    img = (np.random.default_rng(3).random((2, 6, 6)) < 0.5).astype(np.int8)
+    cs.enqueue("conv", img)
+    cs.enqueue("cotm", x)
+    got = cs.flush()
+    assert sorted(got) == ["conv", "cotm"] and got["conv"].shape == (2,)
+    np.testing.assert_array_equal(got["conv"], cs.predict("conv", img))
+    assert cs.stats()["stacked_launches"] == 2
 
 
 def test_register_lowers_from_seed():
