@@ -101,6 +101,30 @@ held-out rows):
      flush's shapes (the tile also at the train step's and the edge
      request's).
 
+Scheduled durable serving:
+ 13. ``api.serve`` of the four serving models (lfsr PRNGs, the motif
+     programs of phase 2) with a durable directory under ``$TMPDIR``:
+     ``resident_slots=2`` a family, ``pipeline_depth=2``, MNIST CoTM
+     ``GOLD``, KWS-6 Vanilla ``BATCH``.  Drain mode: 16 rounds of one
+     32- or 16-row request a tenant (KWS-6 CoTM sends a second, so the
+     EWMA membership promotes it), 4 ``submit_train`` steps of MNIST
+     CoTM and one of each other tenant on the same cycles; thread mode:
+     64 requests a tenant open loop, with the driver and checkpoint
+     writer threads; a stack with transient launch faults at 3 indices
+     and one whose retries run out.  Every answer and training step
+     equals a synchronous twin on the card, one round the CPU engine's;
+     gold requests survive the transient faults with the plan's retry
+     count, and exhausted retries fail exactly the two affected futures.
+     Then ``checkpoint_now()`` and ``api.serve(None, durable_dir=...)``:
+     every tenant equals the live one, and both stacks continue 2 rounds
+     of train + infer identically.  The kernels line gains the
+     ``scheduled`` rows: the tile and class sums of the resident bank
+     (K=2) and the cold path (K=1), ``fused_step``, ``ta_update_sparse``
+     and the selection draw at the roster tile (L=3200, R=4224, W=100),
+     each held against its plain version on the captured arguments,
+     launches counted from the first scheduled request to the end of
+     the fault stacks.
+
 Bounds: bytes over 3.35 TB/s; integer operations over 64 per clock per
 SM (the CUDA guide's rate for 32-bit integer add, logic, shift, compare
 and multiply-add on compute capability 9.0) × the SM count × the card's
@@ -133,16 +157,18 @@ int64 words' bytes and one lane's chain of ``steps`` dependent Galois
 steps, at the clocks per step that ``lfsr_chain_probe`` measures, over
 the maximum SM clock.  No kernel here does float work.
 
-Prints the card line, ``serving``, ``training`` and ``conv`` JSON lines, a
-``kernels`` JSON line and, last, ``{"ok": true, "device": {...}}``.  Any
-failed check raises, and the exit code is then non-zero.  Without a CUDA
-card, or without the repository beside it, it exits non-zero and prints
-no result.
+Prints the card line, ``serving``, ``training``, ``conv`` and
+``scheduler`` JSON lines, a ``kernels`` JSON line and, last,
+``{"ok": true, "device": {...}}``.  Any failed check raises, and the exit
+code is then non-zero.  Without a CUDA card, or without the repository
+beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -201,17 +227,21 @@ def int_ops_per_s(torch) -> float:
 
 class Capture:
     """Within the block, record the arguments of the last call of
-    ``module.name`` (a kernel wrapper as the ops module calls it); the
-    wrapper itself still runs and counts its launches."""
+    ``module.name`` (a kernel wrapper as the ops module calls it), and of
+    the first call at each shape of its tensor arguments (``by_shape``);
+    the wrapper itself still runs and counts its launches."""
 
     def __init__(self, module, name: str):
         self.module, self.name = module, name
         self.fn = getattr(module, name)
         self.args = None
+        self.by_shape = {}
 
     def __enter__(self):
         def record(*a, **kw):
             self.args = (a, kw)
+            key = tuple(tuple(t.shape) for t in a if hasattr(t, "shape"))
+            self.by_shape.setdefault(key, (a, kw))
             return self.fn(*a, **kw)
         setattr(self.module, self.name, record)
         return self
@@ -357,6 +387,327 @@ def paper_spec(api, cfg, backend: str):
                       lfsr_bits=cfg.lfsr_bits)
 
 
+def percentile_ms(np, seconds, q: float):
+    return float(np.percentile(np.asarray(seconds) * 1e3, q))
+
+
+def scheduled_serving(torch, np, api, ops, datasets, roster, progs, cpu,
+                      card: str, seed: int):
+    """Phase 13: ``api.serve`` of the four paper models at full width
+    behind the scheduler, with a durable directory, on the card.  Returns
+    (report, the kernel launches of the scheduled path, the captures of
+    its kernel calls, the scheduler of the live stack).
+
+    The launch counts run from 0 at the first scheduled request to the
+    end of the fault stacks; the synchronous twins, the CPU round and
+    the cold-started stack run after them."""
+    import shutil
+    import tempfile
+    from repro_torch.launch.scheduler import (BATCH, GOLD, SchedulerConfig,
+                                              TMScheduler)
+    from repro_torch.launch.serve_tm import TMServer
+    from repro_torch.runtime.fault import (FaultInjector, FaultPlan,
+                                           InjectedFault)
+    t_phase = time.perf_counter()
+    B = 32
+    names = list(roster)
+    specs = {n: paper_spec(api, c, "lfsr") for n, (c, _) in roster.items()}
+    slas = {"mnist_cotm": GOLD, "kws6_vanilla": BATCH}
+    seeds = {n: seed + i for i, n in enumerate(names)}
+    pool = {n: datasets.make_bool_dataset(task, 64 * B, seed=seed + 500 + i)
+            for i, (n, (_, task)) in enumerate(roster.items())}
+    cursor = {n: 0 for n in names}
+
+    def request(n, size):
+        """The next ``size`` rows of tenant n's request pool."""
+        k = cursor[n] % 48
+        cursor[n] += 1
+        return pool[n][0][k * B:k * B + size]
+
+    def train_rows(n, k):
+        x, y = pool[n]
+        return x[(56 + k) * B:(57 + k) * B], y[(56 + k) * B:(57 + k) * B]
+
+    def register_motifs(srv_or_sched, **kw):
+        for n in names:
+            srv_or_sched.register(n, specs[n], program=progs[n],
+                                  seed=seeds[n], **kw.get(n, {}))
+
+    def twin(engine):
+        srv = TMServer(engine, batch_slot=B)
+        register_motifs(srv)
+        return srv
+
+    durable = tempfile.mkdtemp(prefix="chip_smoke_durable_")
+    cfg = SchedulerConfig(pipeline_depth=2, resident_slots=2,
+                          membership_every=2, promote_margin=1.2,
+                          ckpt_interval_s=0.05)
+    sched = api.serve(specs, batch_slot=B, config=cfg, slas=slas, seed=seed,
+                      durable_dir=durable)
+    srv = sched.server
+    eng = srv.engine
+    check((eng.L, eng.R, eng.H, eng.W) == (3200, 4224, 16, 100),
+          f"scheduled engine geometry {(eng.L, eng.R, eng.H, eng.W)}")
+    register_motifs(sched, **{n: {"sla": slas.get(n)} for n in names})
+    check(srv.resident_names(False) == names[:2],
+          f"resident roster {srv.resident_names(False)}")
+
+    # drain mode: 16 rounds of one 32- or 16-row request per tenant (the
+    # hot tenant, KWS-6 CoTM, sends a second one), 4 training steps of
+    # MNIST CoTM and one of every other tenant on the same cycles
+    mn_trains = {1: 0, 5: 1, 9: 2, 13: 3}
+    one_train = {"mnist_vanilla": 3, "kws6_cotm": 7, "kws6_vanilla": 11}
+    plan = []
+    for r in range(16):
+        rnd = []
+        for i, n in enumerate(names):
+            if n == "mnist_cotm" and r in mn_trains:
+                rnd.append(("train", n, *train_rows(n, mn_trains[r])))
+            elif one_train.get(n) == r:
+                rnd.append(("train", n, *train_rows(n, 0)))
+            rnd.append(("infer", n, request(n, B if (r + i) % 2 == 0
+                                            else B // 2), None))
+            if n == "kws6_cotm":
+                rnd.append(("infer", n, request(n, B // 2), None))
+        plan.append(rnd)
+    done_at = {}
+
+    def stamp(key):
+        return lambda _f: done_at.__setitem__(key, time.perf_counter())
+
+    def submit(sch, kind, n, x, y, key, submitted):
+        submitted[key] = time.perf_counter()
+        fut = (sch.submit_train(n, x, y) if kind == "train"
+               else sch.submit(n, x))
+        fut.add_done_callback(stamp(key))
+        return fut
+
+    ops.reset_launch_counts()
+    caps = {k: Capture(ops, k) for k in ("fused_step", "ta_update_sparse",
+                                         "packed_clause_tile", "class_sum")}
+    drain_sub, drain_futs = {}, []
+    for c_ in caps.values():
+        c_.__enter__()
+    try:
+        t0 = time.perf_counter()
+        for r, rnd in enumerate(plan):
+            for j, (kind, n, x, y) in enumerate(rnd):
+                drain_futs.append(submit(sched, kind, n, x, y,
+                                         ("d", r, j), drain_sub))
+            sched.drain()
+        torch.cuda.synchronize()
+        drain_s = time.perf_counter() - t0
+    finally:
+        for c_ in caps.values():
+            c_.__exit__()
+    drain_out = [f.result(timeout=60) for f in drain_futs]
+
+    # thread mode: 64 requests per tenant submitted open loop, the driver
+    # and the checkpoint writer on their own threads
+    thread_sub, thread_items, thread_futs = {}, [], []
+    sched.start()
+    try:
+        check(sched.stats()["checkpoint"]["running"],
+              "the checkpoint writer did not start with the driver")
+        t0 = time.perf_counter()
+        for j in range(64):
+            for n in names:
+                x = request(n, B)
+                thread_items.append((n, x))
+                thread_futs.append(submit(sched, "infer", n, x, None,
+                                          ("t", j, n), thread_sub))
+        thread_out = [f.result(timeout=120) for f in thread_futs]
+        thread_s = max(done_at[k] for k in thread_sub) - t0
+    finally:
+        sched.stop()
+    st = sched.stats()
+    check(st["rejected"] == 0 and st["failed"] == 0,
+          f"scheduled serving rejected {st['rejected']}, failed "
+          f"{st['failed']}")
+
+    # faults: transient launch faults at 3 indices (all tenants gold), then
+    # a plan that exhausts a budget of 2 re-attempts
+    fault_idx = (1, 3, 5)
+    fsrv = twin(eng)
+    fs = TMScheduler(fsrv, SchedulerConfig(retries=3), injector=FaultInjector(
+        FaultPlan(fail={"launch": fault_idx})))
+    xsrv = twin(eng)
+    xs = TMScheduler(xsrv, SchedulerConfig(retries=2, max_batch_tenants=2),
+                     injector=FaultInjector(FaultPlan(
+                         fail={"launch": (0, 1, 2)})))
+    for n in names:
+        fs.set_sla(n, GOLD)
+        xs.set_sla(n, GOLD)
+    f_items, f_futs = [], []
+    for r in range(4):
+        for n in names:
+            x = request(n, B)
+            f_items.append((n, x))
+            f_futs.append(fs.submit(n, x))
+        fs.drain()
+    x_items = [(n, request(n, B)) for n in names]
+    x_futs = [xs.submit(n, x) for n, x in x_items]
+    xs.drain()
+    x_items2 = [(n, request(n, B)) for n in names]
+    x_futs2 = [xs.submit(n, x) for n, x in x_items2]
+    xs.drain()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+
+    # ---- checks against the synchronous twin (not counted) ---------------
+    ref = twin(eng)
+    want = {}
+    for r, rnd in enumerate(plan):            # per tenant, in its order
+        for j, (kind, n, x, y) in enumerate(rnd):
+            want.setdefault(n, []).append((("d", r, j), kind, x, y))
+    for j, (n, x) in enumerate(thread_items):
+        want[n].append((("t", j // len(names), n), "infer", x, None))
+    got = dict(zip([("d", r, j) for r, rnd in enumerate(plan)
+                    for j in range(len(rnd))], drain_out))
+    got.update(zip([k for k in thread_sub], thread_out))
+    for n in names:
+        for key, kind, x, y in want[n]:
+            if kind == "train":
+                w = ref.train(n, x, y)
+                check(got[key]["applied"]
+                      and {k: got[key][k] for k in w} == w,
+                      f"scheduled training step {key} of {n} differs")
+            else:
+                ref.enqueue(n, x)
+                check(np.array_equal(got[key], ref.flush()[n]),
+                      f"scheduled answer {key} of {n} differs from the "
+                      "synchronous flush")
+    for n in names:
+        a, b = srv.tenants[n], ref.tenants[n]
+        check(a.steps == b.steps and same_state(torch, a.program, b.program)
+              and same_state(torch, a.prng, b.prng),
+              f"{n} after train-while-serve differs from sequential train")
+    check(srv.tenants["mnist_cotm"].steps == 4, "MNIST CoTM trained "
+          f"{srv.tenants['mnist_cotm'].steps} steps")
+    # the first round against the CPU engine's answers
+    cref = TMServer(cpu, batch_slot=B)
+    register_motifs(cref)
+    firsts = {}
+    for j, (kind, n, x, _) in enumerate(plan[0]):
+        if kind == "infer" and n not in firsts:
+            firsts[n] = j
+            cref.enqueue(n, x)
+    cwant = cref.flush()
+    for n, j in firsts.items():
+        check(np.array_equal(got[("d", 0, j)], cwant[n]),
+              f"scheduled answer of {n} differs from the CPU engine")
+    answers = np.concatenate([np.asarray(v) for k, v in got.items()
+                              if not isinstance(v, dict)])
+    check(len(np.unique(answers)) > 1, "scheduled answers are all one class")
+    check(srv.cold_requests > 0 and sched.promotions >= 1,
+          f"cold requests {srv.cold_requests}, promotions "
+          f"{sched.promotions}: the membership paths did not run")
+    # faults
+    fref = twin(eng)
+    for (n, x), f in zip(f_items, f_futs):
+        fref.enqueue(n, x)
+        check(np.array_equal(f.result(timeout=60), fref.flush()[n]),
+              f"{n} answer under transient faults differs")
+    check(fs.retries == len(fault_idx) and fs.faults == 0
+          and fs.failed == 0 and fs.completed == len(f_items)
+          and fs.injector.stats()["injected"]["launch"] == len(fault_idx),
+          f"transient faults: retries {fs.retries}, faults {fs.faults}, "
+          f"failed {fs.failed}")
+    failed = [n for (n, _), f in zip(x_items, x_futs)
+              if isinstance(f.exception(timeout=60), InjectedFault)]
+    check(failed == names[:2] and xs.faults == 1 and xs.failed == 2
+          and not xsrv._pending,
+          f"exhausted retries failed {failed}, faults {xs.faults}")
+    for (n, x), f in list(zip(x_items, x_futs))[2:] + list(
+            zip(x_items2, x_futs2)):
+        fref.enqueue(n, x)
+        check(np.array_equal(f.result(timeout=60), fref.flush()[n]),
+              f"{n} answer after exhausted retries differs")
+
+    # ---- crash and cold start ---------------------------------------------
+    sched.checkpoint_now()
+    ck = sched.stats()["checkpoint"]
+    check(ck["failures"] == 0 and ck["dirty"] == 0
+          and set(ck["last_saved"]) == set(names),
+          f"checkpoint writer {ck}")
+    nbytes = {}
+    for n in names:
+        d_ = os.path.join(durable, "tenants", n,
+                          f"step_{ck['last_saved'][n]:08d}")
+        nbytes[n] = sum(os.path.getsize(os.path.join(d_, f))
+                        for f in os.listdir(d_))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cold = api.serve(None, durable_dir=durable)
+    torch.cuda.synchronize()
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    for n in names:
+        a, b = srv.tenants[n], cold.server.tenants[n]
+        check(a.steps == b.steps and same_state(torch, a.program, b.program)
+              and same_state(torch, a.prng, b.prng),
+              f"{n} cold-started differs from the live tenant")
+    check(cold.sla_of("mnist_cotm").name == "gold"
+          and cold.sla_of("kws6_vanilla").name == "batch",
+          "cold start lost the SLAs")
+    outs = []
+    for stack in (sched, cold):
+        futs = []
+        for r in range(2):
+            for n in names:
+                x, y = train_rows(n, 4 + r)
+                futs.append(stack.submit_train(n, x, y))
+                futs.append(stack.submit(n, pool[n][0][r * B:(r + 1) * B]))
+            stack.drain()
+        outs.append([f.result(timeout=60) for f in futs])
+    for u, v in zip(*outs):
+        check(u == v if isinstance(u, dict) else np.array_equal(u, v),
+              "the cold-started stack continues differently")
+    for n in names:
+        a, b = srv.tenants[n], cold.server.tenants[n]
+        check(a.steps == b.steps and same_state(torch, a.program, b.program)
+              and same_state(torch, a.prng, b.prng),
+              f"{n} after the continuation differs between the stacks")
+
+    # one scheduled cycle: a request per tenant, launched and collected
+    cyc = {n: pool[n][0][:B] for n in names}
+
+    def cycle():
+        for n in names:
+            sched.submit(n, cyc[n])
+        sched.drain()
+    cycle_prof = profile_flush(torch, cycle, captures=3)
+    shutil.rmtree(durable, ignore_errors=True)
+
+    def lat(sub):
+        return [done_at[k] - t for k, t in sub.items()]
+    n_drain = sum(len(rnd) for rnd in plan)
+    report = {
+        "card": card, "tenants": names, "batch_slot": B,
+        "engine": {"L": eng.L, "R": eng.R, "H": eng.H, "W": eng.W},
+        "slas": {n: sched.sla_of(n).name for n in names},
+        "resident_slots": 2, "pipeline_depth": 2,
+        "drain": {"requests": n_drain, "seconds": drain_s,
+                  "requests_per_s": n_drain / drain_s,
+                  "latency_ms_p50": percentile_ms(np, lat(drain_sub), 50),
+                  "latency_ms_p99": percentile_ms(np, lat(drain_sub), 99)},
+        "thread": {"requests": len(thread_items), "seconds": thread_s,
+                   "requests_per_s": len(thread_items) / thread_s,
+                   "latency_ms_p50": percentile_ms(np, lat(thread_sub), 50),
+                   "latency_ms_p99": percentile_ms(np, lat(thread_sub), 99)},
+        "launches": st["launches"], "trains": st["trains"],
+        "cold_requests": st["server"]["cold_requests"],
+        "membership_swaps": st["server"]["membership_swaps"],
+        "promotions": st["promotions"], "demotions": st["demotions"],
+        "resident_after": st["server"]["resident"],
+        "faults": {"transient_at": list(fault_idx), "retries": fs.retries,
+                   "exhausted_failed": failed},
+        "checkpoint_save_ms": ck["save_ms"], "checkpoint_bytes": nbytes,
+        "checkpoint_saves": ck["saves"], "cold_start_ms": cold_ms,
+        "cycle_profile": cycle_prof, "kernel_launches": counts,
+        "phase_s": time.perf_counter() - t_phase}
+    return report, counts, caps, sched
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0,
@@ -387,7 +738,7 @@ def main(argv=None) -> int:
     from repro_torch.core.prng import PRNG
     from repro_torch.kernels.lfsr import lfsr_bits, lfsr_bits_plain
     from repro_torch.kernels.fused_step import (
-        fused_step, fused_step_plain, prepare_fused_step)
+        fused_bulk, fused_step, fused_step_plain, prepare_fused_step)
     from repro_torch.kernels.ta_update import (
         prepare_ta_update, prepare_ta_update_sparse,
         prepare_ta_update_streamed, stream_rands, ta_update, ta_update_plain,
@@ -1019,6 +1370,10 @@ def main(argv=None) -> int:
                 torch, lambda e=e: e.train_step(tm_a.program, tm_a.prng,
                                                 lits32, lab32))
 
+    # ---- 13. scheduled durable serving: api.serve on the card --------------
+    sched_report, counts13, caps13, _ = scheduled_serving(
+        torch, np, api, ops, datasets, roster, progs, cpu, card, args.seed)
+
     # ---- 6. timing -------------------------------------------------------------
     cold = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
     it = ITERS
@@ -1400,6 +1755,111 @@ def main(argv=None) -> int:
         library_note="torch.matmul float32",
         extra={"ms_edge": graph_ms(torch, lambda: class_sum(ccl1, cwt[:1]),
                                    it)})
+    # the scheduled path's shapes (phase 13): the tile and class sums of
+    # the resident bank (K=2) and the cold path (K=1), training at the
+    # roster tile (fused_step, ta_update_sparse, the selection draw)
+    def by_k(cap):
+        """The captured calls of one wrapper, most programs first."""
+        return sorted(cap.by_shape.values(), key=lambda c: -c[0][0].shape[0])
+
+    t_calls = by_k(caps13["packed_clause_tile"])
+    err_t13 = max(compare_one(packed_clause_tile, packed_clause_tile_plain,
+                              *c_)[1] for c_ in t_calls)
+    (t_a, t_kw), t_cold = t_calls[0], t_calls[-1]
+    tK, tB, tW = t_a[0].shape
+    tR = t_a[1].shape[1]
+    c1_a, c1_kw = t_cold
+    c1K, c1B = c1_a[0].shape[:2]
+    t_neg8 = (unpack_literals(t_a[0], L) == 0).to(torch.int8)
+    row("packed_clause_tile", cu + "packed_clause.cu",
+        "src/repro/kernels/packed_clause.py:184",
+        counts13["packed_clause_tile"], err_t13,
+        lambda: packed_clause_tile(*t_a, **t_kw),
+        lambda: packed_clause_tile_plain(*t_a, **t_kw),
+        yardstick(int_mm(t_neg8, unpack_literals(t_a[1], L)), "_int_mm"),
+        4 * (tK * tB * tW + tK * tR * tW + tK * tB * tR),
+        tK * -(-tB // 8) * -(-tR // 16) * -(-tW // 8),
+        f"scheduled K={tK} B={tB} R={tR} W={tW}", rate=b1_rate,
+        library_note=f"torch._int_mm x{tK} on the unpacked operands "
+        "(violation counts)",
+        extra={"shape_cold_path": f"K={c1K} B={c1B}",
+               "ms_cold_path": graph_ms(torch, lambda: packed_clause_tile(
+                   *c1_a, **c1_kw), it),
+               "bound_ms_cold_path": bound(
+                   4 * (c1K * c1B * tW + c1K * tR * tW + c1K * c1B * tR),
+                   c1K * -(-c1B // 8) * -(-tR // 16) * -(-tW // 8),
+                   b1_rate)[0]})
+    s_calls = by_k(caps13["class_sum"])
+    err_s13 = max(compare_one(class_sum, class_sum_plain, *c_)[1]
+                  for c_ in s_calls)
+    (sc_a, _), (sc1_a, _) = s_calls[0], s_calls[-1]
+    sK, sB, sR = sc_a[0].shape
+    sH = sc_a[1].shape[1]
+    sc_f, sw_f = sc_a[0].float(), sc_a[1].float()
+    row("class_sum", cu + "class_sum.cu", "src/repro/kernels/class_sum.py:57",
+        counts13["class_sum"], err_s13, lambda: class_sum(*sc_a),
+        lambda: class_sum_plain(*sc_a),
+        lambda: torch.matmul(sc_f, sw_f.transpose(-1, -2)),
+        4 * (sK * sB * sR + sK * sH * sR + sK * sB * sH), sK * sB * sR * sH,
+        f"scheduled K={sK} B={sB} R={sR} H={sH}",
+        library_note="torch.matmul float32",
+        extra={"shape_cold_path": f"K={sc1_a[0].shape[0]}",
+               "ms_cold_path": graph_ms(torch, lambda: class_sum(*sc1_a),
+                                        it)})
+    f13_a, f13_kw = caps13["fused_step"].args     # MNIST CoTM's last step
+    front13, err_f13 = compare_all(fused_step, fused_step_plain, f13_a,
+                                   f13_kw)
+    gl, gi, gw = f13_a[0], f13_a[1], f13_a[2]
+    gK, gB, gW = gl.shape
+    gR, gH = gi.shape[1], gw.shape[1]
+    _, smem_fn = _build.entry("fused_step", "dtm_fused_step_smem",
+                              [ctypes.c_int] * 3, ctypes.c_size_t)
+    bulk13 = fused_bulk(gW, gR, all(f13_a[i].data_ptr() % 16 == 0
+                                    for i in (1, 2, 5, 6)),
+                        smem_fn(gH, gW, 1))
+    row("fused_step", cu + "fused_step.cu",
+        "src/repro/kernels/fused_step.py:150", counts13["fused_step"],
+        err_f13, lambda: fused_step(*f13_a, **f13_kw),
+        lambda: fused_step_plain(*f13_a, **f13_kw), None,
+        4 * (gK * gB * gW + gK * gR * gW + gK * gH * gR + 2 * gK * gB
+             + 2 * gK * gB * gR + gK * gR + gK * gH + 2 * gK
+             + 3 * gK * gB * gR + gK * gB * gH),
+        gK * gB * gR * gW + gK * gB * gR + int(front13[0].sum()) * gH
+        + 2 * 3 * gK * gB * gR,
+        f"scheduled roster tile K={gK} B={gB} R={gR} W={gW} H={gH} "
+        f"bulk={bulk13}",
+        bare=prepare_fused_step(*f13_a, **f13_kw)[0])
+    s13_a, s13_kw = caps13["ta_update_sparse"].args
+    s13_a = copies(s13_a)
+    _, err_sp13 = compare_all(ta_update_sparse, ta_update_sparse_plain,
+                              s13_a, s13_kw)
+    k_, c_, l_ = s13_a[0].shape
+    nb, no = ta_cost(s13_a, s13_kw, sparse=True)
+    row("ta_update_sparse", cu + "ta_update.cu",
+        "src/repro/kernels/ta_update.py:238", counts13["ta_update_sparse"],
+        err_sp13, lambda: ta_update_sparse(*s13_a, **s13_kw),
+        lambda: ta_update_sparse_plain(*s13_a, **s13_kw), None, nb, no,
+        f"scheduled roster tile K=1 2B={s13_a[1].shape[1]} C={c_} L={l_} "
+        f"active_groups={int(s13_a[8].sum())}/{-(-c_ // 128)} "
+        f"prng={s13_kw['prng']} inplace={s13_kw.get('inplace', False)}",
+        plain_graph=False, bare=prepare_ta_update_sparse(*s13_a, **s13_kw)[0],
+        nops_before=ta_cost(s13_a, s13_kw, sparse=True, earlier=True)[1])
+    size13 = 2 * 32 * gR                      # the selection draw at R
+    err_l13 = 0
+    for g, w in zip(lfsr_at(size13)(), lfsr_at(size13, lfsr_bits_plain)()):
+        check(torch.equal(g, w), "lfsr_bits differs from its plain loop at "
+              "the scheduled selection draw")
+        err_l13 = max(err_l13, int((g - w).abs().max()))
+    row("lfsr_bits", cu + "lfsr.cu", "src/repro/core/prng.py:222",
+        counts13["lfsr_bits"], err_l13, lfsr_at(size13),
+        lfsr_at(size13, lfsr_bits_plain), None, *lfsr_cost(size13),
+        f"scheduled sel_rand K=1 size={size13} lanes={n_lanes} "
+        f"steps={-(-size13 // n_lanes)} lfsr_bits=24 rand_bits=16",
+        plain_graph=False, rate=clk_hz / step_clk, iters=20)
+    check(all(counts13[k] > 0 for k in (
+        "packed_clause_tile", "class_sum", "fused_step", "ta_update_sparse",
+        "lfsr_bits")), f"the scheduled path launched {counts13}")
+
     def ms_of(name, shape):
         """``ms`` of the kernels-line row ``name`` whose shape starts
         with ``shape``."""
@@ -1516,6 +1976,7 @@ def main(argv=None) -> int:
     print(json.dumps({"serving": serving}))
     print(json.dumps({"training": training}))
     print(json.dumps({"conv": conv}))
+    print(json.dumps({"scheduler": sched_report}))
     print(json.dumps({"kernels": rows_out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,21 +6,26 @@
     sums, clauses = engine.infer(prog, engine.encode(spec, x))
 
 or the estimator shell, ``TM(spec).fit(x, y)`` / ``.partial_fit`` /
-``.predict(x)`` / ``.score(x, y)``, and :func:`stack` for a
-:class:`ProgramBank` of K programs served and trained by one launch per
-kernel (``stack(conv=True)``: a conv bank, served only).  :class:`TMSpec`
-serialises to the same JSON as the JAX package's, so specs cross between
-the two packages.
+``.predict(x)`` / ``.score(x, y)`` / ``.save(dir)`` / ``TM.load(dir)``,
+:func:`stack` for a :class:`ProgramBank` of K programs served and trained
+by one launch per kernel (``stack(conv=True)``: a conv bank, served
+only), and :func:`serve`, the scheduled multi-tenant serving stack in one
+call.  :class:`TMSpec` serialises to the same JSON as the JAX package's
+and ``TM.save`` writes its checkpoint format, so specs and saved models
+cross between the two packages.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import json
+import os
 from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch import checkpoint
 from repro_torch.core.booleanize import Booleanizer, fit_thermometer
 from repro_torch.core.device import resolve_device
 from repro_torch.core.dtm import Device, DTMEngine, DTMProgram
@@ -353,6 +358,51 @@ class TM:
             return -float(np.abs(pred - np.asarray(y)).mean())
         return accuracy(self.predict, x, y, batch=batch)
 
+    # ---- persistence (repro_torch.checkpoint: atomic, step-addressed) ------
+    def save(self, ckpt_dir: str, step: Optional[int] = None,
+             keep: int = 3) -> str:
+        """Save the TA states, weights and PRNG as step ``step`` (default:
+        the steps trained) in the JAX package's format; returns the
+        step's directory.  The JAX package's ``TM.load`` reads it."""
+        tree = {"ta": self.program.ta, "weights": self.program.weights,
+                "prng": self.prng}
+        # "auto": a backend name the JAX package's compile() accepts
+        extra = {"spec": self.spec.to_dict(),
+                 "tile": dataclasses.asdict(self.engine.tile),
+                 "backend": "auto", "steps": self.steps}
+        return checkpoint.save(ckpt_dir, self.steps if step is None else step,
+                               tree, extra=extra, keep=keep)
+
+    @classmethod
+    def load(cls, ckpt_dir: str, engine: Optional[DTMEngine] = None,
+             step: Optional[int] = None, seed: int = 0,
+             device: Device = None) -> "TM":
+        """A TM from a checkpoint of this package's or the JAX package's
+        ``TM.save`` (the newest step unless ``step``), on ``engine`` or on
+        a new engine of the saved tile on ``device`` (the card unless the
+        caller asks for another).  The include bitplane is rebuilt from
+        the restored TA states."""
+        step = checkpoint.latest_step(ckpt_dir) if step is None else step
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
+        with open(os.path.join(ckpt_dir, f"step_{step:08d}",
+                               "meta.json")) as f:
+            extra = json.load(f)["extra"]
+        spec = TMSpec.from_dict(extra["spec"])
+        if engine is None:
+            engine = compile(TileConfig(**extra["tile"]), device=device,
+                             rand_bits=spec.tm_config().rand_bits)
+        tm = cls(spec, engine=engine, seed=seed)
+        tree, _ = checkpoint.restore(
+            ckpt_dir, step,
+            like={"ta": tm.program.ta, "weights": tm.program.weights,
+                  "prng": tm.prng})
+        tm.program = engine.refresh_include(dataclasses.replace(
+            tm.program, ta=tree["ta"], weights=tree["weights"]))
+        tm.prng = tree["prng"]
+        tm.steps = int(extra.get("steps", 0))
+        return tm
+
 
 class ProgramBank:
     """K same-geometry programs stacked on a leading axis.
@@ -450,3 +500,79 @@ def stack(programs: Sequence[DTMProgram], engine: DTMEngine,
         stacked = PRNG.stack([p.to(engine.device) for p in prngs])
     return ProgramBank(engine, progs, k=len(programs), conv=conv,
                        prngs=stacked)
+
+
+def serve(roster: Optional[dict], batch_slot: int = 32,
+          device: Device = None, *, config=None,
+          slas: Optional[dict] = None, seed: int = 0,
+          durable_dir: Optional[str] = None, ckpt_keep: int = 3,
+          injector=None):
+    """The scheduled serving stack for a tenant roster in one call: a
+    :func:`tile_for`-sized engine on ``device`` (the card unless the
+    caller asks for another; no fallback), a
+    :class:`repro_torch.launch.serve_tm.TMServer` and a
+    :class:`repro_torch.launch.scheduler.TMScheduler` in front of it,
+    which it returns.  Call ``.start()`` for the background loop or
+    drive it inline with ``.step()`` / ``.drain()``.
+
+    ``roster`` maps tenant name -> :class:`TMSpec`; ``slas`` (optional)
+    name -> :class:`repro_torch.launch.scheduler.SLAClass`; ``config`` is
+    a :class:`repro_torch.launch.scheduler.SchedulerConfig`.  Tenant i
+    is lowered from ``seed + i``.  With ``durable_dir``, tenants restore
+    from their latest durable step, each applied training step marks
+    the tenant for the background checkpoint writer, and the roster
+    manifest is (re)written; ``serve(None, durable_dir=...)`` cold-starts
+    the roster from the manifest.  The directory's format is the JAX
+    package's, so a roster saved by either package starts in the other
+    (a tenant without a checkpoint is lowered from its seed, whose draw
+    differs between the packages).  ``injector`` (a
+    :class:`repro_torch.runtime.fault.FaultInjector`) plumbs a failure
+    schedule into the driver and writer.  One card: the JAX package's
+    ``mesh`` (pods) is not ported, and passing it is a ``TypeError``."""
+    # imported here: the launch layer imports this module
+    from repro_torch.launch.scheduler import SLAClass, TMScheduler
+    from repro_torch.launch.serve_tm import TMServer
+    from repro_torch.runtime.durable import DurableStore, restore_tenant
+
+    store = manifest = None
+    seeds: dict = {}
+    if durable_dir is not None:
+        store = DurableStore(durable_dir, keep=ckpt_keep)
+        manifest = store.read_manifest()
+    if manifest is not None:
+        seeds = {n: t["seed"] for n, t in manifest["tenants"].items()}
+        if roster is None:             # cold start: roster from manifest
+            roster = {n: TMSpec.from_dict(t["spec"])
+                      for n, t in manifest["tenants"].items()}
+            batch_slot = manifest.get("batch_slot", batch_slot)
+            if slas is None:
+                slas = {n: SLAClass(**t["sla"])
+                        for n, t in manifest["tenants"].items()
+                        if t.get("sla") is not None}
+    if not roster:
+        raise ValueError("serve() needs at least one tenant spec (or a "
+                         "durable_dir with a manifest to cold-start from)")
+    slas = slas or {}
+    engine = compile(tile_for(*roster.values()), device=device)
+    server = TMServer(engine, batch_slot=batch_slot)
+    sched = TMScheduler(server, config=config, durable=store,
+                        injector=injector)
+    for i, (name, spec) in enumerate(roster.items()):
+        tseed = seeds.setdefault(name, seed + i)
+        restored = (restore_tenant(store, name, engine, spec, seed=tseed)
+                    if store is not None else None)
+        if restored is not None:
+            program, prng, steps = restored
+            sched.register(name, spec, program=program, prng=prng,
+                           steps=steps, seed=tseed, sla=slas.get(name))
+        else:
+            sched.register(name, spec, seed=tseed, sla=slas.get(name))
+    if store is not None:
+        store.write_manifest({
+            "version": 1, "batch_slot": batch_slot,
+            "tenants": {
+                n: {"spec": spec.to_dict(), "seed": seeds[n],
+                    "sla": (None if slas.get(n) is None
+                            else dataclasses.asdict(slas[n]))}
+                for n, spec in roster.items()}})
+    return sched

@@ -7,12 +7,13 @@ Two request paths:
 * :meth:`TMServer.predict` swaps to one tenant and serves its request
   (the edge path when the batch slot is <= 4 rows).
 * :meth:`TMServer.enqueue` queues requests; :meth:`TMServer.flush_async`
-  runs the tenants of each stage family (flat, conv) with pending
-  requests through ONE stacked :class:`ProgramBank` launch per kernel and
-  returns without waiting; :meth:`TMServer.collect` fetches and decodes
-  (the only host-device sync of the path: flat banks decode on the
-  device, conv banks by an argmax on the host).  :meth:`TMServer.flush`
-  is the two in one.
+  runs the resident tenants of each stage family (flat, conv) with
+  pending requests through ONE stacked :class:`ProgramBank` launch per
+  kernel, and each pending tenant outside the resident roster through a
+  single-program launch (the cold path), and returns without waiting;
+  :meth:`TMServer.collect` fetches and decodes (the only host-device sync
+  of the path: flat banks decode on the device, conv banks and cold
+  requests on the host).  :meth:`TMServer.flush` is the two in one.
 
 Requests are padded to a fixed ``batch_slot`` by repeating their last row,
 and the padding is dropped from the answers.
@@ -20,22 +21,34 @@ and the padding is dropped from the answers.
 :meth:`TMServer.train` swaps to one tenant and applies one on-line
 training step to its program (on-chip training on the same datapath);
 the tenant's bank slot is then stale, and the next stacked flush writes
-the fresh program back into it.  Each tenant keeps its own PRNG and step
-count, and a lifetime clause-skip fraction (``skip_frac`` in
-:meth:`TMServer.stats`).  Single device; bank membership and the
-scheduler come in later slices.
+the fresh program back into it.  Each tenant keeps its own PRNG (made
+from ``seed + 1`` at registration), step count, and a lifetime
+clause-skip fraction (``skip_frac`` in :meth:`TMServer.stats`).
+
+Bank membership is dynamic: :meth:`TMServer.set_resident` restricts a
+family's bank roster, :meth:`TMServer.swap_resident` demotes one tenant
+and promotes another into its slot (two in-place slot writes, no
+restack), and :meth:`TMServer.add_resident` grows the roster (a restack
+at the next flush).  The scheduler (:mod:`repro_torch.launch.scheduler`)
+drives these.  Every device operation of the server runs on the
+device's current stream, the one stream the scheduler and its
+checkpoint writer share: bank slot writes, pipelined flushes and the
+writer's copies are ordered by it.  :meth:`TMServer.snapshot` copies a
+tenant's durable state under the server's lock, so a later in-place
+write cannot reach the copy.  Single device: pods are not ported.
 """
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import api
-from repro_torch.api import ProgramBank, TMSpec
+from repro_torch.api import TM, ProgramBank, TMSpec
 from repro_torch.core.dtm import DTMEngine, DTMProgram
 from repro_torch.core.prng import PRNG
 
@@ -44,14 +57,25 @@ from repro_torch.core.prng import PRNG
 class _Tenant:
     spec: TMSpec
     program: DTMProgram
-    prng: Optional[PRNG] = None   # made from seed + 1 at the first train
-    seed: int = 0
+    prng: PRNG
     steps: int = 0                # lifetime applied training steps
+
+
+@dataclasses.dataclass(frozen=True)
+class Route:
+    """Where a tenant's program lives: its family's bank (``conv``), the
+    slot ``index`` in it, and the device (always 0: one card) and slot
+    on that device."""
+
+    device: int
+    slot: int
+    index: int
+    conv: bool
 
 
 @dataclasses.dataclass
 class PendingFlush:
-    """One launched stacked flush whose results are not fetched yet."""
+    """One launched flush whose results are not fetched yet."""
 
     t0: float                       # flush_async entry time
     served: Dict[str, float]        # tenant -> enqueue time
@@ -60,6 +84,8 @@ class PendingFlush:
     # preds and votes [K, B] int32 (flat), or sums [K, B, H] and clauses
     # [K, B, R] (conv))
     hot: List[Tuple[bool, List[str], torch.Tensor, torch.Tensor]]
+    # per non-resident tenant: (name, sums [B, H], clauses [B, R])
+    cold: List[Tuple[str, torch.Tensor, torch.Tensor]]
 
 
 class TMServer:
@@ -76,11 +102,20 @@ class TMServer:
         self.requests = 0
         self.stacked_launches = 0
         self.coalesced_requests = 0
+        self.cold_requests = 0
+        self.membership_swaps = 0
         self._pending: List[Tuple[str, torch.Tensor, int, float]] = []
         self._banks: Dict[bool, Tuple[List[str], ProgramBank]] = {}
+        # per family: the resident roster in slot order (None: every
+        # registered tenant)
+        self._membership: Dict[bool, Optional[List[str]]] = {}
+        self._decode_info: Dict[str, Tuple[bool, int]] = {}
         self._last_flush: Dict[str, float] = {}
         self._dirty: set = set()    # trained tenants whose bank slot is stale
         self._skip_acc: Dict[str, List[int]] = {}   # [active, total] groups
+        # guards a tenant's (program, PRNG, steps) commit against
+        # snapshot(), and the containers stats() reads
+        self._lock = threading.RLock()
 
     # ---- tenant management ------------------------------------------------
     def register(self, name: str, spec: TMSpec,
@@ -89,19 +124,37 @@ class TMServer:
         """Admit a model: lower its spec (drawing the program from
         ``seed``) or adopt an already-lowered ``program``.  ``prng`` and
         ``steps`` resume a tenant mid-stream; by default its PRNG is made
-        from ``seed + 1`` when it first trains."""
+        from ``seed + 1`` and its step count starts at 0."""
+        dev = self.engine.device
         if program is None:
             program = self.engine.lower(
                 spec, torch.Generator().manual_seed(seed))
-        if prng is not None:
-            prng = prng.to(self.engine.device)
-        if name in self.tenants:            # its old family loses it
-            self._banks.pop(self._is_conv(name), None)
-        self.tenants[name] = _Tenant(spec, program.to(self.engine.device),
-                                     prng, seed, steps)
-        # the family's roster changed: restack it at its next flush
-        self._banks.pop(spec.kind == "conv", None)
-        self._skip_acc.pop(name, None)
+        prng = (PRNG.create(spec.tm_config(), seed + 1, device=dev)
+                if prng is None else prng.to(dev))
+        self._put(name, _Tenant(spec, program.to(dev), prng, steps))
+
+    def adopt(self, name: str, tm: TM):
+        """Admit a trained :class:`repro_torch.api.TM` (same tile geometry
+        as this server's engine)."""
+        if tm.engine.tile != self.engine.tile:
+            raise ValueError("tile geometry mismatch: the estimator's "
+                             f"{tm.engine.tile} vs {self.engine.tile}")
+        dev = self.engine.device
+        self._put(name, _Tenant(tm.spec, tm.program.to(dev),
+                                tm.prng.to(dev)))
+
+    def _put(self, name: str, tenant: _Tenant) -> None:
+        with self._lock:
+            if name in self.tenants:        # its old family loses it
+                self._banks.pop(self._is_conv(name), None)
+            self.tenants[name] = tenant
+            # the family's roster changed: restacked at its next flush
+            self._banks.pop(tenant.spec.kind == "conv", None)
+            self._decode_info[name] = (tenant.spec.kind == "regression",
+                                       int(tenant.spec.tm_config().T))
+            # a (re-)registered tenant is a new model: skip accounting anew
+            self._skip_acc.pop(name, None)
+            self._dirty.discard(name)
 
     def _swap_to(self, name: str) -> _Tenant:
         tenant = self.tenants[name]
@@ -129,9 +182,9 @@ class TMServer:
 
     def _decode(self, name: str, preds: np.ndarray, votes: np.ndarray
                 ) -> np.ndarray:
-        spec = self.tenants[name].spec
-        if spec.kind == "regression":
-            return votes.astype(np.float32) / spec.tm_config().T
+        is_reg, t = self._decode_info[name]
+        if is_reg:
+            return votes.astype(np.float32) / t
         return preds
 
     # ---- request paths ----------------------------------------------------
@@ -141,11 +194,16 @@ class TMServer:
         self.requests += 1
         lits, n = self._encode_request(tenant, x, encoded)
         sums, cl = self.engine.infer_fn(tenant.spec)(tenant.program, lits)
-        if tenant.spec.kind == "regression":
-            t = tenant.spec.tm_config().T
-            votes = cl.sum(dim=-1).clamp(0, t).cpu().numpy()
-            return self._decode(name, None, votes)[:n]
-        return torch.argmax(sums, dim=-1).cpu().numpy()[:n]
+        return self._decode_one(name, sums, cl)[:n]
+
+    def _decode_one(self, name: str, sums: torch.Tensor, cl: torch.Tensor
+                    ) -> np.ndarray:
+        """One tenant's [B] answers from its engine outputs (fetched)."""
+        is_reg, t = self._decode_info[name]
+        if is_reg:
+            return self._decode(name, None,
+                                cl.sum(dim=-1).clamp(0, t).cpu().numpy())
+        return torch.argmax(sums, dim=-1).cpu().numpy()
 
     def train(self, name: str, x, y, encoded: bool = False) -> dict:
         """Swap to tenant ``name`` and apply one training step to its
@@ -165,20 +223,28 @@ class TMServer:
             lits = self.engine.encode(tenant.spec, np.asarray(x))
             lab = tenant.spec.encode_labels(np.asarray(y)).to(
                 self.engine.device)
-        if tenant.prng is None:
-            tenant.prng = PRNG.create(tenant.spec.tm_config(),
-                                      tenant.seed + 1,
-                                      device=self.engine.device)
         step = self.engine.train_fn(tenant.spec)
-        tenant.program, tenant.prng, stats = step(tenant.program,
-                                                  tenant.prng, lits, lab)
-        self._dirty.add(name)       # its bank slot is stale until a flush
-        tenant.steps += 1
+        program, prng, stats = step(tenant.program, tenant.prng, lits, lab)
         host = dict(zip(stats, torch.stack(list(stats.values())).tolist()))
-        acc = self._skip_acc.setdefault(name, [0, 0])
-        acc[0] += host["active_groups"]
-        acc[1] += host["total_groups"]
+        with self._lock:
+            tenant.program, tenant.prng = program, prng
+            tenant.steps += 1
+            self._dirty.add(name)    # its bank slot is stale until a flush
+            acc = self._skip_acc.setdefault(name, [0, 0])
+            acc[0] += host["active_groups"]
+            acc[1] += host["total_groups"]
         return host
+
+    def snapshot(self, name: str) -> Tuple[int, dict]:
+        """``(steps, {"ta", "weights", "prng"})`` of one tenant, copied on
+        the device under the server's lock: a consistent image that no
+        later training step, bank slot write or in-place update reaches
+        (the durable writer's input)."""
+        with self._lock:
+            t = self.tenants[name]
+            return t.steps, {"ta": t.program.ta.clone(),
+                             "weights": t.program.weights.clone(),
+                             "prng": t.prng.map(torch.clone)}
 
     def skip_frac(self, name: str) -> Optional[float]:
         """Lifetime clause-skip fraction of a tenant's on-line training
@@ -191,12 +257,88 @@ class TMServer:
     def _is_conv(self, name: str) -> bool:
         return self.tenants[name].spec.kind == "conv"
 
-    def _bank_for(self, conv: bool) -> Tuple[List[str], ProgramBank]:
-        """The resident bank over every tenant of a stage family (flat or
-        conv), built once per roster; slots of tenants trained since are
-        rewritten first."""
+    # ---- bank membership ----------------------------------------------------
+    def _group_names(self, conv: bool) -> List[str]:
+        member = self._membership.get(conv)
+        if member is not None:
+            return [n for n in member if n in self.tenants]
+        return sorted(n for n in self.tenants if self._is_conv(n) == conv)
+
+    def resident_names(self, conv: Optional[bool] = None) -> List[str]:
+        """The tenants the stacked bank launch serves (one family, or
+        both): the membership if one was set, else every tenant."""
+        fams = (False, True) if conv is None else (conv,)
+        return [n for c in fams for n in self._group_names(c)]
+
+    def set_resident(self, names: Sequence[str], conv: bool = False) -> None:
+        """Restrict one family's bank roster to ``names`` (slot order).
+        The others stay registered; their requests take the cold path
+        until :meth:`swap_resident` or :meth:`add_resident` promotes
+        them."""
+        names = list(names)
+        if len(set(names)) != len(names):
+            raise ValueError(f"duplicate resident names {names}")
+        for n in names:
+            if self._is_conv(n) != conv:
+                raise ValueError(f"{n!r} is not of the "
+                                 f"{'conv' if conv else 'flat'} family")
+        with self._lock:
+            self._membership[conv] = names
+            self._banks.pop(conv, None)
+
+    def _member(self, conv: bool) -> List[str]:
+        member = self._membership.get(conv)
+        if member is None:
+            raise ValueError("set_resident() first")
+        return member
+
+    def swap_resident(self, out_name: str, in_name: str) -> Optional[Route]:
+        """Demote ``out_name`` (its program is read back from its slot)
+        and promote ``in_name`` into that slot: two in-place slot
+        operations, no restack.  Returns the slot's :class:`Route`, or
+        ``None`` when the bank was not built yet (only the roster
+        changed)."""
+        conv = self._is_conv(in_name)
+        if self._is_conv(out_name) != conv:
+            raise ValueError("swap_resident stays within one family")
+        member = self._member(conv)
+        if out_name not in member or in_name in member:
+            raise ValueError(f"cannot swap {out_name!r} out for {in_name!r}"
+                             f" in the roster {member}")
+        self.membership_swaps += 1
         if conv not in self._banks:
-            names = sorted(n for n in self.tenants if self._is_conv(n) == conv)
+            with self._lock:
+                member[member.index(out_name)] = in_name
+            return None
+        names, bank = self._bank_for(conv)      # rewrites stale slots
+        idx = names.index(out_name)
+        self.tenants[out_name].program = bank.swap_out(idx)
+        bank.swap_in(idx, self.tenants[in_name].program)
+        with self._lock:
+            names[idx] = in_name
+            member[member.index(out_name)] = in_name
+            self._dirty.discard(in_name)
+        return Route(device=0, slot=idx, index=idx, conv=conv)
+
+    def add_resident(self, in_name: str) -> Optional[Route]:
+        """Promote ``in_name`` without demoting anyone: the roster grows
+        and the bank restacks at the next flush (one device has no pad
+        slots to fill in place).  Returns ``None``."""
+        conv = self._is_conv(in_name)
+        member = self._member(conv)
+        if in_name in member:
+            raise ValueError(f"{in_name!r} is resident already")
+        self.membership_swaps += 1
+        with self._lock:
+            member.append(in_name)
+            self._banks.pop(conv, None)
+        return None
+
+    def _bank_for(self, conv: bool) -> Tuple[List[str], ProgramBank]:
+        """The resident bank of a family (flat or conv), built once per
+        roster; slots of tenants trained since are rewritten first."""
+        if conv not in self._banks:
+            names = self._group_names(conv)
             self._banks[conv] = (names, api.stack(
                 [self.tenants[n].program for n in names], self.engine,
                 conv=conv))
@@ -207,17 +349,27 @@ class TMServer:
         self._dirty -= set(names)
         return names, bank
 
+    # ---- stacked serving ------------------------------------------------------
     def enqueue(self, name: str, x, encoded: bool = False) -> None:
         """Queue an inference request for the next stacked flush."""
         lits, n = self._encode_request(self.tenants[name], x, encoded)
         self._pending.append((name, lits, n, time.perf_counter()))
 
+    def abandon_pending(self) -> int:
+        """Drop every enqueued, unlaunched request (fault recovery: the
+        scheduler failed their futures, and their literals must not ride
+        the next flush).  Returns the number dropped."""
+        n = len(self._pending)
+        self._pending = []
+        return n
+
     def flush_async(self) -> Optional[PendingFlush]:
-        """Launch the pending requests, one stacked bank launch per stage
-        family (flat, conv) that has any, and return without fetching
-        (``None`` when nothing is pending).  Idle slots replay a pending
-        tenant's literals; their outputs are dropped.  A tenant that
-        queued twice is served its last request."""
+        """Launch the pending requests and return without fetching
+        (``None`` when nothing is pending: no bank build, no launch).
+        One stacked bank launch per family with resident requests (idle
+        slots replay a pending tenant's literals; their outputs are
+        dropped), one single-program launch per non-resident tenant.  A
+        tenant that queued twice is served its last request."""
         if not self._pending:
             return None
         pending, self._pending = self._pending, []
@@ -226,11 +378,12 @@ class TMServer:
         for name, lits, n, t_enq in pending:
             by_name[name] = (lits, n, t_enq)
             self.requests += 1
-        hot = []
+        hot, cold, claimed = [], [], set()
         for conv in (False, True):
-            req = [n for n in by_name if self._is_conv(n) == conv]
+            req = [n for n in self._group_names(conv) if n in by_name]
             if not req:
                 continue
+            claimed.update(req)
             names, bank = self._bank_for(conv)
             filler = by_name[req[0]][0]
             lits = [by_name[n][0] if n in by_name else filler for n in names]
@@ -238,10 +391,18 @@ class TMServer:
             hot.append((conv, list(names), *out))
             self.stacked_launches += 1
             self.coalesced_requests += len(req)
+        for name in by_name:
+            if name in claimed:
+                continue
+            tenant = self.tenants[name]
+            sums, cl = self.engine.infer_fn(tenant.spec)(tenant.program,
+                                                         by_name[name][0])
+            self.cold_requests += 1
+            cold.append((name, sums, cl))
         return PendingFlush(t0=t0,
                             served={n: v[2] for n, v in by_name.items()},
                             n_real={n: v[1] for n, v in by_name.items()},
-                            hot=hot)
+                            hot=hot, cold=cold)
 
     def collect(self, pf: Optional[PendingFlush]) -> Dict[str, np.ndarray]:
         """Fetch and decode a :class:`PendingFlush`; records each served
@@ -260,9 +421,12 @@ class TMServer:
                     n = pf.n_real[name]
                     out[name] = self._decode(
                         name, preds[k], None if conv else votes[k])[:n]
+        for name, sums, cl in pf.cold:
+            out[name] = self._decode_one(name, sums, cl)[:pf.n_real[name]]
         t_done = time.perf_counter()
-        for name, t_enq in pf.served.items():
-            self._last_flush[name] = t_done - t_enq
+        with self._lock:
+            for name, t_enq in pf.served.items():
+                self._last_flush[name] = t_done - t_enq
         return out
 
     def flush(self) -> Dict[str, np.ndarray]:
@@ -303,14 +467,56 @@ class TMServer:
         return self.tenants[name].program.nbytes
 
     def stats(self) -> dict:
-        return {"tenants": sorted(self.tenants), "requests": self.requests,
-                "swaps": self.swaps, "cache": self.engine.cache_report(),
-                "stacked_launches": self.stacked_launches,
-                "coalesced_requests": self.coalesced_requests,
-                "queue_depth": len(self._pending),
-                "last_flush_latency_s": dict(sorted(
-                    self._last_flush.items())),
-                "program_nbytes": {n: self.program_nbytes(n)
-                                   for n in sorted(self.tenants)},
-                "skip_frac": {n: self.skip_frac(n)
-                              for n in sorted(self.tenants)}}
+        with self._lock:
+            resident = self.resident_names()
+            names = sorted(self.tenants)
+            return {"tenants": names, "requests": self.requests,
+                    "swaps": self.swaps, "cache": self.engine.cache_report(),
+                    "pod_devices": 1,
+                    "stacked_launches": self.stacked_launches,
+                    "coalesced_requests": self.coalesced_requests,
+                    "queue_depth": len(self._pending),
+                    "resident_tenants": len(resident),
+                    "swapped_tenants": len(names) - len(resident),
+                    "resident": sorted(resident),
+                    "cold_requests": self.cold_requests,
+                    "membership_swaps": self.membership_swaps,
+                    "last_flush_latency_s": dict(sorted(
+                        self._last_flush.items())),
+                    "program_nbytes": {n: self.program_nbytes(n)
+                                       for n in names},
+                    "skip_frac": {n: self.skip_frac(n) for n in names}}
+
+
+# ---------------------------------------------------------------------------
+# demo roster
+# ---------------------------------------------------------------------------
+
+def demo_specs(small: bool = True) -> Dict[str, TMSpec]:
+    """One spec per TM kind: the five-variant multi-tenant roster."""
+    rng = np.random.default_rng(0)
+    f, c = (32, 24) if small else (256, 128)
+    calib = rng.standard_normal((64, 8)).astype(np.float32)
+    return {
+        "cotm": TMSpec.coalesced(features=f, classes=4, clauses=c, T=16,
+                                 s=4.0),
+        "vanilla": TMSpec.vanilla(features=f, classes=4,
+                                  clauses=max(c // 4, 4), T=16, s=4.0),
+        "conv": TMSpec.conv(img_h=8, img_w=8, patch=3, classes=3,
+                            clauses=c, T=12, s=3.0),
+        "regression": TMSpec.regression(features=f, clauses=c, T=64, s=3.0),
+        "head": TMSpec.head(calib, classes=3, therm_bits=4,
+                            clauses=c, T=16, s=4.0),
+    }
+
+
+def demo_batch(spec: TMSpec, batch: int, seed: int = 1) -> np.ndarray:
+    """A request of ``batch`` rows for ``spec`` from ``seed``."""
+    rng = np.random.default_rng(seed)
+    if spec.kind == "conv":
+        return (rng.random((batch, spec.img_h, spec.img_w)) < 0.3
+                ).astype(np.int8)
+    if spec.kind == "head":
+        return rng.standard_normal(
+            (batch, spec.thresholds.shape[0])).astype(np.float32)
+    return (rng.random((batch, spec.features)) < 0.5).astype(np.int8)
