@@ -125,6 +125,30 @@ Scheduled durable serving:
      launches counted from the first scheduled request to the end of
      the fault stacks.
 
+Threefry and the plain datapath:
+ 14. the MNIST CoTM at full width with ``prng_backend="threefry"`` on
+     phase 7's engine: ``threefry_bits`` (split and words of a threefry
+     ``PRNG.bits`` call in one launch) against its plain version on the
+     flat step's three draws (32, 131,072 and 2 words), the program draw
+     (2,000 x 1,568 TA words without the split, 10 x 2,000 weight words),
+     a K=2 bank, sizes 1, 255 and 1,025 at rand_bits 8, 16 and 32 and
+     seeds 0, 1, -5 and 2^32 + 5 (keys and words equal); the program
+     lowered on the card from ``PRNGKey(seed)`` against the CPU engine's
+     (timed: ``lower_ms``); ``TM(spec, seed).fit`` of 2 epochs of 32-row
+     batches under ``set_sync_debug_mode("error")``, its first two steps
+     replayed on the CPU engine and equal; 4 edge ``partial_fit`` steps
+     and a K=2 ``ProgramBank.train`` step, each against the CPU engine;
+     the host step time and one profiled step beside phase 7's.  The
+     kernels line gains the ``threefry_bits`` row (the selection draw;
+     the program draw's two calls as extra keys).
+ 15. ``compile(kernel_path="ref")`` on the card (every clause, class-sum
+     and TA stage through its plain version): one stacked flush of the
+     serving roster against the default flush's answers, 8 train steps
+     of phase 7's model from its starting program and PRNG against the
+     default engine's, and one K=2 bank step against phase 9's; the
+     counts over the phase show no launch of the nine clause and TA
+     kernels and the lfsr draws' launches.
+
 Bounds: bytes over 3.35 TB/s; integer operations over 64 per clock per
 SM (the CUDA guide's rate for 32-bit integer add, logic, shift, compare
 and multiply-add on compute capability 9.0) × the SM count × the card's
@@ -155,13 +179,18 @@ at the probe's measured rate, and its ``bound_ms_before`` is the LOP3
 count at the integer rate.  ``lfsr_bits`` is bound by the larger of its
 int64 words' bytes and one lane's chain of ``steps`` dependent Galois
 steps, at the clocks per step that ``lfsr_chain_probe`` measures, over
-the maximum SM clock.  No kernel here does float work.
+the maximum SM clock.  ``threefry_bits`` is bound by the larger of its
+int64 words' bytes and ``THREEFRY_OPS`` integer instructions a word at
+the SM's issue rate, 128 a clock (its mix of adds, rotates and xors
+spreads over more than one integer pipe, and ran above 64 a clock).  No
+kernel here does float work.
 
-Prints the card line, ``serving``, ``training``, ``conv`` and
-``scheduler`` JSON lines, a ``kernels`` JSON line and, last,
-``{"ok": true, "device": {...}}``.  Any failed check raises, and the exit
-code is then non-zero.  Without a CUDA card, or without the repository
-beside it, it exits non-zero and prints no result.
+Prints the card line, ``serving``, ``training``, ``conv``,
+``scheduler``, ``threefry`` and ``ref_path`` JSON lines, a ``kernels``
+JSON line and, last, ``{"ok": true, "device": {...}}``.  Any failed
+check raises, and the exit code is then non-zero.  Without a CUDA card,
+or without the repository beside it, it exits non-zero and prints no
+result.
 """
 from __future__ import annotations
 
@@ -191,6 +220,14 @@ TA_REFRESH_OPS = 2             # lfsr with seed_refresh: cycle count add, compar
 TA_DELTA_OPS = 6               # rand < p_ta, literal bit, Type I select and add,
                                # Type II test and add, per (TA, row with feedback)
 TA_CLIP_OPS = 3                # clip to [0, n_states - 1], the include compare
+THREEFRY_OPS = 74              # a threefry word: 20 rounds of add, rotate, xor
+                               # (60), six two-add key injections (12), the
+                               # output xor and shift (2)
+ISSUE_PER_CLOCK_PER_SM = 128   # 4 schedulers x one warp instruction a clock:
+                               # the most instructions an SM can issue; the
+                               # threefry kernel's mix of adds (some as IMAD on
+                               # the FMA pipe), rotates and xors runs above the
+                               # 64 a clock of any one integer pipe
 ROUNDS = 4                   # stacked flushes, each 4 tenants x 32 requests
 EDGE = 4                     # single-datapoint requests per tenant
 ITERS = 200                  # kernel calls per timing graph
@@ -708,6 +745,255 @@ def scheduled_serving(torch, np, api, ops, datasets, roster, progs, cpu,
     return report, counts, caps, sched
 
 
+def threefry_phase(torch, np, api, ops, tm_paper, eng, eng_cpu, x_tr, y_tr,
+                   card: str, seed: int):
+    """Phase 14: the MNIST CoTM at full width with ``prng_backend=
+    "threefry"`` on the training engine (L=1664, R=2048, H=16, W=52).
+    Returns (report, the launches of its main paths, the kernel's largest
+    difference from its plain version, the keys its kernel row times)."""
+    from repro_torch.core import threefry
+    from repro_torch.core.dtm import STAT_KEYS
+    from repro_torch.core.prng import PRNG
+    from repro_torch.kernels.threefry import threefry_bits, threefry_bits_plain
+    t_phase = time.perf_counter()
+    spec = paper_spec(api, tm_paper.TM_MNIST_COTM, "threefry")
+    spec_v = paper_spec(api, tm_paper.TM_MNIST_VANILLA, "threefry")
+    cfg = spec.tm_config()
+    rows, lits = cfg.total_clauses, cfg.literals
+    sel = 2 * 32 * eng.R
+
+    # the program draw on the card, timed, and the CPU engine's
+    lower_s = []
+    for _ in range(5):
+        t = time.perf_counter()
+        prog = eng.lower(spec, threefry.key(seed, "cuda"))
+        torch.cuda.synchronize()
+        lower_s.append(time.perf_counter() - t)
+    t = time.perf_counter()
+    prog_cpu = eng_cpu.lower(spec, threefry.key(seed, "cpu"))
+    lower_cpu_s = time.perf_counter() - t
+    check(same_state(torch, prog, prog_cpu),
+          "the card's program draw differs from the CPU engine's")
+    tm = api.TM(spec, engine=eng, seed=seed)
+    p0, r0 = tm.program.to("cpu"), tm.prng.to("cpu")
+    check(same_state(torch, tm.program, prog)
+          and same_state(torch, r0, PRNG.create(cfg, seed + 1, device="cpu")),
+          "TM(spec, seed) did not lower from PRNGKey(seed)")
+
+    # the kernel against its plain version: the flat step's three draws
+    # from the fit's starting key, the program draw (TA words without the
+    # split, the weights' with it), a K=2 bank, sizes off the block, word
+    # widths and seeds past 32 bits and below zero
+    k_fit = tm.prng.state[None]
+    k_prog = threefry.key(seed, "cuda")[None]
+    k_ta = threefry.split(k_prog)[0]
+    cases = [(k_fit, n_, 16, True) for n_ in (32, sel, 2)]
+    cases += [(k_ta, rows * lits, 1, False),
+              (k_prog, cfg.classes * cfg.clauses, 1, True),
+              (torch.stack([threefry.key(seed + k, "cuda") for k in (0, 1)]),
+               sel, 16, True)]
+    for s_ in (0, 1, -5, 2 ** 32 + 5):
+        for n_ in (1, 255, 1025):
+            for rb in (8, 16, 32):
+                cases.append((threefry.key(s_, "cuda")[None], n_, rb, True))
+    err = 0
+    for keys, size, rb, split in cases:
+        got = threefry_bits(keys, size, rb, split)
+        want = threefry_bits_plain(keys, size, rb, split)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            check(g.shape == w.shape and torch.equal(g, w),
+                  f"threefry_bits differs from its plain version at keys "
+                  f"{tuple(keys.shape)} size {size} rand_bits {rb} split "
+                  f"{split}")
+            err = max(err, int((g - w).abs().max()) if g.numel() else 0)
+
+    # the fit (counts from 0 just before, read just after)
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    hist = tm.fit(x_tr, y_tr, epochs=2, batch=32,
+                  rng=np.random.default_rng(seed), sync_guard=True)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t
+    counts_fit = ops.launch_counts()
+    steps = 2 * (len(x_tr) // 32)
+    check(counts_fit["fused_step"] == steps
+          and counts_fit["ta_update_sparse"] == steps
+          and counts_fit["threefry_bits"] == 3 * steps
+          and counts_fit["lfsr_bits"] == 0,
+          f"the threefry fit launched {counts_fit}")
+    paths = eng.cache_report()["path_per_stage"]
+    check({k: paths[k] for k in ("train", "train_ta", "train_prng")} == {
+        "train": "fused", "train_ta": "compact",
+        "train_prng": "counter-inkernel"}, f"threefry fit paths {paths}")
+    check(hist[-1]["train_acc"] > 1.0 / spec.classes,
+          f"threefry fit accuracy {hist[-1]['train_acc']}")
+    plan = np.random.default_rng(seed).permutation(len(x_tr)).reshape(-1, 32)
+    pg, rg, pc, rc = p0.to("cuda"), r0.to("cuda"), p0, r0
+    for s_ in range(2):
+        xb, lab = x_tr[plan[s_]], spec.encode_labels(y_tr[plan[s_]])
+        pg, rg, sg = eng.train_step(pg, rg, eng.encode(spec, xb), lab.cuda())
+        pc, rc, sc = eng_cpu.train_step(pc, rc, eng_cpu.encode(spec, xb), lab)
+        check(same_state(torch, pg, pc) and same_state(torch, rg, rc)
+              and all(int(sg[k]) == int(sc[k]) for k in STAT_KEYS),
+              f"threefry fit step {s_} on the card differs from the CPU "
+              "engine")
+
+    # edge: 4 partial_fit steps at B=1, each against the CPU engine
+    tm_e = api.TM(spec, engine=eng, seed=seed + 1)
+    pc, rc = tm_e.program.to("cpu"), tm_e.prng.to("cpu")
+    ops.reset_launch_counts()
+    for i in range(4):
+        xb, yb = x_tr[i:i + 1], y_tr[i:i + 1]
+        sg = tm_e.partial_fit(xb, yb)
+        pc, rc, sc = eng_cpu.train_step(pc, rc, eng_cpu.encode(spec, xb),
+                                        spec.encode_labels(yb))
+        check(same_state(torch, tm_e.program, pc)
+              and same_state(torch, tm_e.prng, rc)
+              and all(int(sg[k]) == int(sc[k]) for k in STAT_KEYS),
+              f"threefry edge step {i} differs from the CPU engine")
+    counts_edge = ops.launch_counts()
+    check(counts_edge["packed_clause_eval"] == 4
+          and counts_edge["threefry_bits"] == 12
+          and counts_edge["ta_update_sparse"] == 4,
+          f"threefry edge training launched {counts_edge}")
+
+    # bank: MNIST CoTM + MNIST Vanilla, K=2, lowered on the card from keys
+    b_specs = (spec, spec_v)
+    b_progs = [eng.lower(sp, threefry.key(seed + 2 + k, "cuda"))
+               for k, sp in enumerate(b_specs)]
+    b_prngs = [PRNG.create(sp.tm_config(), seed + 4 + k, device="cuda")
+               for k, sp in enumerate(b_specs)]
+    bank = api.stack(b_progs, eng, prngs=b_prngs)
+    cpu_bank = api.stack([q.to("cpu") for q in b_progs], eng_cpu,
+                         prngs=[q.to("cpu") for q in b_prngs])
+    b_lits = torch.stack([eng.encode(sp, x_tr[32 * k:32 * (k + 1)])
+                          for k, sp in enumerate(b_specs)])
+    b_y = np.stack([y_tr[32 * k:32 * (k + 1)] for k in range(2)])
+    ops.reset_launch_counts()
+    bst = bank.train(b_lits, b_y)
+    counts_bank = ops.launch_counts()
+    check(counts_bank["fused_step"] == 1 and counts_bank["ta_update"] == 1
+          and counts_bank["threefry_bits"] == 3,
+          f"the threefry bank step launched {counts_bank}")
+    cst = cpu_bank.train(b_lits.cpu(), b_y)
+    check(same_state(torch, bank.progs, cpu_bank.progs)
+          and same_state(torch, bank.prngs, cpu_bank.prngs)
+          and all(torch.equal(bst[k].cpu(), cst[k]) for k in STAT_KEYS),
+          "the threefry bank step on the card differs from the CPU engine")
+
+    # the step's host time and one profiled step, from the fit's end
+    lits32 = eng.encode(spec, x_tr[:32])
+    lab32 = spec.encode_labels(y_tr[:32]).cuda()
+    step_s = []
+    for _ in range(10):
+        t = time.perf_counter()
+        eng.train_step(tm.program, tm.prng, lits32, lab32)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+    prof = profile_flush(torch, lambda: eng.train_step(
+        tm.program, tm.prng, lits32, lab32), captures=3)
+    report = {
+        "card": card, "model": "MNIST CoTM (784 f, 2000 clauses, 10 "
+        "classes, T=500, s=10, ta_bits 8), prng_backend threefry",
+        "engine": {"L": eng.L, "R": eng.R, "H": eng.H, "W": eng.W},
+        "kernel_cases": len(cases), "fit_s": fit_s,
+        "epoch_s": tm.epoch_seconds,
+        "steps_per_s": [(len(x_tr) // 32) / e for e in tm.epoch_seconds],
+        "train_acc": [h["train_acc"] for h in hist],
+        "step_ms_median": float(np.median(step_s) * 1e3),
+        "step_ms": [s_ * 1e3 for s_ in step_s], "step_profile": prof,
+        "lower_ms": [s_ * 1e3 for s_ in lower_s],
+        "lower_ms_median_after_first": float(np.median(lower_s[1:]) * 1e3),
+        "lower_cpu_ms": lower_cpu_s * 1e3,
+        "launches": {"fit": counts_fit, "edge": counts_edge,
+                     "bank": counts_bank},
+        "phase_s": time.perf_counter() - t_phase}
+    launches = sum(c["threefry_bits"] for c in (counts_fit, counts_edge,
+                                                 counts_bank))
+    return report, launches, err, {"fit": k_fit, "prog": k_prog, "ta": k_ta,
+                                   "sel": sel, "ta_words": rows * lits,
+                                   "w_words": cfg.classes * cfg.clauses}
+
+
+def ref_phase(torch, np, api, ops, tile, server, reqs, want_answers, eng,
+              p0, r0, spec, x_tr, y_tr, bank_start, bank_end, card: str):
+    """Phase 15: the forced plain datapath, ``compile(kernel_path="ref")``,
+    on the card: one stacked flush of the serving roster (K=4, B=32,
+    L=3200, R=4224), 8 train steps of phase 7's model from its starting
+    program and PRNG and one K=2 bank step, each against the default
+    engine's.  The counts run from 0 at the flush to the bank step: no
+    clause or TA kernel may launch, the PRNG's still do."""
+    from repro_torch.core.dtm import STAT_KEYS
+    t_phase = time.perf_counter()
+    B, n_steps = 32, 8
+    plan = np.random.default_rng(7).permutation(len(x_tr))[:n_steps * B]
+    batches = [(eng.encode(spec, x_tr[ib]), spec.encode_labels(
+        y_tr[ib]).cuda()) for ib in plan.reshape(n_steps, B)]
+    # the default engine's steps first, outside the counted window
+    want = []
+    pg, rg = p0.to("cuda"), r0.to("cuda")
+    for lits_, lab_ in batches:
+        pg, rg, st = eng.train_step(pg, rg, lits_, lab_)
+        want.append((pg, rg, st))
+    ref_serve = api.compile(tile, device="cuda", kernel_path="ref")
+    ref_train = api.compile(eng.tile, device="cuda", kernel_path="ref")
+    srv = server(ref_serve, B)
+    (b_progs, b_prngs, b_lits, b_y), (bank_progs, bank_prngs, bst) = \
+        bank_start, bank_end
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    for n, x in reqs.items():
+        srv.enqueue(n, x[:B])
+    t = time.perf_counter()
+    got = srv.flush()
+    torch.cuda.synchronize()
+    flush_s = time.perf_counter() - t
+    for n in reqs:
+        check(np.array_equal(got[n], want_answers[n]),
+              f"the ref flush's answers of {n} differ from the default's")
+    pg, rg = p0.to("cuda"), r0.to("cuda")
+    step_s = []
+    for s_, (lits_, lab_) in enumerate(batches):
+        t = time.perf_counter()
+        pg, rg, st = ref_train.train_step(pg, rg, lits_, lab_)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        wp, wr, ws = want[s_]
+        check(same_state(torch, pg, wp) and same_state(torch, rg, wr)
+              and all(int(st[k]) == int(ws[k]) for k in STAT_KEYS),
+              f"ref step {s_} differs from the default engine's")
+    rbank = api.stack(b_progs, ref_train, prngs=b_prngs)
+    t = time.perf_counter()
+    rst = rbank.train(b_lits, b_y)
+    torch.cuda.synchronize()
+    bank_s = time.perf_counter() - t
+    counts = ops.launch_counts()
+    check(same_state(torch, rbank.progs, bank_progs)
+          and same_state(torch, rbank.prngs, bank_prngs)
+          and all(torch.equal(rst[k], bst[k]) for k in STAT_KEYS),
+          "the ref bank step differs from the default engine's")
+    nine = ("packed_clause_eval", "packed_clause_tile", "class_sum",
+            "fused_step", "ta_update", "ta_update_sparse", "clause_eval",
+            "tm_infer", "ta_update_streamed")
+    check(all(counts[k] == 0 for k in nine)
+          and counts["lfsr_bits"] == 3 * n_steps,
+          f"the ref phase launched {counts}")
+    paths = {**ref_serve.cache_report()["path_per_stage"],
+             **ref_train.cache_report()["path_per_stage"]}
+    check(paths == {"infer_bank": "ref", "train": "ref",
+                    "train_ta": "compact", "train_prng": "lfsr-inkernel",
+                    "train_bank": "ref", "train_bank_ta": "dense",
+                    "train_bank_prng": "counter-inkernel"},
+          f"ref paths {paths}")
+    return {"card": card, "flush_ms": flush_s * 1e3,
+            "step_ms": [s_ * 1e3 for s_ in step_s],
+            "step_ms_median": float(np.median(step_s) * 1e3),
+            "bank_step_ms": bank_s * 1e3, "launches": counts,
+            "path_per_stage": paths,
+            "phase_s": time.perf_counter() - t_phase}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0,
@@ -734,9 +1020,10 @@ def main(argv=None) -> int:
         packed_clause_eval, packed_clause_eval_plain, packed_clause_tile,
         packed_clause_tile_plain)
     from repro_torch.core.dtm import STAT_KEYS
-    from repro_torch.core import prng as tprng
+    from repro_torch.core import prng as tprng, threefry
     from repro_torch.core.prng import PRNG
     from repro_torch.kernels.lfsr import lfsr_bits, lfsr_bits_plain
+    from repro_torch.kernels.threefry import threefry_bits, threefry_bits_plain
     from repro_torch.kernels.fused_step import (
         fused_bulk, fused_step, fused_step_plain, prepare_fused_step)
     from repro_torch.kernels.ta_update import (
@@ -1063,8 +1350,7 @@ def main(argv=None) -> int:
           f"edge training launched {counts_edge_train}")
 
     # ---- 9. bank training: MNIST CoTM + MNIST Vanilla, K=2 -------------------
-    gen = torch.Generator()
-    b_progs = [eng.lower(sp, gen.manual_seed(args.seed + 2 + k))
+    b_progs = [eng.lower(sp, threefry.key(args.seed + 2 + k, "cuda"))
                for k, sp in enumerate((spec_c, spec_v))]
     b_prngs = [PRNG.create(sp.tm_config(), args.seed + 4 + k, device="cuda")
                for k, sp in enumerate((spec_c, spec_v))]
@@ -1160,7 +1446,7 @@ def main(argv=None) -> int:
     _, err_st2 = compare_all(ta_update_streamed, ta_update_streamed_plain,
                              st2_a, st2_kw)
     op_a, op_kw = cap_stream_op.args      # the same step's op call
-    ik_kw = {k: v for k, v in op_kw.items() if k != "stream"}
+    ik_kw = {k: v for k, v in op_kw.items() if k not in ("stream", "plain")}
     for g, w in zip(st1, ta_update(*copies(op_a), **ik_kw)):
         check(torch.equal(g, w), "streamed and in-kernel updates differ")
 
@@ -1260,8 +1546,8 @@ def main(argv=None) -> int:
     # a conv bank of two tenants (the trained model, one from another
     # seed): stacked flushes against the CPU engine's, then edge requests
     conv_progs = {"conv_trained": tm_c.program.to("cpu"),
-                  "conv_seed": cpu_cv.lower(spec_cv, torch.Generator()
-                                            .manual_seed(args.seed + 7))}
+                  "conv_seed": cpu_cv.lower(spec_cv, threefry.key(
+                      args.seed + 7, "cpu"))}
 
     def conv_server(engine, slot):
         srv = TMServer(engine, batch_slot=slot)
@@ -1373,6 +1659,18 @@ def main(argv=None) -> int:
     # ---- 13. scheduled durable serving: api.serve on the card --------------
     sched_report, counts13, caps13, _ = scheduled_serving(
         torch, np, api, ops, datasets, roster, progs, cpu, card, args.seed)
+
+    # ---- 14. threefry: the MNIST CoTM with prng_backend="threefry" --------
+    tf_report, tf_launches, err_tf, tf_keys = threefry_phase(
+        torch, np, api, ops, tm_paper, eng, eng_cpu, x_tr, y_tr, card,
+        args.seed)
+
+    # ---- 15. the forced plain datapath: compile(kernel_path="ref") --------
+    ref_report = ref_phase(
+        torch, np, api, ops, tile, server,
+        {n: reqs[n][:B] for n in roster}, answers[0], eng, p0, r0, spec,
+        x_tr, y_tr, (b_progs, b_prngs, b_lits, b_y),
+        (bank.progs, bank.prngs, bst), card)
 
     # ---- 6. timing -------------------------------------------------------------
     cold = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
@@ -1690,6 +1988,37 @@ def main(argv=None) -> int:
         " lfsr_bits=24 rand_bits=16", plain_graph=False,
         rate=clk_hz / step_clk, iters=20, extra=lfsr_extra)
 
+    # the threefry kernel at the flat step's selection draw (the row) and
+    # at the program draw: the TA words without the split, the weights'
+    # with it; bound: the words' bytes, or THREEFRY_OPS a word
+    def tf_at(keys, size, rb, split=True, fn=threefry_bits):
+        return lambda: fn(keys, size, rb, split)
+
+    def tf_cost(size):
+        return 8 * size + 2 * 16, THREEFRY_OPS * size
+    issue_rate = int_rate * ISSUE_PER_CLOCK_PER_SM / INT_OPS_PER_CLOCK_PER_SM
+    tf_extra = {}
+    for label, keys, size, split in (
+            ("ta_draw", tf_keys["ta"], tf_keys["ta_words"], False),
+            ("weight_draw", tf_keys["prog"], tf_keys["w_words"], True)):
+        tf_extra[f"shape_{label}"] = f"K=1 size={size} rand_bits=1 " \
+            f"split={split}"
+        tf_extra[f"ms_{label}"] = graph_ms(torch, tf_at(keys, size, 1,
+                                                        split), 20)
+        tf_extra[f"ms_cold_l2_{label}"] = graph_ms(
+            torch, tf_at(keys, size, 1, split), 5, cold)
+        tf_extra[f"bound_ms_{label}"] = bound(*tf_cost(size), issue_rate)[0]
+        tf_extra[f"plain_ms_{label}"] = call_ms(
+            torch, tf_at(keys, size, 1, split, threefry_bits_plain), 3)
+    size = tf_keys["sel"]
+    row("threefry_bits", cu + "threefry.cu",
+        "no Pallas: src/repro/core/prng.py:214-220",
+        tf_launches + counts13["threefry_bits"], err_tf,
+        tf_at(tf_keys["fit"], size, 16),
+        tf_at(tf_keys["fit"], size, 16, fn=threefry_bits_plain), None,
+        *tf_cost(size), f"sel_rand K=1 size={size} rand_bits=16 split=True",
+        plain_graph=False, rate=issue_rate, extra=tf_extra)
+
     # packed_clause_tile and class_sum at the conv shapes: the conv flush
     # (K=2, B·P = 11,552 rows), the conv train step (K=1, train mode) and
     # the edge conv request (K=1, 361 rows)
@@ -1977,6 +2306,8 @@ def main(argv=None) -> int:
     print(json.dumps({"training": training}))
     print(json.dumps({"conv": conv}))
     print(json.dumps({"scheduler": sched_report}))
+    print(json.dumps({"threefry": tf_report}))
+    print(json.dumps({"ref_path": ref_report}))
     print(json.dumps({"kernels": rows_out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,7 @@
 
     spec   = TMSpec.coalesced(features=784, classes=10, clauses=128)
     engine = api.compile(api.tile_for(spec))              # on the card
-    prog   = engine.lower(spec, torch.Generator().manual_seed(0))
+    prog   = engine.lower(spec, threefry.key(0))        # JAX's program
     sums, clauses = engine.infer(prog, engine.encode(spec, x))
 
 or the estimator shell, ``TM(spec).fit(x, y)`` / ``.partial_fit`` /
@@ -29,6 +29,7 @@ from repro_torch import checkpoint
 from repro_torch.core.booleanize import Booleanizer, fit_thermometer
 from repro_torch.core.device import resolve_device
 from repro_torch.core.dtm import Device, DTMEngine, DTMProgram
+from repro_torch.core import threefry
 from repro_torch.core.prng import PRNG
 from repro_torch.core.evaluate import accuracy, batched_predict
 from repro_torch.core.types import (COALESCED, PRNG_BACKENDS, TMConfig,
@@ -238,7 +239,8 @@ def compile(tile: Optional[TileConfig] = None, device: Device = None,
             skip: bool = True, ta_prng: str = "inkernel") -> DTMEngine:
     """Build the one engine for a geometry (on the card unless ``device``
     says otherwise).  ``kernel_path`` forces a clause datapath (``mxu``,
-    ``packed_vpu``, ``mxu_popcount`` or ``fused``), ``skip=False`` trains
+    ``packed_vpu``, ``mxu_popcount``, ``fused``, or ``ref``: every stage's
+    plain version, no clause or TA kernel), ``skip=False`` trains
     with the dense TA update and ``ta_prng="stream"`` with the streamed
     random words: the JAX package's ``REPRO_KERNEL_PATH``, ``REPRO_SKIP``
     and ``REPRO_TA_PRNG``, as arguments."""
@@ -251,12 +253,10 @@ class TM:
     """Estimator shell for one spec: ``fit``, ``partial_fit``,
     ``predict``, ``class_sums``, ``score``.
 
-    The program is lowered from ``seed`` through a CPU ``torch.Generator``;
-    it follows the JAX estimator's construction (TA states at J-1/J, ±1
-    weights) but not its random numbers.  The PRNG is the spec's backend
-    from ``seed + 1``, as in the JAX estimator (``threefry`` raises).
-    Assigning ``program`` and ``prng`` from the JAX package's (through
-    :mod:`repro_torch.convert`) reproduces its training exactly.
+    The program is lowered from the threefry key ``PRNGKey(seed)`` and the
+    PRNG is the spec's backend from ``seed + 1``, as in the JAX estimator,
+    so a seed gives the JAX estimator's program and PRNG, and its training
+    exactly.
     """
 
     def __init__(self, spec: TMSpec, engine: Optional[DTMEngine] = None,
@@ -269,7 +269,7 @@ class TM:
                                     rand_bits=self.cfg.rand_bits))
         self.prng = PRNG.create(self.cfg, seed + 1, device=self.engine.device)
         self.program: DTMProgram = self.engine.lower(
-            spec, torch.Generator().manual_seed(seed))
+            spec, threefry.key(seed, self.engine.device))
         self.steps = 0
         self._stream = None       # streaming session of partial_fit
         # lifetime Alg-6 accounting, kept on the device until skip_frac
@@ -524,8 +524,8 @@ def serve(roster: Optional[dict], batch_slot: int = 32,
     manifest is (re)written; ``serve(None, durable_dir=...)`` cold-starts
     the roster from the manifest.  The directory's format is the JAX
     package's, so a roster saved by either package starts in the other
-    (a tenant without a checkpoint is lowered from its seed, whose draw
-    differs between the packages).  ``injector`` (a
+    (a tenant without a checkpoint is lowered from its seed, to the JAX
+    package's program).  ``injector`` (a
     :class:`repro_torch.runtime.fault.FaultInjector`) plumbs a failure
     schedule into the driver and writer.  One card: the JAX package's
     ``mesh`` (pods) is not ported, and passing it is a ``TypeError``."""

@@ -10,7 +10,8 @@ it with one ``os.replace``, so a crash mid-save never leaves a step that
 The files cross between the two packages.  A tree is dicts of arrays,
 tensors and :class:`~repro_torch.core.prng.PRNG` s, flattened in JAX's
 pytree order: a dict by sorted key, a PRNG as its state's leaves
-(``lanes, master, cycles`` for lfsr, the one counter word for counter);
+(``lanes, master, cycles`` for lfsr, the one counter word for counter,
+the one key [2] for threefry);
 ``TM.save``'s ``{"ta", "weights", "prng"}`` is therefore ``prng…, ta,
 weights``.  Leaves are written with the JAX dtypes: the PRNG's words
 (int64 tensors here) as uint32.  ``treedef`` describes the structure; a

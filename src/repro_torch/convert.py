@@ -10,8 +10,10 @@ packages share.
 
 A PRNG crosses as a dict: its configuration (``backend``, ``lfsr_bits``,
 ``rand_bits``, ``seed_refresh``) and its uint32 state, ``state`` (the
-counter) for ``counter`` and ``lanes`` [n_lanes], ``master`` and
-``cycles`` for ``lfsr``; a bank's PRNG has a leading K on each.
+counter) for ``counter``, ``state`` [2] (the key, the JAX PRNG's
+``jax.random.PRNGKey`` array) for ``threefry``, and ``lanes``
+[n_lanes], ``master`` and ``cycles`` for ``lfsr``; a bank's PRNG has a
+leading K on each.
 """
 from __future__ import annotations
 
@@ -68,10 +70,13 @@ def prng_from_numpy(d: Mapping, device: Device = None) -> PRNG:
     cfg = [d[k] for k in PRNG_CONFIG]
     if cfg[0] == "lfsr":
         state = LFSRState(*(u32(d[k]) for k in LFSR_LEAVES))
-    elif cfg[0] == "counter":
+    elif cfg[0] in ("counter", "threefry"):
         state = u32(d["state"])
+        if cfg[0] == "threefry" and (state.dim() < 1 or state.shape[-1] != 2):
+            raise ValueError(f"a threefry state is [..., 2], got "
+                             f"{tuple(state.shape)}")
     else:
-        raise NotImplementedError(f"prng backend {cfg[0]!r} is not ported")
+        raise ValueError(f"prng backend {cfg[0]!r} not recognised")
     return PRNG(str(cfg[0]), int(cfg[1]), int(cfg[2]), bool(cfg[3]), state)
 
 

@@ -31,7 +31,10 @@ literals and include unpacked on the device (``clause_eval``; in training
 the unfused front half: ``clause_eval``, ``class_sum`` and the torch
 selection); ``ta_prng="stream"`` makes the TA update read its random
 words from a pre-made [K, 2B, R, L] tensor (the streamed baseline, dense
-update).  Both give the same results as the default paths.
+update).  A forced ``kernel_path="ref"`` runs the JAX engine's ``ref``
+branch on the device: every clause, class-sum, front-half and TA stage
+through its plain version (no clause or TA kernel; the PRNG draws still
+launch theirs).  All give the same results as the default paths.
 
 The conv kind runs around the same clause and class-sum stages: its
 packed literals are ``[B, P, W]`` (P patch slots, ``p_mask`` hiding the
@@ -49,7 +52,8 @@ Per stage the engine records the kernels it ran in
 ``compact``/``dense`` and ``<stage>_prng`` = ``<family>-inkernel`` or
 ``<family>-stream`` (family ``counter`` or ``lfsr``).  The stages are
 ``infer``, ``infer_bank``, ``train``, ``train_bank``, ``infer_conv``,
-``infer_conv_bank`` and ``train_conv``.
+``infer_conv_bank`` and ``train_conv`` (a forced path records ``ref``
+for its clause stages).
 """
 from __future__ import annotations
 
@@ -67,6 +71,7 @@ from repro_torch.kernels.ref import M32, NEG_INF_SUM, pack_include
 from .booleanize import pack_literals, unpack_literals, words_from_u32
 from .device import Device, resolve_device
 from .evaluate import epoch_record
+from . import threefry
 from .prng import PRNG
 from .types import COALESCED, TMConfig, TileConfig
 
@@ -141,7 +146,8 @@ class DTMEngine:
     kernels' plain versions.  ``kernel_path`` forces one clause datapath
     (:data:`repro_torch.kernels.ops.PATHS`: the JAX package's
     ``REPRO_KERNEL_PATH``, as an argument) instead of the batch-based
-    choice of :func:`repro_torch.kernels.ops.select_path`.  ``skip``
+    choice of :func:`repro_torch.kernels.ops.select_path`; ``"ref"`` runs
+    every stage's plain version on the device.  ``skip``
     selects the Alg-6 compacted TA update (``REPRO_SKIP``); off, every
     step runs the dense one.  ``ta_prng`` is the provenance of the TA
     update's random words (``REPRO_TA_PRNG``): ``"inkernel"`` (made in the
@@ -169,15 +175,19 @@ class DTMEngine:
     # ------------------------------------------------------------------ #
     # programming                                                         #
     # ------------------------------------------------------------------ #
-    def program(self, cfg: TMConfig,
-                generator: Optional[torch.Generator] = None,
-                ta=None, weights=None) -> DTMProgram:
-        """Build the padded program of a model config.
+    def program(self, cfg: TMConfig, key=None, ta=None,
+                weights=None) -> DTMProgram:
+        """Build the padded program of a model config on the engine's
+        device.
 
         ``ta`` [rows, 2f] and ``weights`` [classes, clauses] (coalesced
-        only) give the states; whatever is not given is drawn from
-        ``generator`` (a CPU ``torch.Generator``) as the JAX engine draws
-        it: TA states at J-1 or J, coalesced weights ±1."""
+        only) give the states; whatever is not given is drawn from the
+        threefry ``key`` (:func:`repro_torch.core.threefry.key`, or a JAX
+        ``PRNGKey`` as an array) as the JAX engine draws it: the key is
+        split into ``kt, kw``, TA states are J-1 + bernoulli(kt, 0.5) and
+        coalesced weights ±1 by bernoulli(kw, 0.5), so a key gives the
+        JAX engine's program.  On the card each draw is one
+        ``threefry_bits`` launch."""
         L, R, H = self.L, self.R, self.H
         f, c, h = cfg.features, cfg.clauses, cfg.classes
         rows = cfg.total_clauses
@@ -186,64 +196,75 @@ class DTMEngine:
                              f"buffers {(L, R, H)}")
         if cfg.T >= (1 << 13):
             raise ValueError(f"T={cfg.T} exceeds the 13-bit margin compare")
-        need_draw = ta is None or (cfg.tm_type == COALESCED
-                                   and weights is None)
-        if need_draw and generator is None:
-            raise ValueError("pass ta/weights or a torch.Generator to draw "
-                             "them from")
+        dev = self.device
+        draw_ta = ta is None
+        draw_w = cfg.tm_type == COALESCED and weights is None
+        if draw_ta or draw_w:
+            if key is None:
+                raise ValueError("pass ta/weights or a threefry key to draw "
+                                 "them from")
+            k = threefry.as_key(key, dev)
+            if k.shape != (2,):
+                raise ValueError(f"one threefry key [2], got "
+                                 f"{tuple(k.shape)}")
+            # split first, as JAX does: kt and kw's words in one launch
+            kt, w_bits = kops.threefry_bits(k[None], h * c if draw_w else 0,
+                                            rand_bits=1)
+            if draw_ta:
+                _, t_bits = kops.threefry_bits(kt, rows * cfg.literals,
+                                               rand_bits=1, split=False)
+                # bernoulli(·, 0.5) is bits < 2^31: the top bit clear
+                ta = (cfg.include_threshold
+                      - t_bits[0].reshape(rows, cfg.literals).to(torch.int32))
+            if draw_w:
+                weights = 1 - 2 * w_bits[0].reshape(h, c).to(torch.int32)
         half = L // 2
-        if ta is None:
-            bern = torch.randint(0, 2, (rows, cfg.literals),
-                                 generator=generator, dtype=torch.int32)
-            ta = cfg.include_threshold - 1 + bern
-        ta = torch.as_tensor(ta).to(torch.int32).cpu()
-        ta_pad = torch.zeros((R, L), dtype=torch.int32)
+        ta = torch.as_tensor(ta).to(device=dev, dtype=torch.int32)
+        ta_pad = torch.zeros((R, L), dtype=torch.int32, device=dev)
         ta_pad[:rows, :f] = ta[:, :f]
         ta_pad[:rows, half:half + f] = ta[:, f:]
 
-        w_pad = torch.zeros((H, R), dtype=torch.int32)
+        w_pad = torch.zeros((H, R), dtype=torch.int32, device=dev)
         if cfg.tm_type == COALESCED:
-            if weights is None:
-                bw = torch.randint(0, 2, (h, c), generator=generator,
-                                   dtype=torch.int32)
-                weights = 2 * bw - 1
-            w_pad[:h, :c] = torch.as_tensor(weights).to(torch.int32).cpu()
+            w_pad[:h, :c] = torch.as_tensor(weights).to(device=dev,
+                                                        dtype=torch.int32)
             frozen = False
         else:   # Vanilla: block-diagonal frozen ±1 (Eq 3)
-            pol = torch.where(torch.arange(c) % 2 == 0, 1, -1).to(torch.int32)
+            pol = 1 - 2 * (torch.arange(c, device=dev) % 2).to(torch.int32)
             for cls in range(h):
                 w_pad[cls, cls * c:(cls + 1) * c] = pol
             frozen = True
 
-        l_mask = torch.zeros(L, dtype=torch.int32)
-        l_mask[:f] = 1
-        l_mask[half:half + f] = 1
+        span = torch.arange(L, device=dev)
+        l_mask = ((span < f) | ((span >= half) & (span < half + f))).to(
+            torch.int32)
         p_ta = int(round((1 << self.rand_bits) / cfg.s))
         ta_dtype = torch.uint8 if cfg.n_states <= 256 else torch.int32
 
         def scalar(v, dtype):
-            return torch.tensor(v, dtype=dtype)
+            return torch.tensor(v, dtype=dtype, device=dev)
 
-        prog = DTMProgram(
+        return DTMProgram(
             ta=ta_pad.to(ta_dtype), weights=w_pad,
-            cl_mask=(torch.arange(R) < rows).to(torch.int32),
-            l_mask=l_mask, h_mask=(torch.arange(H) < h).to(torch.int32),
+            cl_mask=(torch.arange(R, device=dev) < rows).to(torch.int32),
+            l_mask=l_mask,
+            h_mask=(torch.arange(H, device=dev) < h).to(torch.int32),
             w_frozen=scalar(frozen, torch.bool),
             T=scalar(cfg.T, torch.int32),
-            p_ta=words_from_u32(torch.tensor(p_ta, dtype=torch.int64)),
+            p_ta=words_from_u32(scalar(p_ta, torch.int64)),
             boost=scalar(cfg.boost_true_positive, torch.bool),
             n_states=scalar(cfg.n_states, torch.int32),
             w_clip=scalar(cfg.weight_clip, torch.int32),
             regression=scalar(False, torch.bool),
-            p_mask=(torch.arange(self.P) < 1).to(torch.int32),
+            p_mask=(torch.arange(self.P, device=dev) < 1).to(torch.int32),
             inc=pack_include(ta_pad, cfg.n_states))
-        return prog.to(self.device)
 
-    def lower(self, spec, generator: Optional[torch.Generator] = None,
-              ta=None, weights=None) -> DTMProgram:
+    def lower(self, spec, key=None, ta=None, weights=None) -> DTMProgram:
         """Lower a :class:`repro_torch.api.TMSpec` (duck-typed: ``kind``,
-        ``tm_config()``, ``n_patches``) to a program; a conv spec's
-        ``p_mask`` marks its patch slots."""
+        ``tm_config()``, ``n_patches``) to a program, drawing what is not
+        given from the threefry ``key`` as :meth:`program` does (the JAX
+        ``lower(spec, key)``); a conv spec's ``p_mask`` marks its patch
+        slots."""
         cfg = spec.tm_config()
         n_p = int(getattr(spec, "n_patches", 1))
         if n_p > self.P:
@@ -258,7 +279,7 @@ class DTMEngine:
             weights = torch.zeros((cfg.classes, cfg.clauses),
                                   dtype=torch.int32)
             weights[0] = 1
-        prog = self.program(cfg, generator, ta=ta, weights=weights)
+        prog = self.program(cfg, key, ta=ta, weights=weights)
         if n_p != 1:
             prog.p_mask = (torch.arange(self.P, device=self.device)
                            < n_p).to(torch.int32)
@@ -311,7 +332,10 @@ class DTMEngine:
                         eval_mode: bool, stage: str) -> torch.Tensor:
         """Clause stage: packed [K, B, W] literals -> [K, B, R] int32."""
         path = self._eval_path(plits.shape[1], stage)
-        if path == kops.PATH_MXU:
+        if path == kops.PATH_REF:
+            cl = kops.ref_clause_op(plits, progs.inc, progs.l_mask, self.L,
+                                    eval_mode=eval_mode)
+        elif path == kops.PATH_MXU:
             # int8 literals and include unpacked on the device; padded TA
             # columns are never included, so include honours l_mask
             cl = kops.clause_eval(unpack_literals(plits, self.L),
@@ -326,6 +350,8 @@ class DTMEngine:
     def _class_sums_raw(self, progs: DTMProgram, cl: torch.Tensor
                         ) -> torch.Tensor:
         """Weight stage, unpinned: [K, B, R] clauses -> [K, B, H] sums."""
+        if self.kernel_path == kops.PATH_REF:
+            return kops.ref.class_sum_ref(cl, progs.weights)
         return kops.class_sum(cl, progs.weights)
 
     def _pin_class_sums(self, progs: DTMProgram, sums: torch.Tensor
@@ -414,14 +440,17 @@ class DTMEngine:
                      sel_rand: torch.Tensor, stage: str):
         """Front half (clause eval → class sums → Alg-3 selection, both
         rounds): ``fused`` in one launch, the packed stages on the edge
-        (``packed_vpu``) or tile (``mxu_popcount``) clause kernel, or the
-        unfused dense stages (``mxu``)."""
+        (``packed_vpu``) or tile (``mxu_popcount``) clause kernel, the
+        unfused dense stages (``mxu``) or the plain ones (``ref``)."""
         path = kops.select_path(plits.shape[1], force=self.kernel_path,
                                 training=True)
         self._stage_paths[stage] = path
         rest = (progs.weights, cls_lab, neg, sel_rand.to(torch.int32),
                 progs.cl_mask, progs.h_mask, progs.T,
                 progs.w_frozen.to(torch.int32))
+        if path == kops.PATH_REF:
+            return kops.ref_step_op(plits, progs.inc, *rest, n_bits=self.L,
+                                    rand_bits=self.rand_bits)
         if path == kops.PATH_MXU:
             return kops.unfused_step_op(
                 unpack_literals(plits, self.L),
@@ -508,7 +537,8 @@ class DTMEngine:
         self._stage_paths[stage + "_prng"] = f"{family}-{self.ta_prng}"
         kw = dict(seed=ta_seed, p_ta=progs.p_ta, boost=progs.boost,
                   n_states=progs.n_states, rand_bits=rb, prng=family,
-                  lfsr_bits=prngs.lfsr_bits, seed_refresh=prngs.seed_refresh)
+                  lfsr_bits=prngs.lfsr_bits, seed_refresh=prngs.seed_refresh,
+                  plain=self.kernel_path == kops.PATH_REF)
         if ta_path == kops.TA_COMPACT:
             new_ta, new_inc = kops.ta_update_compact_op(
                 progs.ta, lit2, cl2, t1, t2, progs.l_mask, progs.inc,

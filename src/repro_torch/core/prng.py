@@ -1,23 +1,23 @@
 """Master–slave PRNG cluster (paper §IV-C, Fig 8, Fig 15), in PyTorch.
 
-Two of the JAX package's three backends, bit for bit:
+The JAX package's three backends, bit for bit:
 
-* ``counter`` — one splitmix32 per element of ``ctr·0x9E3779B1 ^ index``;
+* ``counter``  — one splitmix32 per element of ``ctr·0x9E3779B1 ^ index``;
   the counter advances by one per :meth:`PRNG.bits` call.
-* ``lfsr``    — the paper's cluster: ``n_lanes`` L-bit Galois LFSR lanes
+* ``lfsr``     — the paper's cluster: ``n_lanes`` L-bit Galois LFSR lanes
   seeded by a splitmix master, re-seeded every 2^L − 1 cycles when
   ``seed_refresh`` is set.  ``bits`` consumes whole cycles of every lane
   and drops the rest of the last one.
-
-``threefry`` is ``jax.random`` in the reference, whose split and bits
-conventions are JAX's own; it is not ported and raises
-:class:`NotImplementedError` at :meth:`PRNG.create`.
+* ``threefry`` — ``jax.random`` (:mod:`repro_torch.core.threefry`): the
+  state is ``PRNGKey(seed)``; ``bits`` splits it, keeps the first new key
+  and draws from the second.
 
 uint32 arithmetic runs in int64 tensors masked to 32 bits.  The state
 lives on the device of the engine that consumes it, so drawing never
-moves data to the host.  A stacked form for program banks carries a
-leading K axis on every state leaf, and ``bits`` then returns
-``[K, *shape]``.
+moves data to the host; on the card an lfsr or threefry ``bits`` call is
+one kernel launch (``lfsr_bits``, ``threefry_bits``).  A stacked form for
+program banks carries a leading K axis on every state leaf (a threefry
+key is ``[K, 2]``), and ``bits`` then returns ``[K, *shape]``.
 """
 from __future__ import annotations
 
@@ -27,6 +27,8 @@ from typing import Sequence, Tuple, Union
 import torch
 
 from repro_torch.kernels.lfsr import lfsr_bits
+from repro_torch.kernels.threefry import threefry_bits
+from . import threefry
 from .device import Device, resolve_device
 
 M32 = 0xFFFFFFFF
@@ -126,8 +128,9 @@ class PRNG:
     """Backend-dispatching random stream (the JAX ``PRNG``'s fields).
 
     ``state`` is the counter (int64 [...] holding a uint32) for
-    ``counter`` and an :class:`LFSRState` for ``lfsr``; a bank's PRNG has
-    a leading K axis on every state leaf (:meth:`stack`)."""
+    ``counter``, an :class:`LFSRState` for ``lfsr`` and the key (int64
+    [..., 2]) for ``threefry``; a bank's PRNG has a leading K axis on
+    every state leaf (:meth:`stack`)."""
 
     backend: str
     lfsr_bits: int
@@ -142,14 +145,13 @@ class PRNG:
         ``rand_bits``, ``seed_refresh``) from ``seed``, on ``device``
         (default CUDA)."""
         backend = cfg.prng_backend
-        if backend not in ("lfsr", "counter"):
-            raise NotImplementedError(
-                f"prng_backend={backend!r} is not ported: threefry is "
-                "jax.random, whose key-split and bits conventions are "
-                "JAX's own; use 'lfsr' or 'counter'")
+        if backend not in ("lfsr", "counter", "threefry"):
+            raise ValueError(f"prng_backend={backend!r} not recognised")
         device = resolve_device(device)
         if backend == "lfsr":
             st = make_cluster(seed, n_lanes, cfg.lfsr_bits, device)
+        elif backend == "threefry":
+            st = threefry.key(seed, device)
         else:
             st = torch.tensor((seed & M32) or 0xC0FFEE, dtype=torch.int64,
                               device=device)
@@ -160,7 +162,10 @@ class PRNG:
     def lead(self) -> Tuple[int, ...]:
         """The leading (bank) axes of the state: () or (K,)."""
         st = self.state
-        return tuple((st.master if isinstance(st, LFSRState) else st).shape)
+        if isinstance(st, LFSRState):
+            return tuple(st.master.shape)
+        return tuple(st.shape[:-1] if self.backend == "threefry"
+                     else st.shape)
 
     def _replace(self, state: State) -> "PRNG":
         return dataclasses.replace(self, state=state)
@@ -179,8 +184,9 @@ class PRNG:
             out = out >> (32 - self.rand_bits)
             return (self._replace((ctr + 1) & M32),
                     out.reshape(*lead, *shape))
-        if self.backend != "lfsr":
-            raise NotImplementedError(f"prng_backend={self.backend!r}")
+        if self.backend == "threefry":
+            key, out = threefry_bits(self.state, size, self.rand_bits)
+            return self._replace(key), out.reshape(*lead, *shape)
         st: LFSRState = self.state
         out, *leaves = lfsr_bits(st.lanes, st.master, st.cycles, size,
                                  self.lfsr_bits, self.rand_bits,

@@ -12,15 +12,18 @@ the tile kernel (:data:`PATH_PACKED_MXU`) for inference and the fused
 training-step kernel (:data:`PATH_FUSED`) for training.  A caller may
 force any of :data:`PATHS`, the dense clause kernel (:data:`PATH_MXU`:
 ``clause_eval`` on unpacked int8 operands, and the unfused training front
-half) among them.
+half) among them, and the plain datapath (:data:`PATH_REF`: the JAX
+engine's ``ref`` branch, every clause, class-sum and TA stage through its
+plain version on the engine's device, :func:`ref_clause_op` and
+:func:`ref_step_op`), which it never picks itself.
 :func:`select_ta_path` picks the TA-update datapath: the Alg-6 compacted
 update (:data:`TA_COMPACT`, the sparse kernel over the active clause
 groups) or the dense one (:data:`TA_DENSE`: skip off, program banks, or
 the streamed random words of :data:`TA_PRNG_STREAM`, which have no
 compacted kernel).  The names are the JAX package's, so
 ``cache_report()["path_per_stage"]`` reads the same in both.
-:func:`launch_counts` also counts ``lfsr_bits``, the lfsr PRNG cluster's
-kernel, which ``PRNG.bits`` launches.
+:func:`launch_counts` also counts the PRNG kernels that ``PRNG.bits``
+launches: ``lfsr_bits`` (the lfsr cluster) and ``threefry_bits``.
 """
 from __future__ import annotations
 
@@ -28,21 +31,26 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.core.booleanize import unpack_literals
 from . import ref
 from .class_sum import class_sum
 from .clause_eval import clause_eval
 from .fused_step import fused_step
 from .lfsr import lfsr_bits
 from .packed_clause import packed_clause_eval, packed_clause_tile
-from .ta_update import (GROUP, stream_rands, ta_update, ta_update_sparse,
-                        ta_update_streamed)
+from .ta_update import (GROUP, stream_rands, ta_update, ta_update_plain,
+                        ta_update_sparse, ta_update_sparse_plain,
+                        ta_update_streamed, ta_update_streamed_plain)
+from .threefry import threefry_bits
 from .tm_infer import tm_infer
 
 PATH_MXU = "mxu"                  # dense kernel: clause_eval (int8 operands)
 PATH_PACKED = "packed_vpu"        # edge kernel: packed_clause_eval
 PATH_PACKED_MXU = "mxu_popcount"  # tile kernel: packed_clause_tile
 PATH_FUSED = "fused"              # training front half: fused_step
-PATHS = (PATH_MXU, PATH_PACKED, PATH_PACKED_MXU, PATH_FUSED)  # forceable
+PATH_REF = "ref"                  # plain versions only (forced, never picked)
+PATHS = (PATH_MXU, PATH_PACKED, PATH_PACKED_MXU, PATH_FUSED,
+         PATH_REF)                                            # forceable
 
 TA_DENSE = "dense"
 TA_COMPACT = "compact"
@@ -64,7 +72,8 @@ _WRAPPERS = {"packed_clause_eval": packed_clause_eval,
              "clause_eval": clause_eval,
              "tm_infer": tm_infer,
              "ta_update_streamed": ta_update_streamed,
-             "lfsr_bits": lfsr_bits}
+             "lfsr_bits": lfsr_bits,
+             "threefry_bits": threefry_bits}
 
 
 def select_path(batch: int, force: Optional[str] = None,
@@ -72,8 +81,9 @@ def select_path(batch: int, force: Optional[str] = None,
     """Clause datapath for a per-program batch; ``force`` (one of
     :data:`PATHS`) overrides the choice at every batch.  A forced packed
     path makes the training front half run the packed stages on that
-    clause kernel; a forced ``mxu`` runs the unfused dense front half.
-    The engine maps a forced ``fused`` to ``mxu`` for its eval stages."""
+    clause kernel; a forced ``mxu`` runs the unfused dense front half, a
+    forced ``ref`` the plain stages.  The engine maps a forced ``fused``
+    to ``mxu`` for its eval stages."""
     if force is not None:
         if force not in PATHS:
             raise ValueError(f"kernel path {force!r} not recognised; use "
@@ -145,6 +155,36 @@ def tm_infer_op(literals: torch.Tensor, include: torch.Tensor,
     [(K,) C, L] and weights [(K,) H, C] -> unpinned class sums
     [(K,) B, H] int32."""
     return _banked(tm_infer, literals, include, weights, eval_mode=eval_mode)
+
+
+def ref_clause_op(packed_literals: torch.Tensor,
+                  packed_include: torch.Tensor, l_mask: torch.Tensor,
+                  n_bits: int, eval_mode: bool = False) -> torch.Tensor:
+    """The JAX engine's ``ref`` clause stage, bank form only: literals
+    [K, N, W] and include [K, R, W] unpacked to their ``n_bits`` literals
+    on the device, the violation count of the negated real literals
+    (``l_mask`` [K, n_bits]) against the include, fired iff zero; in eval
+    mode a clause also needs an included real literal.  -> [K, N, R]
+    int32, through the plain product (no kernel)."""
+    real = l_mask[:, None, :] > 0
+    lits = unpack_literals(packed_literals, n_bits)
+    lits = torch.where(real, lits, torch.ones_like(lits))   # never violate
+    inc = unpack_literals(packed_include, n_bits) * real
+    return ref.clause_eval_viol_ref(lits, inc, eval_mode)
+
+
+def ref_step_op(packed_literals, packed_include, weights, labels,
+                neg_labels, rand, cl_mask, h_mask, T, w_frozen, n_bits: int,
+                rand_bits: int = 16):
+    """The JAX engine's ``ref`` training front half, bank form only:
+    ``ref.fused_step_ref`` on the literals and include unpacked to their
+    ``n_bits`` literals on the device.  The other operands and the outputs
+    are those of :func:`fused_step_op`."""
+    lits = unpack_literals(packed_literals, n_bits)
+    inc = unpack_literals(packed_include, n_bits)
+    return ref.fused_step_ref(lits, inc, weights, labels, neg_labels,
+                              rand[:, 0], rand[:, 1], cl_mask, h_mask, T,
+                              w_frozen, rand_bits)
 
 
 def _front(fn, lits, *args, **kw):
@@ -231,7 +271,7 @@ def unfused_step_op(literals, include, weights, labels, neg_labels, rand,
 def ta_update_op(ta, lits, cl, t1, t2, l_mask, seed, p_ta, boost, n_states,
                  row0=0, rand_bits: int = 16, prng: str = "counter",
                  lfsr_bits: int = 24, seed_refresh: bool = True,
-                 stream: bool = False):
+                 stream: bool = False, plain: bool = False):
     """Dense batched TA update of K programs (``ta`` [K, C, L], packed
     ``lits`` [K, 2B, W], ``cl``/``t1``/``t2`` [K, 2B, C]) with in-kernel
     streams.  Returns ``(new_ta, new_inc)``, the include bitplane emitted
@@ -240,17 +280,19 @@ def ta_update_op(ta, lits, cl, t1, t2, l_mask, seed, p_ta, boost, n_states,
     ``stream=True`` runs the streamed baseline: the same random words are
     made first as a [K, 2B, C, L] int32 tensor (``ref.ta_rand_stream``,
     keyed on the kernel's padded stride and ``row0``) and the update reads
-    them from device memory.  The results are the same."""
+    them from device memory.  The results are the same.  ``plain`` runs
+    the plain versions on any device (the ``ref`` path)."""
     if not stream:
-        return ta_update(ta, lits, cl, t1, t2, l_mask, seed, p_ta, boost,
-                         n_states, row0, rand_bits=rand_bits, prng=prng,
-                         lfsr_bits=lfsr_bits, seed_refresh=seed_refresh)
+        fn = ta_update_plain if plain else ta_update
+        return fn(ta, lits, cl, t1, t2, l_mask, seed, p_ta, boost, n_states,
+                  row0, rand_bits=rand_bits, prng=prng, lfsr_bits=lfsr_bits,
+                  seed_refresh=seed_refresh)
     K, C, L = ta.shape
     rands = stream_rands(K, lits.shape[1], C, L, seed, ta.device, row0,
                          rand_bits=rand_bits, prng=prng, lfsr_bits=lfsr_bits,
                          seed_refresh=seed_refresh)
-    return ta_update_streamed(ta, lits, cl, t1, t2, l_mask, rands, p_ta,
-                              boost, n_states)
+    fn = ta_update_streamed_plain if plain else ta_update_streamed
+    return fn(ta, lits, cl, t1, t2, l_mask, rands, p_ta, boost, n_states)
 
 
 def active_groups(t1: torch.Tensor, t2: torch.Tensor, group: int = GROUP):
@@ -274,20 +316,22 @@ def active_groups(t1: torch.Tensor, t2: torch.Tensor, group: int = GROUP):
 def ta_update_compact_op(ta, lits, cl, t1, t2, l_mask, inc, seed, p_ta,
                          boost, n_states, row0=0, rand_bits: int = 16,
                          prng: str = "counter", lfsr_bits: int = 24,
-                         seed_refresh: bool = True, inplace: bool = False):
+                         seed_refresh: bool = True, inplace: bool = False,
+                         plain: bool = False):
     """Clause-skip TA update (Alg 6): the same states and include bitplane
     as :func:`ta_update_op`, but only the 128-row clause groups that get
     feedback are touched (``inc`` must be the include bitplane of ``ta``).
     The group list and its count are built on the device, and the kernel
     reads the count there.  Returns ``(new_ta, new_inc)``: with
     ``inplace``, ``ta`` and ``inc`` themselves, updated in place, so the
-    skipped groups cost nothing; otherwise new tensors."""
+    skipped groups cost nothing; otherwise new tensors.  ``plain`` runs
+    the plain version on any device (the ``ref`` path; it reads the group
+    count on the host)."""
     idx, count = active_groups(t1, t2)
-    return ta_update_sparse(ta, lits, cl, t1, t2, l_mask, inc, idx, count,
-                            seed, p_ta, boost, n_states, row0,
-                            rand_bits=rand_bits, prng=prng,
-                            lfsr_bits=lfsr_bits, seed_refresh=seed_refresh,
-                            inplace=inplace)
+    fn = ta_update_sparse_plain if plain else ta_update_sparse
+    return fn(ta, lits, cl, t1, t2, l_mask, inc, idx, count, seed, p_ta,
+              boost, n_states, row0, rand_bits=rand_bits, prng=prng,
+              lfsr_bits=lfsr_bits, seed_refresh=seed_refresh, inplace=inplace)
 
 
 def launch_counts() -> Dict[str, int]:

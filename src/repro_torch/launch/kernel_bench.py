@@ -1,10 +1,11 @@
-"""Time the class-sum, fused-step, fused-inference, packed clause and
-lfsr cluster kernels at the main paths' shapes.
+"""Time the class-sum, fused-step, fused-inference, packed clause, lfsr
+cluster and threefry kernels at the main paths' shapes.
 
     PYTHONPATH=src python3 src/repro_torch/launch/kernel_bench.py
 
 Times ``class_sum``, ``fused_step``, ``tm_infer``, ``packed_clause_tile``,
-``packed_clause_eval`` and ``lfsr_bits`` (where the tree has it) of
+``packed_clause_eval``, ``lfsr_bits`` and ``threefry_bits`` (where the
+tree has them) of
 whichever ``repro_torch`` Python imports: this
 checkout's, or another's put first on ``PYTHONPATH``, so one run on one
 card can hold two versions of the kernels against each other.  Each call goes through the public wrapper, and each result is
@@ -31,7 +32,12 @@ requests × 361 patches) and edge request (K=1, 361 rows), ``class_sum``
 at the conv flush (K=2, B=32, H=16), and ``lfsr_bits`` (24-bit lanes,
 8192 of them, 16-bit words) at the flat step's selection draw
 (2·32·2048 words) and the conv step's patch and TA draws (32·361·2048
-and 2·32·2048·384).  Bounds are the bytes each call must move.
+and 2·32·2048·384), and ``threefry_bits`` (one key, 16-bit words) at the
+flat step's selection draw (2·32·2048 words) and the program draw of the
+MNIST CoTM (2000·1568 TA words without the split, 10·2000 weight words).
+Bounds are the bytes each call must move, or for ``threefry_bits`` the
+larger of those and its integer instructions (``THREEFRY_OPS`` a word)
+at the issue rate, 128 a clock an SM, 132 SMs and 1980 MHz.
 """
 from __future__ import annotations
 
@@ -50,6 +56,16 @@ SERVE = [(4, 32, 4224, 100, 16), (1, 32, 2048, 52, 16)]   # K, B, R, W, H
 EDGE = [(1, 1, 4224, 100), (1, 4, 4224, 100), (1, 1, 2048, 52)]  # K, B, R, W
 CONV_TILE = [(2, 32 * 361, 2048, 12), (1, 361, 2048, 12)]        # K, B, R, W
 LFSR = [2 * 32 * 2048, 32 * 361 * 2048, 2 * 32 * 2048 * 384]     # words
+THREEFRY = [(2 * 32 * 2048, 16, True), (2000 * 1568, 1, False),
+            (10 * 2000, 1, True)]                     # words, rand_bits, split
+# 32-bit integer instructions a threefry word: 20 rounds of an add, a
+# funnel-shift rotate and an xor (60), the first and 5 more key injections
+# of two adds (12), the output xor and the shift (2)
+THREEFRY_OPS = 74
+# H100 SXM: 4 schedulers an SM issue one warp instruction a clock each;
+# the kernel's mix of integer adds, rotates and xors runs above the 64 a
+# clock of any one integer pipe, so the issue rate bounds it
+ISSUE_OPS_PER_S = 128 * 132 * 1.98e9
 
 
 def graph_ms(torch, fn, n: int, cold_l2=None, reps: int = 5) -> float:
@@ -115,7 +131,7 @@ def main() -> int:
     cold = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
     rows = []
 
-    def timed(name, shape, fn, plain, nbytes, calls=CALLS):
+    def timed(name, shape, fn, plain, nbytes, calls=CALLS, nops=0):
         got, want = fn(), plain()
         torch.cuda.synchronize()
         for g, w in zip(got if isinstance(got, tuple) else (got,),
@@ -125,8 +141,11 @@ def main() -> int:
         rows.append({"name": name, "shape": shape,
                      "ms": graph_ms(torch, fn, calls),
                      "ms_cold_l2": graph_ms(torch, fn, calls // 4, cold),
-                     "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-                     "bound_by": "bytes"})
+                     "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                                     nops / ISSUE_OPS_PER_S) * 1e3,
+                     "bound_by": ("operations" if nops / ISSUE_OPS_PER_S
+                                  > nbytes / HBM_BYTES_PER_S
+                                  else "bytes")})
 
     for K, B, R, H in CLASS_SUM:
         cl = (torch.rand((K, B, R), generator=gen) < 0.3).to(torch.int32)
@@ -211,6 +230,19 @@ def main() -> int:
                   lambda a=args: lfsr_bits(*a),
                   lambda a=args: lfsr_bits_plain(*a),
                   8 * size + 2 * 8 * (8192 + 2), calls=20)
+    try:
+        from repro_torch.kernels.threefry import (threefry_bits,
+                                                  threefry_bits_plain)
+    except ImportError:                  # a tree from before the kernel
+        threefry_bits = None
+    if threefry_bits is not None:
+        key = torch.tensor([[0, 7]], dtype=torch.int64, device=dev)
+        for size, rb, split in THREEFRY:
+            args = (key, size, rb, split)
+            timed("threefry_bits", f"size={size} rand_bits={rb} "
+                  f"split={split}", lambda a=args: threefry_bits(*a),
+                  lambda a=args: threefry_bits_plain(*a),
+                  8 * size + 4 * 8, calls=20, nops=THREEFRY_OPS * size)
     one = torch.zeros(1, dtype=torch.int32, device=dev)
     print(json.dumps({"kernel_bench": {
         "card": card, "repro_torch": repro_torch.__file__, "calls": CALLS,

@@ -50,6 +50,7 @@ import torch
 from repro_torch import api
 from repro_torch.api import TM, ProgramBank, TMSpec
 from repro_torch.core.dtm import DTMEngine, DTMProgram
+from repro_torch.core import threefry
 from repro_torch.core.prng import PRNG
 
 
@@ -121,14 +122,13 @@ class TMServer:
     def register(self, name: str, spec: TMSpec,
                  program: Optional[DTMProgram] = None, seed: int = 0,
                  prng: Optional[PRNG] = None, steps: int = 0):
-        """Admit a model: lower its spec (drawing the program from
-        ``seed``) or adopt an already-lowered ``program``.  ``prng`` and
+        """Admit a model: lower its spec (drawing the program from the
+        threefry key ``PRNGKey(seed)``, the JAX server's program) or adopt an already-lowered ``program``.  ``prng`` and
         ``steps`` resume a tenant mid-stream; by default its PRNG is made
         from ``seed + 1`` and its step count starts at 0."""
         dev = self.engine.device
         if program is None:
-            program = self.engine.lower(
-                spec, torch.Generator().manual_seed(seed))
+            program = self.engine.lower(spec, threefry.key(seed, dev))
         prng = (PRNG.create(spec.tm_config(), seed + 1, device=dev)
                 if prng is None else prng.to(dev))
         self._put(name, _Tenant(spec, program.to(dev), prng, steps))

@@ -40,6 +40,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch import checkpoint as ckpt
+from repro_torch.core import threefry
 from repro_torch.core.prng import PRNG
 
 __all__ = ["DurableStore", "CheckpointWriter", "restore_tenant"]
@@ -99,11 +100,11 @@ def restore_tenant(store: DurableStore, name: str, engine, spec,
 
     Returns ``(program, prng, step)``, or ``None`` when the tenant has no
     durable state yet (the caller registers it fresh).  ``seed`` is the
-    tenant's registration seed (the manifest records it): the program
-    draw uses a ``torch.Generator`` seeded with it, which differs from
-    the JAX package's draw, so only a checkpointed tenant restores to the
-    same program in both packages."""
-    program = engine.lower(spec, torch.Generator().manual_seed(seed))
+    tenant's registration seed (the manifest records it): the structure
+    is lowered from the threefry key ``PRNGKey(seed)``, as the JAX
+    package lowers it, and a tenant without a checkpoint registers from
+    the same seed, so it cold-starts to the JAX package's program."""
+    program = engine.lower(spec, threefry.key(seed, engine.device))
     prng = PRNG.create(spec.tm_config(), seed + 1, device=engine.device)
     got = store.load_tenant(name, like={"ta": program.ta,
                                         "weights": program.weights,

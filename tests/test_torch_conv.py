@@ -21,6 +21,7 @@ from repro import api as japi
 from repro.core.prng import PRNG as JPRNG
 from repro.launch.serve_tm import TMServer as JServer
 from repro_torch import api as tapi
+from repro_torch.core import threefry
 from repro_torch.core.dtm import STAT_KEYS
 from repro_torch.core.types import TileConfig
 from repro_torch.launch.serve_tm import TMServer
@@ -120,13 +121,13 @@ def test_encode_matches_jax_and_pads_patch_slots(engines, spec):
 
 def test_lower_sets_p_mask_and_refuses_too_many_patches(engines):
     jeng, teng, _ = engines
-    prog = teng.lower(_tspec(_conv()), torch.Generator().manual_seed(0))
+    prog = teng.lower(_tspec(_conv()), threefry.key(0, "cpu"))
     want = np.asarray(jeng.lower(_conv(), jax.random.PRNGKey(0)).p_mask)
     np.testing.assert_array_equal(prog.p_mask.numpy(), want)
     assert int(prog.p_mask.sum()) == 16
     small = tapi.compile(tapi.tile_for(_tspec(FLAT), **TILE), device="cpu")
     with pytest.raises(ValueError, match="patch slots"):
-        small.lower(_tspec(_conv()), torch.Generator().manual_seed(0))
+        small.lower(_tspec(_conv()), threefry.key(0, "cpu"))
 
 
 @pytest.mark.parametrize("B", [1, 3, 32])

@@ -188,7 +188,9 @@ def test_select_paths():
 
 SETTINGS = {"mxu": dict(kernel_path="mxu"),
             "stream": dict(ta_prng="stream"),
-            "fused_stream": dict(kernel_path="fused", ta_prng="stream")}
+            "fused_stream": dict(kernel_path="fused", ta_prng="stream"),
+            "ref": dict(kernel_path="ref"),
+            "ref_stream": dict(kernel_path="ref", ta_prng="stream")}
 KINDS = ("coalesced", "vanilla", "head")
 
 
@@ -229,7 +231,7 @@ def _paths_agree(teng, jeng):
     return got
 
 
-@pytest.mark.parametrize("pair", ["mxu"], indirect=True)
+@pytest.mark.parametrize("pair", ["mxu", "ref"], indirect=True)
 @pytest.mark.parametrize("B", [3, 8])
 def test_mxu_engine_inference_matches_jax(pair, B):
     jeng, teng = pair
@@ -256,7 +258,8 @@ def test_mxu_engine_inference_matches_jax(pair, B):
     np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
     np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
     paths = _paths_agree(teng, jeng)
-    assert paths == {"infer": "mxu", "infer_bank": "mxu"}
+    path = teng.kernel_path
+    assert paths == {"infer": path, "infer_bank": path}
 
 
 def _train_both(jeng, teng, kind, backend, B, steps=2, seed=0):
@@ -292,7 +295,7 @@ def test_train_step_matches_jax(pair, backend):
     assert paths["train_prng"] == f"{backend}-{teng.ta_prng}"
 
 
-@pytest.mark.parametrize("pair", ["mxu", "stream"], indirect=True)
+@pytest.mark.parametrize("pair", ["mxu", "stream", "ref"], indirect=True)
 def test_train_bank_matches_jax(pair):
     jeng, teng = pair
     specs = [_jspec(k) for k in KINDS]
@@ -353,3 +356,64 @@ def test_tm_and_server_run_the_dense_stream_engine():
     np.testing.assert_array_equal(answers[0], answers[2])
     np.testing.assert_array_equal(answers[1], answers[3])
     assert dense.cache_report()["path_per_stage"]["infer_bank"] == "mxu"
+
+
+def test_ref_path_trains_as_the_default_engine():
+    """The forced ``ref`` engine's fit equals the default engine's, and
+    the batch-based choice never picks ``ref``."""
+    spec = tapi.TMSpec.coalesced(features=30, classes=4, clauses=40, T=12,
+                                 prng_backend="lfsr")
+    tile = tapi.tile_for(spec)
+    base = tapi.compile(tile, device="cpu")
+    plain = tapi.compile(tile, device="cpu", kernel_path="ref")
+    x, y = _data(spec, 24, 6)
+    tms = [tapi.TM(spec, engine=e, seed=3) for e in (base, plain)]
+    hists = [tm.fit(x, y, epochs=1, batch=8, rng=np.random.default_rng(2))
+             for tm in tms]
+    assert hists[0] == hists[1]
+    for a, b in zip(tms[0].program.leaves() + tms[0].prng.leaves(),
+                    tms[1].program.leaves() + tms[1].prng.leaves()):
+        assert torch.equal(a, b)
+    assert plain.cache_report()["path_per_stage"] == {
+        "train": "ref", "train_ta": "compact", "train_prng": "lfsr-inkernel"}
+    assert "ref" not in {tops.select_path(b, training=t)
+                         for b in (1, 8) for t in (False, True)}
+
+
+CONV = japi.TMSpec.conv(6, 6, 3, classes=2, clauses=16, T=8,
+                        prng_backend="lfsr", lfsr_bits=12)
+
+
+def test_ref_conv_matches_jax(monkeypatch):
+    """Conv under the forced plain path: inference, a bank flush and two
+    train steps against the JAX engine under ``REPRO_KERNEL_PATH=ref``."""
+    monkeypatch.setenv("REPRO_KERNEL_PATH", "ref")
+    jeng = japi.compile(japi.tile_for(CONV, x=32, y=16, m=16, n=4),
+                        backend="kernel")
+    tspec = _tspec(CONV)
+    teng = tapi.compile(tapi.tile_for(tspec, x=32, y=16, m=16, n=4),
+                        device="cpu", kernel_path="ref")
+    jtm = japi.TM(CONV, engine=jeng, seed=5)
+    tprog, tprng = _bridge(jtm.program, jtm.prng)
+    jprog, jprng = jtm.program, jtm.prng
+    rng = np.random.default_rng(7)
+    x = (rng.random((8, 6, 6)) < 0.5).astype(np.int8)
+    y = rng.integers(0, 2, 8).astype(np.int32)
+    jl, tl = jeng.encode(CONV, jnp.asarray(x)), teng.encode(tspec, x)
+    js, jc = jeng.infer_conv(jprog, jl)
+    ts, tc = teng.infer_conv(tprog, tl)
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    jbs, _ = japi.stack([jprog, jprog], jeng, conv=True).infer([jl, jl])
+    tbs, _ = tapi.stack([tprog, tprog], teng, conv=True).infer([tl, tl])
+    np.testing.assert_array_equal(tbs.numpy(), np.asarray(jbs))
+    for _ in range(2):
+        jprog, jprng, jst = jeng.train_conv(jprog, jprng, jl, jnp.asarray(y))
+        tprog, tprng, tst = teng.train_conv(tprog, tprng, tl,
+                                            torch.as_tensor(y))
+        assert {k: int(v) for k, v in tst.items()} == \
+            {k: int(jst[k]) for k in STAT_KEYS}
+    _assert_same(tprog, tprng, jprog, jprng, "conv ref")
+    paths = _paths_agree(teng, jeng)
+    assert paths == {"infer_conv": "ref", "infer_conv_bank": "ref",
+                     "train_conv": "ref"}

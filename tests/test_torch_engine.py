@@ -223,8 +223,12 @@ def test_forced_kernel_path_gives_the_same_answer(engines):
     assert forced.cache_report()["path_per_stage"]["infer"] == "mxu_popcount"
     for x, y in zip(a, b):
         np.testing.assert_array_equal(x.numpy(), y.numpy())
+    plain = DTMEngine(teng.tile, device="cpu", kernel_path="ref")
+    for x, y in zip(a, plain.infer(tprog, lits)):
+        np.testing.assert_array_equal(x.numpy(), y.numpy())
+    assert plain.cache_report()["path_per_stage"]["infer"] == "ref"
     with pytest.raises(ValueError):
-        DTMEngine(teng.tile, device="cpu", kernel_path="ref")
+        DTMEngine(teng.tile, device="cpu", kernel_path="vpu")
 
 
 def test_convert_round_trip_keeps_dtypes(engines):

@@ -249,8 +249,11 @@ def test_select_path_thresholds_and_force():
     assert tops.select_path(1) == tops.select_path(4) == "packed_vpu"
     assert tops.select_path(5) == tops.select_path(32) == "mxu_popcount"
     assert tops.select_path(32, force="packed_vpu") == "packed_vpu"
+    assert tops.select_path(32, force="ref", training=True) == "ref"
+    assert "ref" not in {tops.select_path(b, training=t)
+                         for b in (1, 4, 5, 32) for t in (False, True)}
     with pytest.raises(ValueError):
-        tops.select_path(1, force="ref")     # the JAX jnp path: not ported
+        tops.select_path(1, force="vpu")
 
 
 def test_wrappers_reject_bad_operands():
@@ -300,6 +303,7 @@ def test_port_imports_neither_jax_nor_repro():
         "       or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
         "for m in ('repro_torch.core.prng', 'repro_torch.core.device',\n"
+        "          'repro_torch.core.threefry', 'repro_torch.kernels.threefry',\n"
         "          'repro_torch.kernels.fused_step',\n"
         "          'repro_torch.kernels.ta_update',\n"
         "          'repro_torch.checkpoint.checkpoint',\n"
@@ -312,4 +316,4 @@ def test_port_imports_neither_jax_nor_repro():
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, env={**os.environ, "PYTHONPATH": src})
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.strip()) >= 34
+    assert int(r.stdout.strip()) >= 36

@@ -19,7 +19,7 @@ import torch
 from repro.core import prng as jprng
 from repro.core.types import TMConfig as JConfig
 from repro_torch import api, convert
-from repro_torch.core import prng as tprng
+from repro_torch.core import prng as tprng, threefry
 from repro_torch.core.dtm import STAT_KEYS
 from repro_torch.core.types import TMConfig
 from repro_torch.kernels import ops
@@ -189,7 +189,7 @@ def test_conv_step_on_the_card_equals_the_cpu_engine(dev, backend, width):
     tile = api.tile_for(spec, x=32, y=16, m=16, n=4)
     gpu = api.compile(tile, device=dev)
     cpu = api.compile(tile, device="cpu")
-    prog = cpu.lower(spec, torch.Generator().manual_seed(1))
+    prog = cpu.lower(spec, threefry.key(1, "cpu"))
     prng = tprng.PRNG.create(spec.tm_config(), 2, device="cpu")
     rng = np.random.default_rng(4)
     pg, rg = prog.to(dev), prng.to(dev)

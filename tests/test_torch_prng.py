@@ -3,7 +3,8 @@
 ``PRNG.bits`` over consecutive calls and shapes, for the counter backend
 and the LFSR cluster at 4 bits (where the seed refresh fires within a
 few calls, with and without it) and 24 bits; a stacked bank PRNG against
-its programs; the numpy round trip; threefry raising.
+its programs; the numpy round trip.  The threefry backend is in
+``test_torch_threefry.py``.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -136,18 +137,3 @@ def test_splitmix_and_xorshift_match_jax():
     np.testing.assert_array_equal(tprng._xorshift32(xt).numpy(),
                                   np.asarray(jprng._xorshift32(xj)))
     assert tprng._TAPS == jprng._TAPS
-
-
-def test_threefry_raises_a_clear_error():
-    cfg = TMConfig(prng_backend="threefry")
-    with pytest.raises(NotImplementedError, match="threefry"):
-        tprng.PRNG.create(cfg, 0)
-    spec = api.TMSpec.coalesced(features=8, classes=2, clauses=16,
-                                prng_backend="threefry")
-    assert spec.tm_config().prng_backend == "threefry"   # specs still cross
-    with pytest.raises(NotImplementedError, match="threefry"):
-        api.TM(spec, device="cpu")
-    engine = api.compile(api.tile_for(spec), device="cpu")
-    prog = engine.lower(spec, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="threefry"):
-        engine.bind(prog, spec=spec)

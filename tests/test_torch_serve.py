@@ -16,6 +16,7 @@ import torch
 from repro import api as japi
 from repro.launch.serve_tm import TMServer as JServer
 from repro_torch import api as tapi, convert
+from repro_torch.core import threefry
 from repro_torch.core.dtm import FIELDS
 from repro_torch.core.types import TileConfig
 from repro_torch.launch.serve_tm import TMServer as TServer
@@ -194,7 +195,7 @@ def test_register_lowers_from_seed():
     _, ts = _servers(4)
     spec = tapi.TMSpec.coalesced(features=10, classes=2, clauses=8)
     ts.register("fresh", spec, seed=5)
-    again = ts.engine.lower(spec, torch.Generator().manual_seed(5))
+    again = ts.engine.lower(spec, threefry.key(5, "cpu"))
     assert torch.equal(ts.tenants["fresh"].program.ta, again.ta)
     ts.enqueue("fresh", _request(spec, 4, 0))
     assert set(ts.flush()) == {"fresh"}

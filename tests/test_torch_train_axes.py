@@ -5,7 +5,10 @@ engine's ``ref`` backend on: ``ta_bits`` 10 (int32 TA states),
 ``boost_true_positive=False``, ``lfsr_bits`` 4, 8, 12 and 32 with and
 without the seed refresh, ``rand_bits`` 8, ``weight_bits`` 2, T 8000, and
 a K=3 bank of mixed kinds (coalesced, vanilla, regression) at
-``lfsr_bits`` 4 and 24.  The port's ``fused_step_plain`` is also held
+``lfsr_bits`` 4 and 24; and, with the streamed TA words (the JAX engine
+under ``REPRO_TA_PRNG=stream``, the port's ``ta_prng="stream"``), that bank
+at ``s`` default and 1.0 and single steps of the three kinds at ``s`` 1.0
+with the lfsr-4 refresh.  The port's ``fused_step_plain`` is also held
 against the JAX package's ``fused_step_ref`` at ``rand_bits`` 8 and T 8000,
 where ``p_num << rand_bits`` wraps in int32.
 """
@@ -97,12 +100,14 @@ def test_train_steps_match_jax_at_rand_bits_8(engines):
     assert int(prog.weights.abs().max()) <= 2
 
 
-@pytest.mark.parametrize("lfsr_bits", [4, 24])
-def test_mixed_kind_bank_matches_jax(engines, lfsr_bits):
-    jeng, teng = engines[16]
-    kinds = ("coalesced", "vanilla", "regression")
-    specs = [_spec(k, prng_backend="lfsr", lfsr_bits=lfsr_bits, ta_bits=10)
-             for k in kinds]
+KINDS = ("coalesced", "vanilla", "regression")
+
+
+def _bank_steps(jeng, teng, lfsr_bits, **kw):
+    """Two steps of a K=3 mixed-kind bank (``ta_bits`` 10) on both
+    engines; stats, programs and PRNGs must be equal."""
+    specs = [_spec(k, prng_backend="lfsr", lfsr_bits=lfsr_bits, ta_bits=10,
+                   **kw) for k in KINDS]
     starts = [(jtm.program, jtm.prng) for jtm in
               (japi.TM(s, engine=jeng, seed=i) for i, s in enumerate(specs))]
     bridged = [_bridge(p, r) for p, r in starts]
@@ -122,10 +127,58 @@ def test_mixed_kind_bank_matches_jax(engines, lfsr_bits):
         tst = tbank.train(tl, labels)
         for k in STAT_KEYS:
             np.testing.assert_array_equal(tst[k].numpy(), np.asarray(jst[k]))
-    for k, kind in enumerate(kinds):
+    for k, kind in enumerate(KINDS):
         jp = jax.tree.map(lambda t: t[k], jbank.progs)
         jr = jax.tree.map(lambda t: t[k], jbank.prngs)
         _assert_same(tbank.swap_out(k), tbank.prngs[k], jp, jr, kind)
+
+
+@pytest.mark.parametrize("lfsr_bits", [4, 24])
+def test_mixed_kind_bank_matches_jax(engines, lfsr_bits):
+    _bank_steps(*engines[16], lfsr_bits)
+
+
+@pytest.fixture(scope="module")
+def stream_cache():
+    return {}
+
+
+@pytest.fixture
+def stream_engines(stream_cache, monkeypatch):
+    """The streamed pair: a JAX ``ref`` engine made once for the module
+    and run under ``REPRO_TA_PRNG=stream`` (set on the JAX side only), and
+    a port engine with ``ta_prng="stream"``."""
+    monkeypatch.setenv("REPRO_TA_PRNG", "stream")
+    if not stream_cache:
+        specs = [_spec(k) for k in KINDS]
+        tile = japi.tile_for(*specs, x=32, y=128, m=128, n=4)
+        ttile = tapi.tile_for(*(_tspec(s) for s in specs), x=32, y=128,
+                              m=128, n=4)
+        stream_cache["pair"] = (
+            japi.compile(tile, backend="ref"),
+            tapi.compile(ttile, device="cpu", ta_prng="stream"))
+    return stream_cache["pair"]
+
+
+@pytest.mark.parametrize("s", [None, 1.0])
+@pytest.mark.parametrize("lfsr_bits", [4, 24])
+def test_streamed_mixed_kind_bank_matches_jax(stream_engines, lfsr_bits, s):
+    jeng, teng = stream_engines
+    _bank_steps(jeng, teng, lfsr_bits, **({} if s is None else {"s": s}))
+    paths = teng.cache_report()["path_per_stage"]
+    assert paths["train_bank_ta"] == "dense"
+    assert paths["train_bank_prng"] == "lfsr-stream"
+    assert jeng.cache_report()["path_per_stage"]["train_bank_prng"] == \
+        "lfsr-stream"
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_streamed_steps_at_s_1_match_jax(stream_engines, kind):
+    jeng, teng = stream_engines
+    _steps(jeng, teng, _spec(kind, prng_backend="lfsr", lfsr_bits=4,
+                             seed_refresh=True, s=1.0), seed=3)
+    assert teng.cache_report()["path_per_stage"]["train_prng"] == \
+        "lfsr-stream"
 
 
 @pytest.mark.parametrize("frozen", [False, True])
