@@ -68,7 +68,7 @@ held-out rows):
      shapes (fused_step K=1 B=32, also as ``kernel_ms``, its bare launch
      from ``prepare_fused_step``, and under torch.profiler: one kernel a
      call, in the profiled step and alone; ta_update and ta_update_streamed K=1
-     and K=2 with 2B=64; ta_update_sparse at the fit's last step;
+     and K=2 with 2B=64; ta_update_sparse at the fit's second step;
      clause_eval K=1 B=32; packed_clause_eval at the edge step's B=1,
      R=2048, W=52), timed as in phase 6, the TA rows also as
      ``kernel_ms``: the bare launch, its operands and scalars prepared
@@ -149,6 +149,35 @@ Threefry and the plain datapath:
      counts over the phase show no launch of the nine clause and TA
      kernels and the lfsr draws' launches.
 
+CUDA graphs (every phase above runs its fits, ``partial_fit`` steps and
+bank flushes as graph replays: an epoch of ``TMSession.fit_epochs`` is
+one replay of the captured step per batch, a bank flush one replay;
+launch counts add each graph's captured launches per replay, so the
+checks of the counts above hold as they were; the kernel checks of
+phases 5b, 10 and 13 take their arguments from eager calls of the
+engine's step or bank inference on the same starting state, since a
+capture runs no kernel and ``Capture`` skips calls made under one):
+ 16. the six fits of the MNIST CoTM (compacted, skip-off, ``mxu``,
+     streamed, conv, threefry) run twice, replayed (``TM.fit`` under
+     ``set_sync_debug_mode("error")``) and as the eager chain of the
+     engine's step from the same program, PRNG and shuffle: programs,
+     PRNGs and histories equal, the first epoch's per-step stats from
+     ``_fit_epoch_impl`` equal the chain's, that epoch's launch counts
+     equal steps × its graph's captured counts, and the program and
+     PRNG the caller held unchanged; ``partial_fit`` at B=1 (flat and
+     conv) against the eager step; stacked flushes of the serving
+     roster (K=4, then a resident K=2) and of the conv bank on fresh
+     engines across three ``swap_in`` calls and a ``swap_resident``,
+     each against the eager bank inference, with ``cache_report`` at 1
+     graph a stage.  The ``graphs`` line reports host ms a replayed
+     step, epoch s, steps/s, fit s and the eager chain's ms a step per
+     fit, each epoch's device time (CUDA events, the host held off by a
+     sleep kernel so the events read device time) against its host
+     time (the busy share without the profiler), capture and warm-up
+     ms and pool bytes per graph, flush and ``partial_fit`` wall ms
+     against eager, the scheduled cycle of phase 13, and the conv fit's
+     peak device memory with its capture.
+
 Bounds: bytes over 3.35 TB/s; integer operations over 64 per clock per
 SM (the CUDA guide's rate for 32-bit integer add, logic, shift, compare
 and multiply-add on compute capability 9.0) × the SM count × the card's
@@ -186,9 +215,9 @@ spreads over more than one integer pipe, and ran above 64 a clock).  No
 kernel here does float work.
 
 Prints the card line, ``serving``, ``training``, ``conv``,
-``scheduler``, ``threefry`` and ``ref_path`` JSON lines, a ``kernels``
-JSON line and, last, ``{"ok": true, "device": {...}}``.  Any failed
-check raises, and the exit code is then non-zero.  Without a CUDA card,
+``scheduler``, ``threefry``, ``ref_path`` and ``graphs`` JSON lines, a
+``kernels`` JSON line and, last, ``{"ok": true, "device": {...}}``.  Any
+failed check raises, and the exit code is then non-zero.  Without a CUDA card,
 or without the repository beside it, it exits non-zero and prints no
 result.
 """
@@ -266,9 +295,14 @@ class Capture:
     """Within the block, record the arguments of the last call of
     ``module.name`` (a kernel wrapper as the ops module calls it), and of
     the first call at each shape of its tensor arguments (``by_shape``);
-    the wrapper itself still runs and counts its launches."""
+    the wrapper itself still runs and counts its launches.  Calls made
+    while a CUDA graph is being captured are not recorded: their
+    arguments are a graph's buffers, whose contents are not computed
+    then (a capture runs no kernel)."""
 
     def __init__(self, module, name: str):
+        import torch
+        self.torch = torch
         self.module, self.name = module, name
         self.fn = getattr(module, name)
         self.args = None
@@ -276,6 +310,8 @@ class Capture:
 
     def __enter__(self):
         def record(*a, **kw):
+            if self.torch.cuda.is_current_stream_capturing():
+                return self.fn(*a, **kw)
             self.args = (a, kw)
             key = tuple(tuple(t.shape) for t in a if hasattr(t, "shape"))
             self.by_shape.setdefault(key, (a, kw))
@@ -538,6 +574,19 @@ def scheduled_serving(torch, np, api, ops, datasets, roster, progs, cpu,
         for c_ in caps.values():
             c_.__exit__()
     drain_out = [f.result(timeout=60) for f in drain_futs]
+    # the resident bank's flushes replay a graph: the tile and class-sum
+    # checks take the bank's arguments from an eager inference of it on
+    # the same requests (the cold path's calls above are eager)
+    bank_names, bank_ = srv._bank_for(False)
+    counted = ops.launch_counts()          # (not counted: a check's call)
+    with Capture(ops, "packed_clause_tile") as tile_eager, \
+            Capture(ops, "class_sum") as sum_eager:
+        eng.predict_bank(bank_.progs, [
+            eng.encode(specs[n], pool[n][0][:B]) for n in bank_names])
+    torch.cuda.synchronize()
+    ops.set_launch_counts(counted)
+    caps["packed_clause_tile"].by_shape.update(tile_eager.by_shape)
+    caps["class_sum"].by_shape.update(sum_eager.by_shape)
 
     # thread mode: 64 requests per tenant submitted open loop, the driver
     # and the checkpoint writer on their own threads
@@ -994,6 +1043,230 @@ def ref_phase(torch, np, api, ops, tile, server, reqs, want_answers, eng,
             "phase_s": time.perf_counter() - t_phase}
 
 
+def graphs_phase(torch, np, api, ops, fits, edge, flat, conv_flat,
+                 scheduled, card: str, seed: int):
+    """Phase 16: the session and bank executables as CUDA graphs.
+
+    ``fits``: (name, engine, spec, x, y) of the six fits (compacted,
+    skip-off, ``mxu``, streamed, conv, threefry); each runs as ``TM.fit``
+    (2 epochs of 32-row batches, replayed, under
+    ``set_sync_debug_mode("error")``) and as the eager chain of the
+    engine's step from the same program, PRNG and shuffle: programs,
+    PRNGs and histories must be equal, the first epoch's per-step stats
+    from ``_fit_epoch_impl`` equal the chain's, the launch counts of that
+    epoch equal steps × its graph's counts, and the program and PRNG the
+    caller held must not change.  ``edge``: (engine, spec, x, y, conv
+    engine, conv spec, conv images, labels): ``partial_fit`` steps
+    (flat B=1, conv B=1) against the eager step.  ``flat``: (tile,
+    specs, programs, requests) of the serving roster, ``conv_flat``:
+    (conv tile, spec, programs, requests): stacked flushes on fresh
+    engines across three ``swap_in`` calls and a ``swap_resident``
+    against the eager bank inference, with ``cache_report`` at 1 a
+    stage.  ``scheduled``: (phase 13's profiled cycle, its scheduler,
+    one request a tenant): 20 cycles timed without the profiler.  Times: host ms a replayed step, epoch s, steps/s, fit s,
+    capture ms a graph, the eager chain's ms a step, the device time of
+    an epoch from CUDA events with the host held off by a sleep kernel
+    (so the events read device time) against the epoch's host time,
+    flush and ``partial_fit`` wall ms against eager."""
+    from repro_torch.core.dtm import STAT_KEYS
+    from repro_torch.core.evaluate import epoch_record
+    from repro_torch.launch.serve_tm import TMServer
+    t_phase = time.perf_counter()
+    B = 32
+    report = {"card": card, "fits": {}, "graphs": []}
+
+    def tagged(engine, label):
+        return [{"engine": label, **g} for g in engine.graph_report()]
+
+    for name, e, spec, x, y in fits:
+        conv = spec.kind == "conv"
+        tm = api.TM(spec, engine=e, seed=seed)
+        p0, r0 = tm.program, tm.prng
+        held = [t.clone() for t in p0.leaves() + r0.leaves()]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        hist = tm.fit(x, y, epochs=2, batch=B,
+                      rng=np.random.default_rng(seed), sync_guard=True)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t
+        check(all(torch.equal(a, b) for a, b in zip(
+            held, p0.leaves() + r0.leaves())),
+            f"the {name} fit changed the program or PRNG its caller held")
+        # the eager chain: the engine's step in a loop, same shuffle
+        lits, lab = e.encode(spec, x), spec.encode_labels(y).cuda()
+        n = len(x) - len(x) % B
+        steps = n // B
+        step_fn = e.train_conv if conv else e.train_step
+        rng = np.random.default_rng(seed)
+        p, r, rows, recs = p0, r0, [], []
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for ep in range(2):
+            idx = torch.from_numpy(rng.permutation(len(x))[:n].reshape(
+                steps, B)).cuda()
+            ep_rows = []
+            for ib in idx:
+                p, r, st = step_fn(p, r, lits.index_select(0, ib),
+                                   lab.index_select(0, ib))
+                ep_rows.append(torch.stack([st[k] for k in STAT_KEYS]))
+            per = torch.stack(ep_rows).cpu().numpy()
+            recs.append(epoch_record(ep, {
+                k: int(per[:, i].sum(dtype=np.int64))
+                for i, k in enumerate(STAT_KEYS)}, n, None))
+            rows.append(torch.stack(ep_rows))
+        torch.cuda.synchronize()
+        eager_s = time.perf_counter() - t
+        check(same_state(torch, tm.program, p)
+              and same_state(torch, tm.prng, r) and hist == recs,
+              f"the replayed {name} fit differs from the eager chain")
+        # the first epoch again through _fit_epoch_impl: per-step stats
+        # and launch counts (counts from 0 just before)
+        impl = e._fit_epoch_conv_impl if conv else e._fit_epoch_impl
+        idx0 = np.random.default_rng(seed).permutation(len(x))[:n].reshape(
+            steps, B)
+        ops.reset_launch_counts()
+        p1, r1, st1 = impl(p0, r0, lits, lab, idx0, sync_guard=True)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        graph = next(g_ for g_ in e._graphs.values()
+                     if g_.stage.startswith("fit_epoch")
+                     and g_.holds("data", lits, lab))
+        check(torch.equal(st1, rows[0]), f"the {name} epoch's per-step "
+              "stats differ from the eager chain's")
+        check(all(counts[k] == steps * graph.launches.get(k, 0)
+                  for k in counts) and counts["lfsr_bits"]
+              + counts["threefry_bits"] > 0,
+              f"the {name} epoch launched {counts}, not {steps} x "
+              f"{graph.launches}")
+        # device time of that epoch, the host held off by a sleep kernel
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        torch.cuda._sleep(100_000_000)
+        ev[0].record()
+        impl(p0, r0, lits, lab, idx0)
+        ev[1].record()
+        torch.cuda.synchronize()
+        dev_ms = ev[0].elapsed_time(ev[1])
+        host_ms = tm.epoch_seconds[-1] * 1e3
+        report["fits"][name] = {
+            "steps_per_epoch": steps, "fit_s": fit_s,
+            "epoch_s": tm.epoch_seconds,
+            "steps_per_s": [steps / s_ for s_ in tm.epoch_seconds],
+            "host_ms_per_replayed_step": host_ms / steps,
+            "eager_ms_per_step": eager_s * 1e3 / (2 * steps),
+            "epoch_device_ms": dev_ms,
+            "busy_share": dev_ms / host_ms,
+            "launches_per_step": graph.launches}
+
+    # edge partial_fit: flat and conv, B=1, against the eager step
+    e, spec, x, y, ec, spec_c, xc, yc = edge
+    edge_rep = {}
+    for label, eng_, sp, xs, ys, n_steps in (("flat", e, spec, x, y, 8),
+                                             ("conv", ec, spec_c, xc, yc, 3)):
+        tm = api.TM(sp, engine=eng_, seed=seed + 1)
+        p, r = tm.program, tm.prng
+        step_fn = eng_.train_conv if sp.kind == "conv" else eng_.train_step
+        fit_ms, eager_ms = [], []
+        for i in range(n_steps):
+            xb, yb = xs[i:i + 1], ys[i:i + 1]
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            sg = tm.partial_fit(xb, yb)
+            torch.cuda.synchronize()
+            fit_ms.append((time.perf_counter() - t) * 1e3)
+            t = time.perf_counter()
+            p, r, se = step_fn(p, r, eng_.encode(sp, xb),
+                               sp.encode_labels(yb).cuda())
+            torch.cuda.synchronize()
+            eager_ms.append((time.perf_counter() - t) * 1e3)
+            check(same_state(torch, tm.program, p)
+                  and same_state(torch, tm.prng, r)
+                  and all(int(sg[k]) == int(se[k]) for k in STAT_KEYS),
+                  f"{label} partial_fit step {i} differs from the eager "
+                  "step")
+        edge_rep[label] = {"partial_fit_ms": fit_ms,
+                           "partial_fit_ms_median_after_first":
+                               float(np.median(fit_ms[1:])),
+                           "eager_step_ms_median_after_first":
+                               float(np.median(eager_ms[1:]))}
+    report["edge"] = edge_rep
+
+    # stacked flushes on fresh engines, across swaps
+    def flushes(label, tile, specs, progs, reqs, conv):
+        g = api.compile(tile)
+        srv = TMServer(g, batch_slot=B)
+        names = list(progs)
+        for n_ in names:
+            srv.register(n_, specs[n_], program=progs[n_])
+        stage = "infer_conv_bank" if conv else "predict_bank_list"
+        lits = {n_: g.encode(specs[n_], reqs[n_][:B]) for n_ in names}
+        wall, eager = [], []
+
+        def one():
+            for n_ in srv.resident_names(conv):
+                srv.enqueue(n_, lits[n_], encoded=True)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            got = srv.flush()
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t) * 1e3)
+            bn, bank = srv._bank_for(conv)
+            t = time.perf_counter()
+            want = (g.infer_conv_bank if conv else g.predict_bank)(
+                bank.progs, [lits[n_] for n_ in bn])
+            [w.cpu() for w in want]
+            eager.append((time.perf_counter() - t) * 1e3)
+            out = bank.infer([lits[n_] for n_ in bn]) if conv else \
+                bank.predict([lits[n_] for n_ in bn])
+            check(all(torch.equal(a, b) for a, b in zip(out, want)),
+                  f"the {label} flush graph differs from the eager bank")
+            check(g.cache_report()[stage] == 1,
+                  f"{label} flush graphs {g.cache_report()}")
+            return got
+
+        for _ in range(3):
+            one()
+        swaps = [(names[0], progs[names[1]]), (names[1], progs[names[0]]),
+                 (names[0], progs[names[0]])]
+        for n_, prog in swaps:          # three in-place slot writes
+            srv.swap_in(n_, prog)
+            one()
+        if len(names) > 2:              # a resident roster, then a swap
+            srv.set_resident(names[:2], conv=conv)
+            one()
+            srv.swap_resident(names[1], names[2])
+            one()
+        return {"flush_ms": wall, "eager_ms": eager,
+                "flush_ms_median_after_first": float(np.median(wall[1:])),
+                "eager_ms_median_after_first": float(np.median(eager[1:])),
+                "graphs": tagged(g, label)}
+
+    report["flush"] = flushes("flat", *flat, conv=False)
+    report["flush_conv"] = flushes("conv", *conv_flat, conv=True)
+    cycle_profile, sched, cyc = scheduled
+    cycle_ms = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for n_, x_ in cyc.items():
+            sched.submit(n_, x_)
+        sched.drain()
+        torch.cuda.synchronize()
+        cycle_ms.append((time.perf_counter() - t) * 1e3)
+    report["scheduled_cycle"] = {
+        "host_ms": cycle_ms,
+        "host_ms_median_after_first": float(np.median(cycle_ms[1:])),
+        "profiled": {k: cycle_profile[k] for k in (
+            "wall_ms", "device_ms", "busy_share", "launches")}}
+    seen = set()
+    for name, e, *_ in fits:          # each engine's graphs once
+        if id(e) not in seen:
+            seen.add(id(e))
+            report["graphs"] += tagged(e, name)
+    report["phase_s"] = time.perf_counter() - t_phase
+    return report
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0,
@@ -1171,14 +1444,13 @@ def main(argv=None) -> int:
     dense = server(gpu_mxu, B)
     ops.reset_launch_counts()
     dense_answers, dense_flush_s = [], []
-    with Capture(ops, "clause_eval") as cap_ce_serve:
-        for r in range(ROUNDS):
-            for n in roster:
-                dense.enqueue(n, reqs[n][r * B:(r + 1) * B])
-            t = time.perf_counter()
-            dense_answers.append(dense.flush())
-            torch.cuda.synchronize()
-            dense_flush_s.append(time.perf_counter() - t)
+    for r in range(ROUNDS):
+        for n in roster:
+            dense.enqueue(n, reqs[n][r * B:(r + 1) * B])
+        t = time.perf_counter()
+        dense_answers.append(dense.flush())
+        torch.cuda.synchronize()
+        dense_flush_s.append(time.perf_counter() - t)
     counts_dense_serve = ops.launch_counts()
     check(counts_dense_serve["clause_eval"] == ROUNDS
           and counts_dense_serve["class_sum"] == ROUNDS
@@ -1189,7 +1461,10 @@ def main(argv=None) -> int:
             check(np.array_equal(dense_answers[r][n], answers[r][n]),
                   f"dense answers of {n} differ from the default flush")
     sums_p, cl_p = gpu.infer_bank(bank.progs, lits)
-    sums_d, cl_d = gpu_mxu.infer_bank(bank.progs, lits)
+    # the eager bank inference gives the clause kernel's arguments (the
+    # flushes above replay a graph, whose buffers no capture records)
+    with Capture(ops, "clause_eval") as cap_ce_serve:
+        sums_d, cl_d = gpu_mxu.infer_bank(bank.progs, lits)
     check(torch.equal(sums_d, sums_p) and torch.equal(cl_d, cl_p),
           "dense class sums or clauses differ from the default path")
     check(gpu_mxu.cache_report()["path_per_stage"]["infer_bank"] == "mxu",
@@ -1243,13 +1518,10 @@ def main(argv=None) -> int:
         return hist, time.perf_counter() - t
 
     ops.reset_launch_counts()
-    with Capture(ops, "fused_step") as cap_front, \
-            Capture(ops, "ta_update_sparse") as cap_sparse:
-        hist, fit_s = fit(tm_a)
+    hist, fit_s = fit(tm_a)
     counts_fit = ops.launch_counts()
     ops.reset_launch_counts()
-    with Capture(ops, "ta_update") as cap_dense1:
-        hist_d, fit_d_s = fit(tm_b)
+    hist_d, fit_d_s = fit(tm_b)
     counts_dense = ops.launch_counts()
     steps = 2 * (N_TRAIN // 32)
     check(counts_fit["fused_step"] == steps
@@ -1268,21 +1540,30 @@ def main(argv=None) -> int:
           f"last epoch train accuracy {hist[-1]['train_acc']}")
     test_acc = tm_a.score(x_te, y_te)
 
-    # the first two steps of the fit, on the card and on the CPU engine
+    # the first two steps of the fit, on the card (eager, in place as the
+    # fit's step: the kernel checks of phase 10 take their arguments from
+    # these calls, the fits replay graphs) and on the CPU engine
     plan = np.random.default_rng(args.seed).permutation(N_TRAIN).reshape(
         -1, 32)
     pg, rg, pc, rc = p0.to("cuda"), r0.to("cuda"), p0, r0
     cpu_s = 0.0
     for s_ in range(2):
         xb, lab = x_tr[plan[s_]], spec.encode_labels(y_tr[plan[s_]])
-        pg, rg, sg = eng.train_step(pg, rg, eng.encode(spec, xb),
-                                    lab.cuda())
+        with Capture(ops, "fused_step") as cap_front, \
+                Capture(ops, "ta_update_sparse") as cap_sparse:
+            pg, rg, sg = eng.train_step(pg, rg, eng.encode(spec, xb),
+                                        lab.cuda(), donate=True)
         t = time.perf_counter()
         pc, rc, sc = eng_cpu.train_step(pc, rc, eng_cpu.encode(spec, xb), lab)
         cpu_s += time.perf_counter() - t
         check(same_state(torch, pg, pc) and same_state(torch, rg, rc)
               and all(int(sg[k]) == int(sc[k]) for k in STAT_KEYS),
               f"fit step {s_} on the card differs from the CPU engine")
+
+    xb0, lab0 = x_tr[plan[0]], spec.encode_labels(y_tr[plan[0]]).cuda()
+    with Capture(ops, "ta_update") as cap_dense1:
+        eng_dense.train_step(p0.to("cuda"), r0.to("cuda"),
+                             eng_dense.encode(spec, xb0), lab0)
 
     # ---- 7b. the same fit on the dense front half and on streamed words -----
     eng_mxu = api.compile(ttile, device="cuda", kernel_path="mxu")
@@ -1294,15 +1575,20 @@ def main(argv=None) -> int:
               and same_state(torch, tm_.prng, r0),
               "the dense and streamed fits start from other states")
     ops.reset_launch_counts()
-    with Capture(ops, "clause_eval") as cap_ce_train, \
-            Capture(ops, "class_sum") as cap_cs_train:
-        hist_m, fit_m_s = fit(tm_m)
+    hist_m, fit_m_s = fit(tm_m)
     counts_fit_mxu = ops.launch_counts()
     ops.reset_launch_counts()
+    hist_s, fit_s_s = fit(tm_s)
+    counts_fit_stream = ops.launch_counts()
+    # each fit's first step, eager, gives its kernels' arguments
+    with Capture(ops, "clause_eval") as cap_ce_train, \
+            Capture(ops, "class_sum") as cap_cs_train:
+        eng_mxu.train_step(p0.to("cuda"), r0.to("cuda"),
+                           eng_mxu.encode(spec, xb0), lab0)
     with Capture(ops, "ta_update_op") as cap_stream_op, \
             Capture(ops, "ta_update_streamed") as cap_streamed1:
-        hist_s, fit_s_s = fit(tm_s)
-    counts_fit_stream = ops.launch_counts()
+        eng_stream.train_step(p0.to("cuda"), r0.to("cuda"),
+                              eng_stream.encode(spec, xb0), lab0)
     check(counts_fit_mxu["clause_eval"] == steps
           and counts_fit_mxu["class_sum"] == steps
           and counts_fit_mxu["fused_step"] == 0
@@ -1332,10 +1618,10 @@ def main(argv=None) -> int:
     for i in range(EDGE_STEPS):
         xb, yb = x_tr[i:i + 1], y_tr[i:i + 1]
         t = time.perf_counter()
-        with Capture(ops, "packed_clause_eval") as cap_edge_train:
-            sg = tm_e.partial_fit(xb, yb)
-            torch.cuda.synchronize()
+        sg = tm_e.partial_fit(xb, yb)
+        torch.cuda.synchronize()
         edge_train_s.append(time.perf_counter() - t)
+        last = (pc, rc, xb, yb)
         pc, rc, sc = eng_cpu.train_step(pc, rc, eng_cpu.encode(spec_c, xb),
                                         spec_c.encode_labels(yb))
         check(same_state(torch, tm_e.program, pc)
@@ -1343,6 +1629,11 @@ def main(argv=None) -> int:
               and all(int(sg[k]) == int(sc[k]) for k in STAT_KEYS),
               f"edge step {i} on the card differs from the CPU engine")
     counts_edge_train = ops.launch_counts()
+    # the last step again, eager on the card, for phase 10's kernel check
+    with Capture(ops, "packed_clause_eval") as cap_edge_train:
+        eng.train_step(last[0].to("cuda"), last[1].to("cuda"),
+                       eng.encode(spec_c, last[2]),
+                       spec_c.encode_labels(last[3]).cuda())
     check(counts_edge_train["packed_clause_eval"] == EDGE_STEPS
           and counts_edge_train["class_sum"] == EDGE_STEPS
           and counts_edge_train["ta_update_sparse"] == EDGE_STEPS
@@ -1409,13 +1700,13 @@ def main(argv=None) -> int:
 
     f_a, f_kw = cap_front.args
     front, err_front = compare_all(fused_step, fused_step_plain, f_a, f_kw)
-    s_a, s_kw = cap_sparse.args       # the fit's last step
+    s_a, s_kw = cap_sparse.args       # the fit's second step (eager)
     check(s_kw.get("inplace") is True,
           "the fit's compacted update did not run in place")
     s_a = copies(s_a)                 # timed below, in place
     _, err_sparse = compare_all(ta_update_sparse, ta_update_sparse_plain,
                                 s_a, s_kw)
-    d1_a, d1_kw = cap_dense1.args     # the dense fit's last step (K=1)
+    d1_a, d1_kw = cap_dense1.args     # the dense fit's first step (K=1)
     _, err_d1 = compare_all(ta_update, ta_update_plain, d1_a, d1_kw)
     d2_a, d2_kw = cap_bank.args       # the bank step (K=2)
     _, err_d2 = compare_all(ta_update, ta_update_plain, d2_a, d2_kw)
@@ -1427,19 +1718,19 @@ def main(argv=None) -> int:
         check(n_bad == 0, f"{kernel.__name__}: {n_bad} mismatches")
         return got, int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
 
-    pe_a, pe_kw = cap_edge_train.args     # the last edge training step
+    pe_a, pe_kw = cap_edge_train.args     # the last edge step, eager
     pe_a = copies(pe_a)
     check(all(t.is_cuda for t in pe_a[:2]),
           "the captured edge training call is not on the card")
     _, err_edge_train = compare_one(packed_clause_eval,
                                     packed_clause_eval_plain, pe_a, pe_kw)
-    ce4_a, ce4_kw = cap_ce_serve.args     # the last dense flush (K=4)
+    ce4_a, ce4_kw = cap_ce_serve.args     # the dense bank's inference (K=4)
     _, err_ce4 = compare_one(clause_eval, clause_eval_plain, ce4_a, ce4_kw)
-    ce1_a, ce1_kw = cap_ce_train.args     # the dense-front fit's last step
+    ce1_a, ce1_kw = cap_ce_train.args     # the dense-front fit's first step
     _, err_ce1 = compare_one(clause_eval, clause_eval_plain, ce1_a, ce1_kw)
     tmi_a, tmi_kw = (lit8s[0], inc8, weights), {"eval_mode": True}
     _, err_tmi = compare_one(tm_infer, tm_infer_plain, tmi_a, tmi_kw)
-    st1_a, st1_kw = cap_streamed1.args    # the streamed fit's last step
+    st1_a, st1_kw = cap_streamed1.args    # the streamed fit's first step
     st1, err_st1 = compare_all(ta_update_streamed, ta_update_streamed_plain,
                                st1_a, st1_kw)
     st2_a, st2_kw = cap_streamed2.args    # the streamed bank step (K=2)
@@ -1507,12 +1798,15 @@ def main(argv=None) -> int:
     xc_te, yc_te = xc[N_CONV:], yc[N_CONV:]
     tm_c = api.TM(spec_cv, engine=eng_cv, seed=args.seed)
     pc0, rc0 = tm_c.program.to("cpu"), tm_c.prng.to("cpu")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t = time.perf_counter()
     hist_c = tm_c.fit(xc_tr, yc_tr, epochs=2, batch=32,
                       rng=np.random.default_rng(args.seed), sync_guard=True)
     torch.cuda.synchronize()
     fit_c_s = time.perf_counter() - t
+    conv_fit_peak = torch.cuda.max_memory_allocated()   # with its capture
     counts_conv_fit = ops.launch_counts()
     steps_c = 2 * (N_CONV // 32)
     check(counts_conv_fit["packed_clause_tile"] == steps_c
@@ -1657,7 +1951,7 @@ def main(argv=None) -> int:
                                                 lits32, lab32))
 
     # ---- 13. scheduled durable serving: api.serve on the card --------------
-    sched_report, counts13, caps13, _ = scheduled_serving(
+    sched_report, counts13, caps13, sched13 = scheduled_serving(
         torch, np, api, ops, datasets, roster, progs, cpu, card, args.seed)
 
     # ---- 14. threefry: the MNIST CoTM with prng_backend="threefry" --------
@@ -1671,6 +1965,23 @@ def main(argv=None) -> int:
         {n: reqs[n][:B] for n in roster}, answers[0], eng, p0, r0, spec,
         x_tr, y_tr, (b_progs, b_prngs, b_lits, b_y),
         (bank.progs, bank.prngs, bst), card)
+
+    # ---- 16. the session and bank executables as CUDA graphs ---------------
+    graphs_report = graphs_phase(
+        torch, np, api, ops,
+        [("compact", eng, spec, x_tr, y_tr),
+         ("dense", eng_dense, spec, x_tr, y_tr),
+         ("mxu", eng_mxu, spec, x_tr, y_tr),
+         ("stream", eng_stream, spec, x_tr, y_tr),
+         ("conv", eng_cv, spec_cv, xc_tr, yc_tr),
+         ("threefry", eng, paper_spec(api, tm_paper.TM_MNIST_COTM,
+                                      "threefry"), x_tr, y_tr)],
+        (eng, spec_c, x_tr, y_tr, eng_cv, spec_cv, xc_tr, yc_tr),
+        (tile, specs, progs, reqs),
+        (ctile, {n: spec_cv for n in conv_progs}, conv_progs, creqs),
+        (sched_report["cycle_profile"], sched13,
+         {n: reqs[n][:B] for n in roster}), card, args.seed)
+    graphs_report["conv_fit_peak_bytes"] = conv_fit_peak
 
     # ---- 6. timing -------------------------------------------------------------
     cold = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
@@ -2208,7 +2519,7 @@ def main(argv=None) -> int:
         "launches": {"dense_flush": counts_dense_serve,
                      "tm_infer": counts_tm_infer}}
 
-    # the streamed TA update: the streamed fit's last step (K=1, lfsr) and
+    # the streamed TA update: the streamed fit's first step (K=1, lfsr) and
     # the streamed bank step (K=2, counter)
     for label, a, err in (("K=1", st1_a, err_st1), ("K=2", st2_a, err_st2)):
         k_, c_, l_ = a[0].shape
@@ -2308,6 +2619,7 @@ def main(argv=None) -> int:
     print(json.dumps({"scheduler": sched_report}))
     print(json.dumps({"threefry": tf_report}))
     print(json.dumps({"ref_path": ref_report}))
+    print(json.dumps({"graphs": graphs_report}))
     print(json.dumps({"kernels": rows_out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -285,8 +285,9 @@ class TM:
             "train_acc": None}
 
     def partial_fit(self, x, y) -> dict:
-        """One engine train step on a batch; returns the stats (0-d int32
-        tensors on the engine device)."""
+        """One engine train step on a batch (``TMSession.step``: one
+        replay of the step graph at this batch shape on the card);
+        returns the stats (0-d int32 tensors on the engine device)."""
         if self._stream is None:
             self._stream = self.engine.bind(self.program, spec=self.spec,
                                             prng=self.prng)
@@ -303,7 +304,8 @@ class TM:
             rng: Optional[np.random.Generator] = None,
             sync_guard: bool = False) -> list:
         """Stage (x, y) on the device once, then ``epochs`` epochs of
-        ``batch``-row steps (``TMSession.fit_epochs``); returns the
+        ``batch``-row steps (``TMSession.fit_epochs``: on the card one
+        replay of the epoch graph's step a batch); returns the
         per-epoch records.  ``sync_guard`` raises on a host-device
         synchronisation inside an epoch's steps."""
         session = self.engine.bind(self.program, x, y, spec=self.spec,
@@ -408,8 +410,14 @@ class ProgramBank:
     """K same-geometry programs stacked on a leading axis.
 
     :meth:`infer`/:meth:`predict`/:meth:`train` run all K through one
-    launch per kernel.  :meth:`swap_in` writes a slot in place on the
-    device; :meth:`swap_out` returns a copy, never a view, so a later
+    launch per kernel; on the card a flush (:meth:`infer`,
+    :meth:`predict`) is one replay of a CUDA graph per (stage, K, B) that
+    reads a static literal buffer and the bank's own program tensors.
+    :meth:`swap_in` writes a slot in place on the device, ordered before
+    the next replay on the one stream, so a swap needs no new capture
+    (the paper's reconfiguration without resynthesis); a bank whose
+    programs are rebuilt (:meth:`train`, a new :func:`stack`) captures
+    anew.  :meth:`swap_out` returns a copy, never a view, so a later
     ``swap_in`` or ``train`` cannot change a program that was read out.
     Flat and conv programs cannot share a bank (their literals differ in
     rank); a conv bank (``conv=True``) serves through :meth:`infer` only,
@@ -422,20 +430,67 @@ class ProgramBank:
         self.k = k
         self.conv = conv
         self.prngs = prngs          # stacked PRNG (train-capable banks)
+        self._flush_graphs: dict = {}   # (stage, literal shape) -> graph
+
+    def _flush(self, stage: str, lits) -> tuple:
+        """One flush through the bank's graph of ``stage`` at this
+        literal shape: the literals copied into its static buffer, one
+        replay (an eager run of the same body off the card), the answers
+        returned as copies that no later flush writes."""
+        if isinstance(lits, torch.Tensor):
+            shape = tuple(lits.shape)
+        else:
+            lits = list(lits)
+            shape = (len(lits), *lits[0].shape)
+        key = (stage, shape)
+        progs = self.progs
+        graph = self._flush_graphs.get(key)
+        if graph is None or not graph.holds("progs", progs,
+                                            *progs.leaves()):
+            graph = self._flush_graph(stage, shape)
+            self._flush_graphs[key] = graph
+        with graph.lock:
+            if isinstance(lits, torch.Tensor):
+                graph.const["lits"].copy_(lits)
+            else:
+                torch.stack(lits, out=graph.const["lits"])
+            graph.run()
+            return tuple(graph.state[name].clone() for name in graph.state)
+
+    def _flush_graph(self, stage: str, shape: tuple):
+        eng, progs = self.engine, self.progs
+        K, B = shape[:2]
+        dev = eng.device
+        fn = {"predict_bank_list": eng.predict_bank,
+              "infer_bank": eng.infer_bank,
+              "infer_conv_bank": eng.infer_conv_bank}[stage]
+        out = ({"preds": (K, B), "votes": (K, B)}
+               if stage == "predict_bank_list"
+               else {"sums": (K, B, eng.H), "cl": (K, B, eng.R)})
+        state = {name: torch.zeros(s, dtype=torch.int32, device=dev)
+                 for name, s in out.items()}
+        const = {"lits": torch.zeros(shape, dtype=torch.int32, device=dev)}
+
+        def body(b):
+            for name, t in zip(out, fn(progs, b["lits"])):
+                b[name].copy_(t)
+
+        graph = eng.step_graph(stage, body, state, const)
+        graph.mark("progs", progs, *progs.leaves())
+        return graph
 
     def infer(self, lits):
         """lits [K, B, W] ([K, B, P, W] for a conv bank), or K arrays
         without the K axis -> (sums [K, B, H], clause [K, B, R])."""
-        if self.conv:
-            return self.engine.infer_conv_bank(self.progs, lits)
-        return self.engine.infer_bank(self.progs, lits)
+        return self._flush("infer_conv_bank" if self.conv else "infer_bank",
+                           lits)
 
     def predict(self, lits):
         """Flat banks: (argmax preds [K, B] int32, clipped clause votes
         [K, B] int32).  A conv bank decodes on the host (use infer)."""
         if self.conv:
             raise ValueError("a conv bank decodes on the host; use infer")
-        return self.engine.predict_bank(self.progs, lits)
+        return self._flush("predict_bank_list", lits)
 
     def train(self, lits, labels) -> dict:
         """One stacked train step: program k takes batch k (lits

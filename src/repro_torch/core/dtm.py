@@ -54,6 +54,17 @@ Per stage the engine records the kernels it ran in
 ``infer``, ``infer_bank``, ``train``, ``train_bank``, ``infer_conv``,
 ``infer_conv_bank`` and ``train_conv`` (a forced path records ``ref``
 for its clause stages).
+
+Sessions and banks run as CUDA graphs on the card
+(:mod:`repro_torch.core.graph`, JAX's session executables): an epoch of
+``TMSession.fit_epochs`` is one plan upload, one replay of the captured
+step per batch and one stats fetch (:meth:`DTMEngine._fit_epoch_impl`,
+:meth:`DTMEngine._fit_epoch_conv_impl`); ``TMSession.step`` is one replay
+at its batch shape; a bank flush (``api.ProgramBank``) one replay.  The
+CPU and the forced ``ref`` path run the same bodies eagerly.  The
+``train_step``, ``train_conv``, ``infer*`` and ``train_bank`` methods
+stay the eager building blocks.  ``cache_report()`` counts the graphs
+captured per JAX stage name (0 without capture).
 """
 from __future__ import annotations
 
@@ -71,6 +82,7 @@ from repro_torch.kernels.ref import M32, NEG_INF_SUM, pack_include
 from .booleanize import pack_literals, unpack_literals, words_from_u32
 from .device import Device, resolve_device
 from .evaluate import epoch_record
+from .graph import StepGraph
 from . import threefry
 from .prng import PRNG
 from .types import COALESCED, TMConfig, TileConfig
@@ -79,6 +91,11 @@ from .types import COALESCED, TMConfig, TileConfig
 # per-step values on the host into the plain ints of the epoch records.
 STAT_KEYS = ("selected", "active_groups", "total_groups", "correct",
              "abs_err")
+# The JAX engine's stage executables, as ``cache_report`` names them.
+GRAPH_STAGES = ("infer", "train", "infer_conv", "train_conv", "fit_epoch",
+                "fit_epoch_conv", "infer_bank", "infer_conv_bank",
+                "infer_bank_list", "infer_conv_bank_list",
+                "predict_bank_list", "train_bank")
 
 @dataclasses.dataclass
 class DTMProgram:
@@ -137,6 +154,22 @@ class DTMProgram:
 
 FIELDS = tuple(f.name for f in dataclasses.fields(DTMProgram))
 U32_FIELDS = ("p_ta", "inc")    # uint32 in the JAX program, int32 bits here
+TRAINED = ("ta", "weights", "inc")    # the leaves a train step changes
+
+
+def _sig(tensors) -> tuple:
+    return tuple((tuple(t.shape), t.dtype) for t in tensors)
+
+
+def _prng_sig(prng: PRNG) -> tuple:
+    return (prng.backend, prng.lfsr_bits, prng.rand_bits, prng.seed_refresh,
+            _sig(prng.leaves()))
+
+
+def _prng_like(prng: PRNG, leaves) -> PRNG:
+    """``prng``'s configuration over the state leaves ``leaves``."""
+    it = iter(leaves)
+    return prng.map(lambda _: next(it))
 
 
 class DTMEngine:
@@ -171,6 +204,23 @@ class DTMEngine:
         self.P = tile.max_patches
         self.W = tile.packed_words()
         self._stage_paths: dict = {}
+        self._graphs: dict = {}      # session step graphs, by stage and shape
+        self._captured: dict = {}    # stage -> the captured graphs alive
+
+    @property
+    def graphed(self) -> bool:
+        """Whether the sessions and banks of this engine replay CUDA graphs:
+        on the card, except on the forced ``ref`` path (its plain sparse
+        update reads the group count on the host).  Otherwise they run the
+        same bodies eagerly."""
+        return self.device.type == "cuda" and self.kernel_path != kops.PATH_REF
+
+    def step_graph(self, stage: str, body, state, const=None) -> StepGraph:
+        """A :class:`~repro_torch.core.graph.StepGraph` of this engine:
+        captured on the card (:attr:`graphed`), counted by
+        :meth:`cache_report` under ``stage`` while it lives."""
+        return StepGraph(stage, body, state, const, capture=self.graphed,
+                         registry=self._captured)
 
     # ------------------------------------------------------------------ #
     # programming                                                         #
@@ -699,14 +749,11 @@ class DTMEngine:
         return self._train_impl(progs, prngs, lits, labels,
                                 lanes=lits.shape[0], stage="train_bank")
 
-    def train_fn(self, spec, donate: bool = False) -> Callable:
+    def train_fn(self, spec) -> Callable:
         """The train step of a spec's kind: ``train_conv`` for conv, else
-        ``train_step`` (with ``donate``: its compacted TA update writes in
-        place; the conv step always makes new states)."""
+        ``train_step``."""
         if getattr(spec, "kind", None) == "conv":
             return self.train_conv
-        if donate:
-            return functools.partial(self.train_step, donate=True)
         return self.train_step
 
     def infer_fn(self, spec) -> Callable:
@@ -735,11 +782,188 @@ class DTMEngine:
             session.stage(x, y)
         return session
 
+    # ------------------------------------------------------------------ #
+    # session executables: one step body, replayed (JAX: _fit_epoch, the  #
+    # jitted train step)                                                  #
+    # ------------------------------------------------------------------ #
+    def _train_graph(self, conv: bool, prog: DTMProgram, prng: PRNG,
+                     lits: torch.Tensor, labels: torch.Tensor,
+                     plan_shape: Optional[Tuple[int, int]] = None
+                     ) -> StepGraph:
+        """The graph of one train step at these shapes, made once: the
+        step of :meth:`TMSession.step` on a batch ``lits``/``labels``, or,
+        with ``plan_shape`` (steps, B), the step of an epoch over the
+        staged set ``lits``/``labels``, whose batch is row ``step`` of a
+        static plan [steps, B] and whose stats go to row ``step`` of a
+        static [steps, len(STAT_KEYS)] buffer; the step advances ``step``
+        itself.  Its state buffers are the program's leaves, the PRNG's
+        (``prng<i>``) and the stats; the body writes the new program and
+        PRNG into them (the compacted TA update in place).  An epoch
+        graph keeps a copy of the staged set, so each staged size in use
+        holds one more copy of its data on the device."""
+        epoch = plan_shape is not None
+        stage = ("fit_epoch" if epoch else "train") + ("_conv" if conv
+                                                       else "")
+        key = (stage, _sig(prog.leaves()), _prng_sig(prng),
+               _sig((lits, labels)), plan_shape)
+        graph = self._graphs.get(key)
+        if graph is not None:
+            return graph
+        step = (self.train_conv if conv
+                else functools.partial(self.train_step, donate=True))
+        dev = self.device
+        def own(t):
+            return t.clone(memory_format=torch.contiguous_format)
+        state = {f: own(getattr(prog, f)) for f in FIELDS}
+        prng_buf = prng.map(own)
+        n_r = len(prng_buf.leaves())
+        state.update({f"prng{i}": t for i, t in enumerate(prng_buf.leaves())})
+        n_stats = len(STAT_KEYS)
+        if epoch:
+            state["step"] = torch.zeros(1, dtype=torch.int64, device=dev)
+            state["stats"] = torch.zeros((*plan_shape[:1], n_stats),
+                                         dtype=torch.int32, device=dev)
+            const = {"data": own(lits), "labels": own(labels),
+                     "plan": torch.zeros(plan_shape, dtype=torch.int64,
+                                         device=dev)}
+        else:
+            state["stats"] = torch.zeros(n_stats, dtype=torch.int32,
+                                         device=dev)
+            const = {"lits": own(lits), "labels": own(labels)}
+
+        def body(b):
+            p = DTMProgram(*(b[f] for f in FIELDS))
+            r = _prng_like(prng_buf, [b[f"prng{i}"] for i in range(n_r)])
+            if epoch:
+                ib = b["plan"].index_select(0, b["step"]).view(-1)
+                x = b["data"].index_select(0, ib)
+                y = b["labels"].index_select(0, ib)
+            else:
+                x, y = b["lits"], b["labels"]
+            new, new_prng, stats = step(p, r, x, y)
+            for f in TRAINED:       # (in place already: the donated TA)
+                t = getattr(new, f)
+                if t.data_ptr() != b[f].data_ptr():
+                    b[f].copy_(t)
+            for i, t in enumerate(new_prng.leaves()):
+                b[f"prng{i}"].copy_(t)
+            row = torch.stack([stats[k] for k in STAT_KEYS])
+            if epoch:
+                b["stats"].index_copy_(0, b["step"], row[None])
+                b["step"].add_(1)
+            else:
+                b["stats"].copy_(row)
+
+        graph = self.step_graph(stage, body, state, const)
+        graph.mark("state", prog, prng)
+        graph.mark("data", lits, labels)
+        self._graphs[key] = graph
+        return graph
+
+    @staticmethod
+    def _load_state(graph: StepGraph, prog: DTMProgram, prng: PRNG) -> None:
+        """Copy a program and PRNG into a train graph's state buffers,
+        unless they hold it already."""
+        if graph.holds("state", prog, prng):
+            return
+        for f in FIELDS:
+            graph.state[f].copy_(getattr(prog, f))
+        for i, t in enumerate(prng.leaves()):
+            graph.state[f"prng{i}"].copy_(t)
+        graph.mark("state", prog, prng)
+
+    @staticmethod
+    def _unload_state(graph: StepGraph, prog: DTMProgram, prng: PRNG
+                      ) -> Tuple[DTMProgram, PRNG]:
+        """The trained program and PRNG out of a train graph's buffers, as
+        copies: ``prog`` with new TA states, weights and include bitplane
+        (its other leaves are unchanged by a step).  A later replay writes
+        the buffers, never the copies."""
+        new = dataclasses.replace(prog, **{f: graph.state[f].clone()
+                                           for f in TRAINED})
+        new_prng = _prng_like(prng, [
+            graph.state[f"prng{i}"].clone()
+            for i in range(len(prng.leaves()))])
+        graph.mark("state", new, new_prng)
+        return new, new_prng
+
+    def _session_step(self, conv: bool, prog: DTMProgram, prng: PRNG,
+                      lits: torch.Tensor, labels: torch.Tensor):
+        """One train step through the step graph at this batch shape (one
+        replay on the card) -> (new program, new PRNG, stats: int32 0-d
+        tensors keyed by :data:`STAT_KEYS`), all copies."""
+        graph = self._train_graph(conv, prog, prng, lits, labels)
+        with graph.lock:
+            self._load_state(graph, prog, prng)
+            graph.const["lits"].copy_(lits)
+            graph.const["labels"].copy_(labels)
+            graph.run()
+            new, new_prng = self._unload_state(graph, prog, prng)
+            row = graph.state["stats"].clone()
+        return new, new_prng, {k: row[i] for i, k in enumerate(STAT_KEYS)}
+
+    def _epoch(self, conv: bool, prog: DTMProgram, prng: PRNG,
+               lits: torch.Tensor, labels: torch.Tensor, idx,
+               sync_guard: bool = False):
+        idx = torch.as_tensor(np.asarray(idx), dtype=torch.int64)
+        steps = idx.shape[0]
+        graph = self._train_graph(conv, prog, prng, lits, labels,
+                                  tuple(idx.shape))
+        if self.device.type == "cuda":
+            idx = idx.pin_memory()
+        with graph.lock:
+            self._load_state(graph, prog, prng)
+            if not graph.holds("data", lits, labels):
+                graph.const["data"].copy_(lits)
+                graph.const["labels"].copy_(labels)
+                graph.mark("data", lits, labels)
+            graph.const["plan"].copy_(idx, non_blocking=True)
+            graph.state["step"].zero_()
+            graph.prepare()
+            with _sync_guard(self.device, sync_guard):
+                graph.run(steps)
+            new, new_prng = self._unload_state(graph, prog, prng)
+            return new, new_prng, graph.state["stats"].clone()
+
+    def _fit_epoch_impl(self, prog: DTMProgram, prng: PRNG,
+                        lits: torch.Tensor, labels: torch.Tensor, idx,
+                        sync_guard: bool = False):
+        """One training epoch (the JAX ``_fit_epoch_impl``): the staged
+        packed literals ``lits`` [N, W] and labels [N] on the device, the
+        epoch's batch index plan ``idx`` [steps, B] -> (program, PRNG,
+        per-step stats int32 [steps, len(STAT_KEYS)] on the device), new
+        tensors; the inputs stay as they were.  One upload of the plan
+        (pinned, asynchronous), ``steps`` replays of the epoch graph's
+        step, nothing read back.  ``sync_guard``: a host-device
+        synchronisation during the steps raises (CUDA)."""
+        return self._epoch(False, prog, prng, lits, labels, idx, sync_guard)
+
+    def _fit_epoch_conv_impl(self, prog: DTMProgram, prng: PRNG,
+                             plits: torch.Tensor, labels: torch.Tensor, idx,
+                             sync_guard: bool = False):
+        """:meth:`_fit_epoch_impl` of the conv kind (``plits``
+        [N, P, W]; the step is :meth:`train_conv`)."""
+        return self._epoch(True, prog, prng, plits, labels, idx, sync_guard)
+
     def cache_report(self) -> dict:
-        """``path_per_stage``: the kernels each stage ran last (the clause
+        """The CUDA graphs captured and alive per stage, under the JAX
+        engine's stage executable names (:data:`GRAPH_STAGES`; 0 where
+        nothing is captured: the CPU, the ``ref`` path), and
+        ``path_per_stage``: the kernels each stage ran last (the clause
         datapath per stage; ``<stage>_ta`` and ``<stage>_prng`` for the TA
-        update of the train stages)."""
-        return {"path_per_stage": dict(self._stage_paths)}
+        update of the train stages).  Program swaps reuse a graph: each
+        count stays at most 1 per stage and shape."""
+        report = {s: len(self._captured.get(s, ())) for s in GRAPH_STAGES}
+        report["path_per_stage"] = dict(self._stage_paths)
+        return report
+
+    def graph_report(self) -> list:
+        """One record per captured graph alive: stage, warm-up and
+        capture ms, the bytes its capture reserved, replays."""
+        return [{"stage": g.stage, "warmup_ms": g.warmup_ms,
+                 "capture_ms": g.capture_ms, "pool_bytes": g.pool_bytes,
+                 "replays": g.replays}
+                for s in GRAPH_STAGES for g in self._captured.get(s, ())]
 
 
 @contextlib.contextmanager
@@ -761,12 +985,20 @@ class TMSession:
     training data on the device.
 
     * ``step(x, y)`` — one train step on a fresh batch (the estimator's
-      ``partial_fit`` path).
+      ``partial_fit`` path): one replay of the engine's step graph at the
+      batch's shape.
     * ``fit_epochs(n)`` — the staged dataset is gathered on the device
-      per the epoch's shuffled index plan: one upload of the plan and one
-      fetch of the stacked per-step stats per epoch, nothing in between.
+      per the epoch's shuffled index plan: one upload of the plan, one
+      replay of the captured step per batch, one fetch of the stacked
+      per-step stats per epoch, nothing in between.
       The same PRNG stream, shuffle draws and integer datapath as the
       JAX session, so the programs and histories are the same.
+
+    ``dispatches`` counts what the JAX session counts: host-device round
+    trips, one per epoch and one per ``step()``.  ``replays`` counts CUDA
+    graph launches (0 where the bodies run eagerly: the CPU, ``ref``).
+    The program and PRNG a session hands out (:meth:`state`,
+    :meth:`unbind`) are copies that no later step writes.
     """
 
     def __init__(self, engine: DTMEngine, program: DTMProgram, prng: PRNG,
@@ -776,10 +1008,16 @@ class TMSession:
         self.program = program
         self.prng = prng
         self.steps = 0          # train batches consumed
+        self.dispatches = 0     # host-device round trips (the JAX probe)
+        self.replays = 0        # CUDA graph launches
         self.epoch_s: list = []  # host seconds per fit_epochs epoch
         self._lits: Optional[torch.Tensor] = None   # staged [N, (P,) W]
         self._labels: Optional[torch.Tensor] = None  # staged [N]
         self.n = 0
+
+    @property
+    def conv(self) -> bool:
+        return getattr(self.spec, "kind", None) == "conv"
 
     def _encode(self, x) -> torch.Tensor:
         if self.spec is not None:
@@ -801,10 +1039,11 @@ class TMSession:
     def step(self, x, y) -> Dict[str, torch.Tensor]:
         """One engine train step on a fresh (unstaged) batch."""
         lits, lab = self._encode(x), self._encode_labels(y)
-        fn = self.engine.train_fn(self.spec)
-        self.program, self.prng, stats = fn(self.program, self.prng, lits,
-                                            lab)
+        self.program, self.prng, stats = self.engine._session_step(
+            self.conv, self.program, self.prng, lits, lab)
         self.steps += 1
+        self.dispatches += 1
+        self.replays += int(self.engine.graphed)
         return stats
 
     def fit_epochs(self, epochs: int, batch: int = 32,
@@ -818,7 +1057,8 @@ class TMSession:
         draws it.  Returns the per-epoch records of
         :func:`repro_torch.core.evaluate.epoch_record`.  ``sync_guard``
         makes any host-device synchronisation between an epoch's plan
-        upload and its stats fetch raise (CUDA only).  ``epoch_s`` gets
+        upload and its stats fetch raise (CUDA only; the first epoch
+        captures its graph before the guarded steps).  ``epoch_s`` gets
         each epoch's host seconds, from the upload to the fetch."""
         if self._lits is None:
             raise RuntimeError("bind data first: engine.bind(p, x, y)")
@@ -827,30 +1067,20 @@ class TMSession:
         steps = n // batch
         if steps == 0:
             raise ValueError(f"{self.n} staged rows make no batch of {batch}")
-        dev = self.engine.device
-        train = self.engine.train_fn(self.spec, donate=True)
-        # the session's own TA states and include bitplane, which every
-        # step below may update in place: nothing a caller holds changes
-        self.program = dataclasses.replace(
-            self.program, ta=self.program.ta.clone(),
-            inc=self.program.inc.clone())
+        fit = (self.engine._fit_epoch_conv_impl if self.conv
+               else self.engine._fit_epoch_impl)
         history = []
         for ep in range(epochs):
             idx = rng.permutation(self.n)[:n].reshape(steps, batch)
             t0 = time.perf_counter()
-            plan = torch.from_numpy(idx.astype(np.int64)).to(dev)
-            rows = []
-            with _sync_guard(dev, sync_guard):
-                for s in range(steps):
-                    ib = plan[s]
-                    self.program, self.prng, stats = train(
-                        self.program, self.prng,
-                        self._lits.index_select(0, ib),
-                        self._labels.index_select(0, ib))
-                    rows.append(torch.stack([stats[k] for k in STAT_KEYS]))
+            self.program, self.prng, step_stats = fit(
+                self.program, self.prng, self._lits, self._labels, idx,
+                sync_guard=sync_guard)
+            self.dispatches += 1
+            self.replays += steps if self.engine.graphed else 0
             self.steps += steps
             # exact integer epoch totals from the per-step stats
-            per_step = torch.stack(rows).cpu().numpy()
+            per_step = step_stats.cpu().numpy()
             self.epoch_s.append(time.perf_counter() - t0)
             agg = {k: int(per_step[:, i].sum(dtype=np.int64))
                    for i, k in enumerate(STAT_KEYS)}
@@ -863,7 +1093,7 @@ class TMSession:
         return history
 
     def state(self) -> Tuple[DTMProgram, PRNG]:
-        """Current (program, PRNG)."""
+        """Current (program, PRNG): copies, unchanged by later steps."""
         return self.program, self.prng
 
     def unbind(self) -> Tuple[DTMProgram, PRNG]:

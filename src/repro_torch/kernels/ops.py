@@ -23,7 +23,8 @@ the streamed random words of :data:`TA_PRNG_STREAM`, which have no
 compacted kernel).  The names are the JAX package's, so
 ``cache_report()["path_per_stage"]`` reads the same in both.
 :func:`launch_counts` also counts the PRNG kernels that ``PRNG.bits``
-launches: ``lfsr_bits`` (the lfsr cluster) and ``threefry_bits``.
+launches: ``lfsr_bits`` (the lfsr cluster) and ``threefry_bits``; a
+replayed CUDA graph adds the launches of its capture.
 """
 from __future__ import annotations
 
@@ -335,10 +336,25 @@ def ta_update_compact_op(ta, lits, cl, t1, t2, l_mask, inc, seed, p_ta,
 
 
 def launch_counts() -> Dict[str, int]:
-    """Kernel launches per wrapper since the last reset."""
+    """Kernel launches per wrapper since the last reset, on the device:
+    a CUDA graph's replays add the launches of its capture
+    (:class:`repro_torch.core.graph.StepGraph`)."""
     return {name: fn.launches for name, fn in _WRAPPERS.items()}
 
 
 def reset_launch_counts() -> None:
     for fn in _WRAPPERS.values():
         fn.launches = 0
+
+
+def set_launch_counts(counts: Dict[str, int]) -> None:
+    """Set every wrapper's count (a graph restores them after capture)."""
+    for name, fn in _WRAPPERS.items():
+        fn.launches = counts[name]
+
+
+def add_launches(counts: Dict[str, int], times: int = 1) -> None:
+    """Add ``times`` × ``counts`` (per wrapper name) to the counts: the
+    launches that ``times`` replays of a graph made."""
+    for name, n in counts.items():
+        _WRAPPERS[name].launches += n * times

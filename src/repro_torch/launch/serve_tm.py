@@ -5,7 +5,7 @@ rewrite: the engine is the datapath, a :class:`DTMProgram` is the model.
 Two request paths:
 
 * :meth:`TMServer.predict` swaps to one tenant and serves its request
-  (the edge path when the batch slot is <= 4 rows).
+  (the edge path when the batch slot is <= 4 rows; eager).
 * :meth:`TMServer.enqueue` queues requests; :meth:`TMServer.flush_async`
   runs the resident tenants of each stage family (flat, conv) with
   pending requests through ONE stacked :class:`ProgramBank` launch per
@@ -83,7 +83,9 @@ class PendingFlush:
     n_real: Dict[str, int]          # tenant -> un-padded batch
     # per launched family: (conv, bank slot order, then on the device
     # preds and votes [K, B] int32 (flat), or sums [K, B, H] and clauses
-    # [K, B, R] (conv))
+    # [K, B, R] (conv)): the bank's copies of its graph's outputs, which
+    # the next flush's replay does not overwrite while this one is in
+    # flight
     hot: List[Tuple[bool, List[str], torch.Tensor, torch.Tensor]]
     # per non-resident tenant: (name, sums [B, H], clauses [B, R])
     cold: List[Tuple[str, torch.Tensor, torch.Tensor]]
@@ -366,10 +368,14 @@ class TMServer:
     def flush_async(self) -> Optional[PendingFlush]:
         """Launch the pending requests and return without fetching
         (``None`` when nothing is pending: no bank build, no launch).
-        One stacked bank launch per family with resident requests (idle
-        slots replay a pending tenant's literals; their outputs are
-        dropped), one single-program launch per non-resident tenant.  A
-        tenant that queued twice is served its last request."""
+        One stacked bank launch per family with resident requests (on the
+        card one replay of the bank's flush graph, each tenant's literals
+        copied into its slot of the graph's static buffer first; idle
+        slots replay a pending tenant's literals and their outputs are
+        dropped), one single-program launch per non-resident tenant (the
+        eager cold path).  A tenant that queued twice is served its last
+        request.  Everything runs on the current stream, after the slot
+        writes of ``swap_in`` and ``swap_resident``."""
         if not self._pending:
             return None
         pending, self._pending = self._pending, []
