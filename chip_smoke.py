@@ -154,9 +154,9 @@ bank flushes as graph replays: an epoch of ``TMSession.fit_epochs`` is
 one replay of the captured step per batch, a bank flush one replay;
 launch counts add each graph's captured launches per replay, so the
 checks of the counts above hold as they were; the kernel checks of
-phases 5b, 10 and 13 take their arguments from eager calls of the
-engine's step or bank inference on the same starting state, since a
-capture runs no kernel and ``Capture`` skips calls made under one):
+phases 5b, 9, 10 and 13 take their arguments from eager calls of the
+engine's step, bank step or (bank) inference on the same state, since
+a capture runs no kernel and ``Capture`` skips calls made under one):
  16. the six fits of the MNIST CoTM (compacted, skip-off, ``mxu``,
      streamed, conv, threefry) run twice, replayed (``TM.fit`` under
      ``set_sync_debug_mode("error")``) and as the eager chain of the
@@ -177,6 +177,28 @@ capture runs no kernel and ``Capture`` skips calls made under one):
      ms and pool bytes per graph, flush and ``partial_fit`` wall ms
      against eager, the scheduled cycle of phase 13, and the conv fit's
      peak device memory with its capture.
+ 17. the served executables (every other JAX stage executable): the
+     serving roster at full width with lfsr, counter, threefry and lfsr
+     PRNGs, two conv tenants and a K=3 counter bank go through
+     ``served_sequence`` (three ``predict`` calls, a resident roster of
+     two and its cold path, ten ``TMServer.train`` steps over three
+     tenants, a restack at an unchanged K, three ``ProgramBank.train``
+     steps each followed by a flush, a conv ``predict`` and flush) on
+     fresh engines and on their eager twins (graphs off): every answer,
+     step and final state equal, the bank's tensors never rebound, held
+     programs unchanged, ``cache_report`` equal to the JAX engine's after
+     the same calls (``SERVED_CACHE``), each graph's replays
+     ``SERVED_REPLAYS`` (no recapture after a bank step or a restack),
+     launches = replays x captured counts.  The ``served_graphs`` line
+     reports host ms beside the eager twin (``predict`` flat and conv, a
+     cold request, ``TMServer.train`` lfsr and threefry,
+     ``ProgramBank.train`` K=2, the first flush after a bank step and
+     after a restack, a new-K restack's capturing flush), capture ms and
+     pool bytes per graph, and phase 13's scheduled cycle broken down
+     (encode, bank replay, cold path, the rest of the flush, train,
+     collect, the scheduler's own time).  Since this phase the drain's
+     kernel checks of phase 13 and the bank step's of phase 9 take their
+     arguments from eager building-block calls on the same state.
 
 Bounds: bytes over 3.35 TB/s; integer operations over 64 per clock per
 SM (the CUDA guide's rate for 32-bit integer add, logic, shift, compare
@@ -215,7 +237,8 @@ spreads over more than one integer pipe, and ran above 64 a clock).  No
 kernel here does float work.
 
 Prints the card line, ``serving``, ``training``, ``conv``,
-``scheduler``, ``threefry``, ``ref_path`` and ``graphs`` JSON lines, a
+``scheduler``, ``threefry``, ``ref_path``, ``graphs`` and
+``served_graphs`` JSON lines, a
 ``kernels`` JSON line and, last, ``{"ok": true, "device": {...}}``.  Any
 failed check raises, and the exit code is then non-zero.  Without a CUDA card,
 or without the repository beside it, it exits non-zero and prints no
@@ -322,6 +345,13 @@ class Capture:
     def __exit__(self, *exc):
         setattr(self.module, self.name, self.fn)
 
+    def freeze(self) -> None:
+        """Clone the tensors of the last call's positional arguments, so
+        a later in-place write to their sources leaves them."""
+        a, kw = self.args
+        self.args = (tuple(t.clone() if hasattr(t, "clone") else t
+                           for t in a), kw)
+
 
 def motif_program(engine, spec, task, rng, datasets, n_inc=3, w_max=4):
     """A program whose clause rows each include ``n_inc`` x-literals of
@@ -364,15 +394,19 @@ def call_ms(torch, fn, n: int) -> float:
     return s.elapsed_time(e) / n
 
 
-def profile_flush(torch, fn, captures: int = 1) -> dict:
+def profile_flush(torch, fn, captures: int = 1, need: str = "") -> dict:
     """One call of ``fn`` under torch.profiler: wall time, summed kernel
     time on the device, the device's busy share of the wall time, the
     eight longest kernels, the number of kernels launched and how many of
     them are ``fused_step``'s.  A capture that holds no device activity at
-    all (the profiler now and then returns none for a call that launched
-    kernels) is taken again with another call, up to ``captures`` calls;
-    ``captures`` in the result counts them."""
+    all, or no kernel whose name holds ``need`` (the profiler now and then
+    drops the activity of a call that launched kernels), is taken again
+    with another call, up to ``captures`` calls; ``captures`` in the
+    result counts them.  Dead CUDA graphs are collected first, so none is
+    destroyed during a capture."""
+    import gc
     from torch.profiler import ProfilerActivity, profile
+    gc.collect()
     for n in range(1, captures + 1):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -385,7 +419,7 @@ def profile_flush(torch, fn, captures: int = 1) -> dict:
                    for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA
                    and e.self_device_time_total > 0]
-        if kernels:
+        if kernels and any(need in k[0] for k in kernels):
             break
     dev_us = sum(k[1] for k in kernels)
     top = sorted(kernels, key=lambda k: -k[1])[:8]
@@ -462,6 +496,55 @@ def paper_spec(api, cfg, backend: str):
 
 def percentile_ms(np, seconds, q: float):
     return float(np.percentile(np.asarray(seconds) * 1e3, q))
+
+
+# Phase 17: per stage, the replays of each graph alive after
+# served_sequence on fresh engines (sorted).  Their number per stage is
+# what the JAX engine's cache_report counts after the same calls
+# (tests/test_torch_served_graphs.py runs the JAX package through
+# served_sequence and holds its report to SERVED_CACHE).
+SERVED_REPLAYS = {"infer": [9], "train": [3, 3, 4], "infer_conv": [1],
+                  "infer_conv_bank_list": [1], "predict_bank_list": [3, 3],
+                  "train_bank": [3]}
+SERVED_CACHE = {s: len(r) for s, r in SERVED_REPLAYS.items()}
+
+
+def served_sequence(srv, csrv, bank, reqs, trains, creqs, bank_lits,
+                    bank_labels) -> list:
+    """The served calls of phase 17, through either package's API (a
+    ``TMServer`` and a ``ProgramBank`` of the JAX package or of the
+    port).  ``srv`` hosts the flat tenants of ``reqs`` (one full batch
+    slot each), ``csrv`` the conv tenants of ``creqs``; ``trains`` lists
+    (tenant, x, y) steps; ``bank`` is a train-capable flat bank whose
+    K differs from 2.  In order: three tenants' ``predict``; a resident
+    roster of the first two and a flush of all four (the other two take
+    the cold path); the train steps; a flush; a restack to the last two
+    at the same K and a flush; three bank train steps, each followed by
+    a flush of the bank; a conv ``predict`` and a conv flush.  Returns
+    every answer and stats in call order."""
+    names = list(reqs)
+    out = [srv.predict(n, reqs[n]) for n in names[:3]]
+
+    def flush():
+        for n in names:
+            srv.enqueue(n, reqs[n])
+        out.append(srv.flush())
+
+    srv.set_resident(names[:2])
+    flush()
+    out += [srv.train(n, x, y) for n, x, y in trains]
+    flush()
+    srv.set_resident(names[2:])
+    flush()
+    for _ in range(3):
+        out.append(bank.train(bank_lits, bank_labels))
+        out.append(bank.predict(bank_lits))
+    cnames = list(creqs)
+    out.append(csrv.predict(cnames[0], creqs[cnames[0]]))
+    for n in cnames:
+        csrv.enqueue(n, creqs[n])
+    out.append(csrv.flush())
+    return out
 
 
 def scheduled_serving(torch, np, api, ops, datasets, roster, progs, cpu,
@@ -556,37 +639,47 @@ def scheduled_serving(torch, np, api, ops, datasets, roster, progs, cpu,
         return fut
 
     ops.reset_launch_counts()
+    drain_sub, drain_futs, round_ms = {}, [], []
+    t0 = time.perf_counter()
+    for r, rnd in enumerate(plan):
+        t_r = time.perf_counter()
+        for j, (kind, n, x, y) in enumerate(rnd):
+            drain_futs.append(submit(sched, kind, n, x, y,
+                                     ("d", r, j), drain_sub))
+        sched.drain()
+        round_ms.append((time.perf_counter() - t_r) * 1e3)
+    torch.cuda.synchronize()
+    drain_s = time.perf_counter() - t0
+    drain_graphs = eng.graph_report()     # captured in the drain
+    drain_out = [f.result(timeout=60) for f in drain_futs]
+    # the bank flushes, the cold path and train-while-serve all replay
+    # graphs (a replay calls no wrapper): the kernel checks take their
+    # arguments from eager calls of the engine's building blocks on the
+    # live tenants' state, at the path's shapes (not counted): the
+    # resident bank's inference (K=2), a cold tenant's (K=1) and a step
+    # of MNIST CoTM on its last batch
+    bank_names, bank_ = srv._bank_for(False)
+    cold_name = next(n for n in names if n not in bank_names)
+    mn = srv.tenants["mnist_cotm"]
+    x_mn, y_mn = train_rows("mnist_cotm", mn_trains[max(mn_trains)])
+    counted = ops.launch_counts()
     caps = {k: Capture(ops, k) for k in ("fused_step", "ta_update_sparse",
                                          "packed_clause_tile", "class_sum")}
-    drain_sub, drain_futs = {}, []
     for c_ in caps.values():
         c_.__enter__()
     try:
-        t0 = time.perf_counter()
-        for r, rnd in enumerate(plan):
-            for j, (kind, n, x, y) in enumerate(rnd):
-                drain_futs.append(submit(sched, kind, n, x, y,
-                                         ("d", r, j), drain_sub))
-            sched.drain()
+        eng.predict_bank(bank_.progs, [
+            eng.encode(specs[n], pool[n][0][:B]) for n in bank_names])
+        eng.infer(srv.tenants[cold_name].program,
+                  eng.encode(specs[cold_name], pool[cold_name][0][:B]))
+        eng.train_step(mn.program, mn.prng, eng.encode(specs["mnist_cotm"],
+                                                       x_mn),
+                       specs["mnist_cotm"].encode_labels(y_mn).cuda())
         torch.cuda.synchronize()
-        drain_s = time.perf_counter() - t0
     finally:
         for c_ in caps.values():
             c_.__exit__()
-    drain_out = [f.result(timeout=60) for f in drain_futs]
-    # the resident bank's flushes replay a graph: the tile and class-sum
-    # checks take the bank's arguments from an eager inference of it on
-    # the same requests (the cold path's calls above are eager)
-    bank_names, bank_ = srv._bank_for(False)
-    counted = ops.launch_counts()          # (not counted: a check's call)
-    with Capture(ops, "packed_clause_tile") as tile_eager, \
-            Capture(ops, "class_sum") as sum_eager:
-        eng.predict_bank(bank_.progs, [
-            eng.encode(specs[n], pool[n][0][:B]) for n in bank_names])
-    torch.cuda.synchronize()
     ops.set_launch_counts(counted)
-    caps["packed_clause_tile"].by_shape.update(tile_eager.by_shape)
-    caps["class_sum"].by_shape.update(sum_eager.by_shape)
 
     # thread mode: 64 requests per tenant submitted open loop, the driver
     # and the checkpoint writer on their own threads
@@ -764,8 +857,12 @@ def scheduled_serving(torch, np, api, ops, datasets, roster, progs, cpu,
     cycle_prof = profile_flush(torch, cycle, captures=3)
     shutil.rmtree(durable, ignore_errors=True)
 
-    def lat(sub):
-        return [done_at[k] - t for k, t in sub.items()]
+    def lat(sub, skip_first=False):
+        """Submit-to-result seconds; ``skip_first``: without the first
+        round (drain) or the first request of each tenant (thread mode),
+        whose cycles may capture a graph."""
+        return [done_at[k] - t for k, t in sub.items()
+                if not (skip_first and k[1] == 0)]
     n_drain = sum(len(rnd) for rnd in plan)
     report = {
         "card": card, "tenants": names, "batch_slot": B,
@@ -775,11 +872,20 @@ def scheduled_serving(torch, np, api, ops, datasets, roster, progs, cpu,
         "drain": {"requests": n_drain, "seconds": drain_s,
                   "requests_per_s": n_drain / drain_s,
                   "latency_ms_p50": percentile_ms(np, lat(drain_sub), 50),
-                  "latency_ms_p99": percentile_ms(np, lat(drain_sub), 99)},
+                  "latency_ms_p99": percentile_ms(np, lat(drain_sub), 99),
+                  "latency_ms_p50_after_first": percentile_ms(
+                      np, lat(drain_sub, True), 50),
+                  "latency_ms_p99_after_first": percentile_ms(
+                      np, lat(drain_sub, True), 99),
+                  "round_ms": round_ms, "graphs": drain_graphs},
         "thread": {"requests": len(thread_items), "seconds": thread_s,
                    "requests_per_s": len(thread_items) / thread_s,
                    "latency_ms_p50": percentile_ms(np, lat(thread_sub), 50),
-                   "latency_ms_p99": percentile_ms(np, lat(thread_sub), 99)},
+                   "latency_ms_p99": percentile_ms(np, lat(thread_sub), 99),
+                   "latency_ms_p50_after_first": percentile_ms(
+                       np, lat(thread_sub, True), 50),
+                   "latency_ms_p99_after_first": percentile_ms(
+                       np, lat(thread_sub, True), 99)},
         "launches": st["launches"], "trains": st["trains"],
         "cold_requests": st["server"]["cold_requests"],
         "membership_swaps": st["server"]["membership_swaps"],
@@ -1198,7 +1304,7 @@ def graphs_phase(torch, np, api, ops, fits, edge, flat, conv_flat,
         names = list(progs)
         for n_ in names:
             srv.register(n_, specs[n_], program=progs[n_])
-        stage = "infer_conv_bank" if conv else "predict_bank_list"
+        stage = "infer_conv_bank_list" if conv else "predict_bank_list"
         lits = {n_: g.encode(specs[n_], reqs[n_][:B]) for n_ in names}
         wall, eager = [], []
 
@@ -1265,6 +1371,340 @@ def graphs_phase(torch, np, api, ops, fits, edge, flat, conv_flat,
             report["graphs"] += tagged(e, name)
     report["phase_s"] = time.perf_counter() - t_phase
     return report
+
+
+def eager_engine(engine):
+    """``engine`` with its graphs off: every graph body runs eagerly on
+    the card, the chain of launches a replay stands for (phase 17's and
+    the card tests' reference)."""
+    engine.__class__ = type("EagerDTMEngine", (type(engine),),
+                            {"graphed": False})
+    return engine
+
+
+def same_answer(torch, np, a, b) -> bool:
+    """Equality of two served answers or stats: arrays, tensors, ints,
+    and dicts or tuples of them."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(
+            same_answer(torch, np, a[k], b[k]) for k in a)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(
+            same_answer(torch, np, x, y) for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a.cpu(), b.cpu())
+    return np.array_equal(np.asarray(a), np.asarray(b))
+
+
+def served_graphs_phase(torch, np, api, ops, datasets, roster, progs, conv,
+                        sched, card: str, seed: int):
+    """Phase 17: the served stage executables as CUDA graphs, on fresh
+    engines at full width.
+
+    The serving roster (``roster``, the motif ``progs`` of phase 2) with
+    PRNG backends lfsr, counter, threefry and lfsr, the conv tenants of
+    ``conv`` (tile, spec, programs, requests) and a K=3 bank of three
+    roster programs with counter PRNGs go through
+    :func:`served_sequence` twice: on engines that replay graphs (the
+    launch counts from 0 just before, read just after) and on their
+    eager twins (:func:`eager_engine`).  Every answer, train step and
+    bank step, every tenant's program, PRNG and steps and the bank's
+    programs and PRNGs must be equal; the bank's program and PRNG
+    tensors keep their objects and storage; the programs a caller held
+    do not change; ``cache_report`` is :data:`SERVED_CACHE` (JAX's after
+    the same calls) and each graph's replays :data:`SERVED_REPLAYS` (a
+    flush after a bank train step or a restack at an unchanged K that
+    captured anew would leave a graph of fewer replays); the counts are
+    the replays times each graph's captured counts.  Then host ms beside
+    the eager twin, in the same call: ``predict`` (flat, conv), a
+    cold-path request, ``TMServer.train`` (lfsr, threefry),
+    ``ProgramBank.train`` at K=2, the first flush after a bank train
+    step and after a restack at an unchanged K (and, once, at a new K,
+    which captures); capture ms and pool bytes per graph; and 20
+    scheduled cycles of phase 13's scheduler (``sched``) with and
+    without a train request, broken down into encode, bank replay, cold
+    path, the rest of the flush, train, collect and the scheduler's own
+    time (the cycle's time less the server calls')."""
+    from repro_torch.core.prng import PRNG
+    from repro_torch.launch.serve_tm import TMServer
+    t_phase = time.perf_counter()
+    B = 32
+    names = list(roster)
+    backends = dict(zip(names, ("lfsr", "counter", "threefry", "lfsr")))
+    specs = {n: paper_spec(api, c, backends[n])
+             for n, (c, _) in roster.items()}
+    ctile, cspec, cprogs, creqs_all = conv
+    pool = {n: datasets.make_bool_dataset(task, 16 * B, seed=seed + 600 + i)
+            for i, (n, (_, task)) in enumerate(roster.items())}
+
+    def rows(n, k):
+        x, y = pool[n]
+        return x[k * B:(k + 1) * B], y[k * B:(k + 1) * B]
+
+    reqs = {n: rows(n, 0)[0] for n in names}
+    order = names[:3]                    # lfsr, counter, threefry
+    trains = [(n, *rows(n, 1 + k))
+              for k, n in enumerate(order * 3 + order[:1])]
+    creqs = {n: creqs_all[n][:B] for n in cprogs}
+    bspecs = [paper_spec(api, roster[n][0], "counter") for n in order]
+
+    def build(eng, ceng, members):
+        srv = TMServer(eng, batch_slot=B)
+        for i, n in enumerate(names):
+            srv.register(n, specs[n], program=progs[n], seed=seed + i)
+        csrv = TMServer(ceng, batch_slot=B)
+        for i, n in enumerate(cprogs):
+            csrv.register(n, cspec, program=cprogs[n], seed=seed + 10 + i)
+        bank = api.stack([progs[n] for n in members], eng, prngs=[
+            PRNG.create(bspecs[k].tm_config(), seed + 20 + k,
+                        device=eng.device)
+            for k in range(len(members))])
+        lits = torch.stack([eng.encode(bspecs[k], rows(n, 12)[0])
+                            for k, n in enumerate(members)])
+        labels = np.stack([rows(n, 12)[1] for n in members])
+        return srv, csrv, bank, lits, labels
+
+    tile = api.tile_for(*specs.values())
+    eng, ceng = api.compile(tile), api.compile(ctile)
+    e_eng, e_ceng = (eager_engine(api.compile(tile)),
+                     eager_engine(api.compile(ctile)))
+    srv, csrv, bank, blits, blabels = build(eng, ceng, order)
+    t_srv, t_csrv, t_bank, _, _ = build(e_eng, e_ceng, order)
+    bank_objs = (bank.progs, bank.prngs)
+    bank_ptrs = [t.data_ptr() for t in bank.progs.leaves()
+                 + bank.prngs.leaves()]
+    held = {n: (srv.tenants[n].program,
+                [t.clone() for t in srv.tenants[n].program.leaves()])
+            for n in names}
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = served_sequence(srv, csrv, bank, reqs, trains, creqs, blits,
+                          blabels)
+    torch.cuda.synchronize()
+    seq_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    t0 = time.perf_counter()
+    want = served_sequence(t_srv, t_csrv, t_bank, reqs, trains, creqs,
+                           blits, blabels)
+    torch.cuda.synchronize()
+    eager_seq_s = time.perf_counter() - t0
+    for i, (g, w) in enumerate(zip(got, want)):
+        check(same_answer(torch, np, g, w),
+              f"served call {i}: the replay differs from the eager chain")
+    check(len(got) == len(want) == 24, f"{len(got)} served calls")
+    for a_srv, b_srv in ((srv, t_srv), (csrv, t_csrv)):
+        for n, a in a_srv.tenants.items():
+            b = b_srv.tenants[n]
+            check(a.steps == b.steps
+                  and same_state(torch, a.program, b.program)
+                  and same_state(torch, a.prng, b.prng),
+                  f"{n} after the served calls differs from the eager twin")
+    check(same_state(torch, bank.progs, t_bank.progs)
+          and same_state(torch, bank.prngs, t_bank.prngs),
+          "the bank after three replayed train steps differs from eager")
+    check((bank.progs, bank.prngs) == bank_objs and bank_ptrs == [
+        t.data_ptr() for t in bank.progs.leaves() + bank.prngs.leaves()],
+        "ProgramBank.train rebound the bank's program or PRNG tensors")
+    for n, (p_, c_) in held.items():
+        check(all(torch.equal(a, b) for a, b in zip(p_.leaves(), c_)),
+              f"a program of {n} held before the calls changed")
+    graphs = [g for e in (eng, ceng) for s_ in e._captured.values()
+              for g in s_]
+    cache = {s_: eng.cache_report()[s_] + ceng.cache_report()[s_]
+             for s_ in SERVED_CACHE}
+    others = {k: v for e in (eng, ceng) for k, v in e.cache_report().items()
+              if k not in SERVED_CACHE and k != "path_per_stage" and v}
+    check(cache == SERVED_CACHE and not others,
+          f"cache_report {cache} {others}, JAX's {SERVED_CACHE}")
+    replays = {}
+    for g in graphs:
+        replays.setdefault(g.stage, []).append(g.replays)
+    replays = {k: sorted(v) for k, v in replays.items()}
+    check(replays == SERVED_REPLAYS,
+          f"replays per graph {replays}, not {SERVED_REPLAYS}: a graph "
+          "was captured anew")
+    expect = {}
+    for g in graphs:
+        for k, v in g.launches.items():
+            expect[k] = expect.get(k, 0) + v * g.replays
+    check({k: v for k, v in counts.items() if v} == expect,
+          f"served launches {counts}, the replays' captured {expect}")
+    check(all(v == 0 for e in (e_eng, e_ceng)
+              for k, v in e.cache_report().items() if k != "path_per_stage"),
+          "the eager twin captured a graph")
+    cache_checked = {**{k: v for k, v in eng.cache_report().items()
+                        if k != "path_per_stage"}}
+
+    # ---- host ms beside the eager twin, in the same call ----------------
+    def host_ms(fn, n: int = 12):
+        out = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    def pair(live, eager, n: int = 12):
+        a, b = host_ms(live, n), host_ms(eager, n)
+        return {"replay_ms": a, "eager_ms": b,
+                "replay_ms_median": float(np.median(a[1:])),
+                "eager_ms_median": float(np.median(b[1:]))}
+
+    times = {}
+    mn, tf = names[0], names[2]
+    times["predict_flat"] = pair(lambda: srv.predict(mn, reqs[mn]),
+                                 lambda: t_srv.predict(mn, reqs[mn]))
+    cn = next(iter(cprogs))
+    times["predict_conv"] = pair(lambda: csrv.predict(cn, creqs[cn]),
+                                 lambda: t_csrv.predict(cn, creqs[cn]))
+    check(mn not in srv.resident_names(False), "MNIST CoTM is resident")
+
+    def cold(s_):
+        s_.enqueue(mn, reqs[mn])
+        return s_.flush()
+    times["cold_request"] = pair(lambda: cold(srv), lambda: cold(t_srv))
+    for label, n in (("train_lfsr", mn), ("train_threefry", tf)):
+        x, y = rows(n, 13)
+        times[label] = pair(lambda: srv.train(n, x, y),
+                            lambda: t_srv.train(n, x, y))
+    for n in names:
+        a, b = srv.tenants[n], t_srv.tenants[n]
+        check(same_state(torch, a.program, b.program)
+              and same_state(torch, a.prng, b.prng),
+              f"{n} after the timed train steps differs from eager")
+    # ProgramBank.train at K=2 on new banks (its first call captures)
+    bank2, lits2, lab2 = build(eng, ceng, order[:2])[2:]
+    t_bank2 = build(e_eng, e_ceng, order[:2])[2]
+    times["bank_train_k2"] = pair(lambda: bank2.train(lits2, lab2),
+                                  lambda: t_bank2.train(lits2, lab2))
+    check(same_state(torch, bank2.progs, t_bank2.progs)
+          and same_state(torch, bank2.prngs, t_bank2.prngs),
+          "the K=2 bank after its timed steps differs from eager")
+    # the first flush after a bank train step (K=3: its graph exists)
+    flush_graph = next(iter(bank._flush_graphs.values()))
+    first_after, first_after_eager = [], []
+    for _ in range(6):
+        bank.train(blits, blabels)
+        t_bank.train(blits, blabels)
+        first_after += host_ms(lambda: bank.predict(blits), 1)
+        first_after_eager += host_ms(lambda: t_bank.predict(blits), 1)
+    check(next(iter(bank._flush_graphs.values())) is flush_graph
+          and flush_graph.replays == 3 + 6,
+          "a flush after a bank train step captured anew")
+    times["first_flush_after_bank_train"] = {
+        "replay_ms": first_after, "eager_ms": first_after_eager}
+
+    # the first flush after a restack at an unchanged K, then at a new K
+    names_k, bank_k = srv._bank_for(False)
+    k_graph = next(iter(bank_k._flush_graphs.values()))
+
+    def full_flush(s_):
+        for n in names:
+            s_.enqueue(n, reqs[n])
+        return s_.flush()
+    steady = pair(lambda: full_flush(srv), lambda: full_flush(t_srv), 6)
+    restack, restack_eager = [], []
+    for r in range(6):
+        roster_ = names[:2] if r % 2 == 0 else names[2:]
+        for s_ in (srv, t_srv):
+            s_.set_resident(roster_)
+        restack += host_ms(lambda: full_flush(srv), 1)
+        restack_eager += host_ms(lambda: full_flush(t_srv), 1)
+    check(srv._bank_for(False)[1] is bank_k
+          and next(iter(bank_k._flush_graphs.values())) is k_graph,
+          "a restack at an unchanged K made a new bank or graph")
+    srv.add_resident(names[0])
+    t_srv.add_resident(names[0])
+    new_k = host_ms(lambda: full_flush(srv), 1)
+    new_k_eager = host_ms(lambda: full_flush(t_srv), 1)
+    check(same_answer(torch, np, full_flush(srv), full_flush(t_srv)),
+          "the flush after a new-K restack differs from eager")
+    times["first_flush_after_restack"] = {
+        "replay_ms": restack, "eager_ms": restack_eager,
+        "steady_flush": steady,
+        "new_k_capture_flush_ms": new_k, "new_k_eager_ms": new_k_eager}
+
+    # ---- the scheduled cycle of phase 13, broken down ---------------------
+    srv13 = sched.server
+    acc: dict = {}
+    patched = []
+
+    def timed(obj, name, key, cls=False):
+        fn = getattr(obj, name)
+
+        def wrapper(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                acc[key] = acc.get(key, 0.0) + time.perf_counter() - t
+        setattr(obj, name, wrapper)
+        patched.append((obj, name, fn if cls else None))
+
+    timed(srv13, "enqueue", "encode")
+    timed(api.ProgramBank, "_flush", "bank_replay", cls=True)
+    timed(srv13.engine, "served_infer", "cold_path")
+    timed(srv13, "flush_async", "flush_async")
+    timed(srv13, "train", "train")
+    timed(srv13, "collect", "collect")
+    cycles = {}
+    trains_before = sched.trains
+    try:
+        for label, with_train in (("infer", False), ("infer_train", True)):
+            rec = []
+            for c in range(20):
+                acc.clear()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                for n in names:
+                    sched.submit(n, reqs[n])
+                if with_train:
+                    sched.submit_train(mn, *rows(mn, 14 + c % 2))
+                sched.drain()
+                torch.cuda.synchronize()
+                total = (time.perf_counter() - t) * 1e3
+                ms = {k: v * 1e3 for k, v in acc.items()}
+                rec.append({
+                    "total": total, "encode": ms.get("encode", 0.0),
+                    "bank_replay": ms.get("bank_replay", 0.0),
+                    "cold_path": ms.get("cold_path", 0.0),
+                    "flush_rest": ms.get("flush_async", 0.0)
+                    - ms.get("bank_replay", 0.0) - ms.get("cold_path", 0.0),
+                    "train": ms.get("train", 0.0),
+                    "collect": ms.get("collect", 0.0),
+                    "scheduler": total - ms.get("encode", 0.0)
+                    - ms.get("flush_async", 0.0) - ms.get("train", 0.0)
+                    - ms.get("collect", 0.0)})
+            cycles[label] = {k: float(np.median([r_[k] for r_ in rec[1:]]))
+                             for k in rec[0]}
+            cycles[label]["total_ms"] = [r_["total"] for r_ in rec]
+    finally:
+        for obj, name, fn in patched:
+            if fn is None:
+                delattr(obj, name)
+            else:
+                setattr(obj, name, fn)
+    cycles["trains_applied"] = sched.trains - trains_before
+
+    def tagged(e, label):
+        return [{"engine": label, **g} for g in e.graph_report()]
+    return {
+        "card": card, "batch_slot": B,
+        "engine": {"L": eng.L, "R": eng.R, "H": eng.H, "W": eng.W},
+        "conv_engine": {"L": ceng.L, "R": ceng.R, "P": ceng.P},
+        "backends": backends, "sequence_s": seq_s,
+        "eager_sequence_s": eager_seq_s, "launches": counts,
+        "cache_report_checked": cache_checked,
+        "cache_report_conv": {k: v for k, v in ceng.cache_report().items()
+                              if k != "path_per_stage"},
+        "cache_report_after": {k: v for k, v in eng.cache_report().items()
+                               if k != "path_per_stage"},
+        "replays": replays, "host_ms": times, "scheduled_cycle": cycles,
+        "graphs": tagged(eng, "flat") + tagged(ceng, "conv"),
+        "phase_s": time.perf_counter() - t_phase}
 
 
 def main(argv=None) -> int:
@@ -1652,9 +2092,14 @@ def main(argv=None) -> int:
     b_y = np.stack([y_tr[32 * k:32 * (k + 1)] for k in range(2)])
     b_lits = torch.stack([eng.encode(sp, xb) for sp, xb in
                           zip((spec_c, spec_v), b_x)])
-    ops.reset_launch_counts()
+    # the bank step replays a graph: the dense TA check takes its
+    # arguments from an eager train_bank on the same state (not counted)
+    b_lab = torch.as_tensor(b_y, dtype=torch.int32, device="cuda")
     with Capture(ops, "ta_update") as cap_bank:
-        bst = bank.train(b_lits, b_y)
+        eng.train_bank(bank.progs, bank.prngs, b_lits, b_lab)
+    cap_bank.freeze()                # the bank's step below is in place
+    ops.reset_launch_counts()
+    bst = bank.train(b_lits, b_y)
     counts_bank = ops.launch_counts()
     check(counts_bank["fused_step"] == 1 and counts_bank["ta_update"] == 1
           and counts_bank["ta_update_sparse"] == 0,
@@ -1667,9 +2112,11 @@ def main(argv=None) -> int:
           and all(torch.equal(bst[k].cpu(), cst[k]) for k in STAT_KEYS),
           "the bank step on the card differs from the CPU engine")
     s_bank = api.stack(b_progs, eng_stream, prngs=b_prngs)
-    ops.reset_launch_counts()
     with Capture(ops, "ta_update_streamed") as cap_streamed2:
-        sst = s_bank.train(b_lits, b_y)
+        eng_stream.train_bank(s_bank.progs, s_bank.prngs, b_lits, b_lab)
+    cap_streamed2.freeze()
+    ops.reset_launch_counts()
+    sst = s_bank.train(b_lits, b_y)
     counts_bank_stream = ops.launch_counts()
     check(counts_bank_stream["fused_step"] == 1
           and counts_bank_stream["ta_update_streamed"] == 1
@@ -1925,12 +2372,13 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t)
     step_prof = profile_flush(torch, lambda: eng.train_step(
-        tm_a.program, tm_a.prng, lits32, lab32), captures=3)
+        tm_a.program, tm_a.prng, lits32, lab32), captures=3,
+        need="fused_step")
     check(step_prof["fused_step_kernels"] == 1,
           f"the profiled step ran {step_prof['fused_step_kernels']} "
           "fused_step kernels")
     fs_prof = profile_flush(torch, lambda: fused_step(*f_a, **f_kw),
-                            captures=3)
+                            captures=3, need="fused_step")
     check(fs_prof["launches"] == 1 and fs_prof["fused_step_kernels"] == 1,
           f"a fused_step call launched {fs_prof['launches']} kernels "
           f"({fs_prof['kernels']})")
@@ -1982,6 +2430,11 @@ def main(argv=None) -> int:
         (sched_report["cycle_profile"], sched13,
          {n: reqs[n][:B] for n in roster}), card, args.seed)
     graphs_report["conv_fit_peak_bytes"] = conv_fit_peak
+
+    # ---- 17. the served stage executables as CUDA graphs ------------------
+    served_report = served_graphs_phase(
+        torch, np, api, ops, datasets, roster, progs,
+        (ctile, spec_cv, conv_progs, creqs), sched13, card, args.seed)
 
     # ---- 6. timing -------------------------------------------------------------
     cold = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
@@ -2620,6 +3073,7 @@ def main(argv=None) -> int:
     print(json.dumps({"threefry": tf_report}))
     print(json.dumps({"ref_path": ref_report}))
     print(json.dumps({"graphs": graphs_report}))
+    print(json.dumps({"served_graphs": served_report}))
     print(json.dumps({"kernels": rows_out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

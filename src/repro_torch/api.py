@@ -28,7 +28,8 @@ import torch
 from repro_torch import checkpoint
 from repro_torch.core.booleanize import Booleanizer, fit_thermometer
 from repro_torch.core.device import resolve_device
-from repro_torch.core.dtm import Device, DTMEngine, DTMProgram
+from repro_torch.core.dtm import (FIELDS, STAT_KEYS, Device, DTMEngine,
+                                  DTMProgram, prng_like, store_step)
 from repro_torch.core import threefry
 from repro_torch.core.prng import PRNG
 from repro_torch.core.evaluate import accuracy, batched_predict
@@ -342,8 +343,11 @@ class TM:
         return 1.0 - int(self._skip_active) / tot
 
     def _infer(self, x):
+        """(sums, clauses) of a batch: one replay of the engine's
+        inference graph at this batch shape on the card (``score``'s
+        tail batch gets its own)."""
         lits = self.engine.encode(self.spec, x)
-        return self.engine.infer_fn(self.spec)(self.program, lits)
+        return self.engine.served_infer(self.spec, self.program, lits)
 
     def predict(self, x) -> torch.Tensor:
         """Class ids [B], or predictions in [0, 1] [B] for regression."""
@@ -411,17 +415,22 @@ class ProgramBank:
 
     :meth:`infer`/:meth:`predict`/:meth:`train` run all K through one
     launch per kernel; on the card a flush (:meth:`infer`,
-    :meth:`predict`) is one replay of a CUDA graph per (stage, K, B) that
-    reads a static literal buffer and the bank's own program tensors.
+    :meth:`predict`) is one replay of a CUDA graph per (stage, literal
+    shape) that reads a static literal buffer and the bank's own program
+    tensors, and a train step one replay of a graph per (literal, label)
+    shape that writes the new TA states, weights, include bitplane and
+    PRNG state into the bank's own tensors (the JAX ``train_bank``'s
+    donation).  So ``progs`` and ``prngs`` stay the same objects with
+    the same leaves, and no flush after a train step captures anew.
     :meth:`swap_in` writes a slot in place on the device, ordered before
     the next replay on the one stream, so a swap needs no new capture
     (the paper's reconfiguration without resynthesis); a bank whose
-    programs are rebuilt (:meth:`train`, a new :func:`stack`) captures
-    anew.  :meth:`swap_out` returns a copy, never a view, so a later
-    ``swap_in`` or ``train`` cannot change a program that was read out.
-    Flat and conv programs cannot share a bank (their literals differ in
-    rank); a conv bank (``conv=True``) serves through :meth:`infer` only,
-    as in the JAX package: train conv programs through their sessions."""
+    program tensors are rebound (a new :func:`stack`) captures anew.
+    :meth:`swap_out` returns a copy, never a view, so a later ``swap_in``
+    or ``train`` cannot change a program that was read out.  Flat and
+    conv programs cannot share a bank (their literals differ in rank); a
+    conv bank (``conv=True``) serves through :meth:`infer` only, as in
+    the JAX package: train conv programs through their sessions."""
 
     def __init__(self, engine: DTMEngine, progs: DTMProgram, k: int,
                  conv: bool = False, prngs: Optional[PRNG] = None):
@@ -431,29 +440,38 @@ class ProgramBank:
         self.conv = conv
         self.prngs = prngs          # stacked PRNG (train-capable banks)
         self._flush_graphs: dict = {}   # (stage, literal shape) -> graph
+        self._train_graphs: dict = {}   # (literal, label shape) -> graph
+
+    def _bound(self) -> tuple:
+        """The objects a graph of this bank reads: the program and PRNG
+        objects and their leaves (rebinding any of them makes a graph
+        anew)."""
+        held = (self.progs, *self.progs.leaves())
+        if self.prngs is not None:
+            held += (self.prngs, *self.prngs.leaves())
+        return held
+
+    def _graph(self, graphs: dict, key, make):
+        graph = graphs.get(key)
+        if graph is None or not graph.holds("bank", *self._bound()):
+            graph = graphs[key] = make()
+            graph.mark("bank", *self._bound())
+        return graph
 
     def _flush(self, stage: str, lits) -> tuple:
         """One flush through the bank's graph of ``stage`` at this
         literal shape: the literals copied into its static buffer, one
         replay (an eager run of the same body off the card), the answers
-        returned as copies that no later flush writes."""
-        if isinstance(lits, torch.Tensor):
-            shape = tuple(lits.shape)
-        else:
-            lits = list(lits)
-            shape = (len(lits), *lits[0].shape)
-        key = (stage, shape)
-        progs = self.progs
-        graph = self._flush_graphs.get(key)
-        if graph is None or not graph.holds("progs", progs,
-                                            *progs.leaves()):
-            graph = self._flush_graph(stage, shape)
-            self._flush_graphs[key] = graph
+        returned as copies that no later flush writes.  A flush fed a
+        list of per-tenant literals is JAX's ``<stage>_list``
+        executable."""
+        lits, shape = _batch(lits)
+        if isinstance(lits, list) and not stage.endswith("_list"):
+            stage += "_list"
+        graph = self._graph(self._flush_graphs, (stage, shape),
+                            lambda: self._flush_graph(stage, shape))
         with graph.lock:
-            if isinstance(lits, torch.Tensor):
-                graph.const["lits"].copy_(lits)
-            else:
-                torch.stack(lits, out=graph.const["lits"])
+            _load(graph.const["lits"], lits)
             graph.run()
             return tuple(graph.state[name].clone() for name in graph.state)
 
@@ -463,7 +481,9 @@ class ProgramBank:
         dev = eng.device
         fn = {"predict_bank_list": eng.predict_bank,
               "infer_bank": eng.infer_bank,
-              "infer_conv_bank": eng.infer_conv_bank}[stage]
+              "infer_bank_list": eng.infer_bank,
+              "infer_conv_bank": eng.infer_conv_bank,
+              "infer_conv_bank_list": eng.infer_conv_bank}[stage]
         out = ({"preds": (K, B), "votes": (K, B)}
                if stage == "predict_bank_list"
                else {"sums": (K, B, eng.H), "cl": (K, B, eng.R)})
@@ -475,9 +495,31 @@ class ProgramBank:
             for name, t in zip(out, fn(progs, b["lits"])):
                 b[name].copy_(t)
 
-        graph = eng.step_graph(stage, body, state, const)
-        graph.mark("progs", progs, *progs.leaves())
-        return graph
+        return eng.step_graph(stage, body, state, const)
+
+    def _train_graph(self, shape: tuple, label_shape: tuple):
+        """The bank's train step at these shapes: its state buffers are
+        the bank's own program leaves and PRNG state, the step's stats
+        ``[len(STAT_KEYS), K]``; the literals and labels are static
+        buffers."""
+        eng, prngs = self.engine, self.prngs
+        dev = eng.device
+        n_r = len(prngs.leaves())
+        state = {f: getattr(self.progs, f) for f in FIELDS}
+        state.update({f"prng{i}": t for i, t in enumerate(prngs.leaves())})
+        state["stats"] = torch.zeros((len(STAT_KEYS), self.k),
+                                     dtype=torch.int32, device=dev)
+        const = {"lits": torch.zeros(shape, dtype=torch.int32, device=dev),
+                 "labels": torch.zeros(label_shape, dtype=torch.int32,
+                                       device=dev)}
+
+        def body(b):
+            p = DTMProgram(*(b[f] for f in FIELDS))
+            r = prng_like(prngs, [b[f"prng{i}"] for i in range(n_r)])
+            b["stats"].copy_(store_step(
+                b, *eng.train_bank(p, r, b["lits"], b["labels"])))
+
+        return eng.step_graph("train_bank", body, state, const)
 
     def infer(self, lits):
         """lits [K, B, W] ([K, B, P, W] for a conv bank), or K arrays
@@ -494,8 +536,10 @@ class ProgramBank:
 
     def train(self, lits, labels) -> dict:
         """One stacked train step: program k takes batch k (lits
-        [K, B, W], labels [K, B]).  The bank's programs and PRNGs advance;
-        returns the stats, [K] int32 per key.  Flat banks only."""
+        [K, B, W] or K arrays [B, W], labels [K, B]), written in place
+        into the bank's program and PRNG tensors (one replay of the
+        bank's train graph on the card).  Returns the stats, [K] int32
+        per key.  Flat banks only."""
         if self.conv:
             raise ValueError("conv banks are inference-only; train conv "
                              "programs through their own sessions")
@@ -504,9 +548,16 @@ class ProgramBank:
                              "api.stack")
         labels = torch.as_tensor(labels).to(device=self.engine.device,
                                             dtype=torch.int32)
-        self.progs, self.prngs, stats = self.engine.train_bank(
-            self.progs, self.prngs, lits, labels)
-        return stats
+        lits, shape = _batch(lits)
+        key = (shape, tuple(labels.shape))
+        graph = self._graph(self._train_graphs, key,
+                            lambda: self._train_graph(*key))
+        with graph.lock:
+            _load(graph.const["lits"], lits)
+            graph.const["labels"].copy_(labels)
+            graph.run()
+            row = graph.state["stats"].clone()
+        return {k: row[i] for i, k in enumerate(STAT_KEYS)}
 
     def swap_in(self, k: int, program: DTMProgram) -> None:
         """Overwrite slot ``k`` with ``program`` (in place, on the device)."""
@@ -523,6 +574,23 @@ class ProgramBank:
     @property
     def nbytes(self) -> int:
         return self.progs.nbytes
+
+
+def _batch(lits) -> tuple:
+    """A bank's literals, a tensor [K, ...] or K tensors, and their
+    stacked shape (a sequence becomes a list)."""
+    if isinstance(lits, torch.Tensor):
+        return lits, tuple(lits.shape)
+    lits = list(lits)
+    return lits, (len(lits), *lits[0].shape)
+
+
+def _load(buf: torch.Tensor, lits) -> None:
+    """Write a bank's literals into a graph's static buffer."""
+    if isinstance(lits, torch.Tensor):
+        buf.copy_(lits)
+    else:
+        torch.stack(lits, out=buf)
 
 
 def stack(programs: Sequence[DTMProgram], engine: DTMEngine,

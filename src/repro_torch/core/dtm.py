@@ -55,16 +55,21 @@ Per stage the engine records the kernels it ran in
 ``infer_conv_bank`` and ``train_conv`` (a forced path records ``ref``
 for its clause stages).
 
-Sessions and banks run as CUDA graphs on the card
-(:mod:`repro_torch.core.graph`, JAX's session executables): an epoch of
-``TMSession.fit_epochs`` is one plan upload, one replay of the captured
-step per batch and one stats fetch (:meth:`DTMEngine._fit_epoch_impl`,
-:meth:`DTMEngine._fit_epoch_conv_impl`); ``TMSession.step`` is one replay
-at its batch shape; a bank flush (``api.ProgramBank``) one replay.  The
-CPU and the forced ``ref`` path run the same bodies eagerly.  The
-``train_step``, ``train_conv``, ``infer*`` and ``train_bank`` methods
-stay the eager building blocks.  ``cache_report()`` counts the graphs
-captured per JAX stage name (0 without capture).
+Every stage executable of the JAX engine runs as a CUDA graph on the
+card (:mod:`repro_torch.core.graph`): an epoch of ``TMSession.fit_epochs``
+is one plan upload, one replay of the captured step per batch and one
+stats fetch (:meth:`DTMEngine._fit_epoch_impl`,
+:meth:`DTMEngine._fit_epoch_conv_impl`); ``TMSession.step`` and a served
+train step (:meth:`DTMEngine._session_step`) are one replay at their
+batch shape; single-program inference (:meth:`DTMEngine.served_infer`:
+``TM.predict``, ``TMServer.predict``, the server's cold path) one replay
+per (stage, shape); a bank flush and a bank train step
+(``api.ProgramBank``) one replay.  The CPU and the forced ``ref`` path
+run the same bodies eagerly; neither is a fallback: on the card a
+capture or replay that fails raises.  The ``train_step``,
+``train_conv``, ``infer*`` and ``train_bank`` methods stay the eager
+building blocks.  ``cache_report()`` counts the graphs captured per JAX
+stage name (0 without capture).
 """
 from __future__ import annotations
 
@@ -155,6 +160,9 @@ class DTMProgram:
 FIELDS = tuple(f.name for f in dataclasses.fields(DTMProgram))
 U32_FIELDS = ("p_ta", "inc")    # uint32 in the JAX program, int32 bits here
 TRAINED = ("ta", "weights", "inc")    # the leaves a train step changes
+# the leaves inference reads (_infer_impl, _infer_conv_impl; l_mask only
+# on the forced ref path): never the TA states
+INFER_LEAVES = ("inc", "weights", "cl_mask", "l_mask", "h_mask", "p_mask")
 
 
 def _sig(tensors) -> tuple:
@@ -166,10 +174,25 @@ def _prng_sig(prng: PRNG) -> tuple:
             _sig(prng.leaves()))
 
 
-def _prng_like(prng: PRNG, leaves) -> PRNG:
+def prng_like(prng: PRNG, leaves) -> PRNG:
     """``prng``'s configuration over the state leaves ``leaves``."""
     it = iter(leaves)
     return prng.map(lambda _: next(it))
+
+
+def store_step(bufs, new: DTMProgram, new_prng: PRNG, stats
+               ) -> torch.Tensor:
+    """A train step body's end: the trained leaves and the PRNG state
+    (``prng<i>``) copied into the graph's buffers, skipping a leaf the
+    step wrote in place already (the donated TA).  Returns the stats as
+    one ``[len(STAT_KEYS), ...]`` row."""
+    for f in TRAINED:
+        t = getattr(new, f)
+        if t.data_ptr() != bufs[f].data_ptr():
+            bufs[f].copy_(t)
+    for i, t in enumerate(new_prng.leaves()):
+        bufs[f"prng{i}"].copy_(t)
+    return torch.stack([stats[k] for k in STAT_KEYS])
 
 
 class DTMEngine:
@@ -833,21 +856,14 @@ class DTMEngine:
 
         def body(b):
             p = DTMProgram(*(b[f] for f in FIELDS))
-            r = _prng_like(prng_buf, [b[f"prng{i}"] for i in range(n_r)])
+            r = prng_like(prng_buf, [b[f"prng{i}"] for i in range(n_r)])
             if epoch:
                 ib = b["plan"].index_select(0, b["step"]).view(-1)
                 x = b["data"].index_select(0, ib)
                 y = b["labels"].index_select(0, ib)
             else:
                 x, y = b["lits"], b["labels"]
-            new, new_prng, stats = step(p, r, x, y)
-            for f in TRAINED:       # (in place already: the donated TA)
-                t = getattr(new, f)
-                if t.data_ptr() != b[f].data_ptr():
-                    b[f].copy_(t)
-            for i, t in enumerate(new_prng.leaves()):
-                b[f"prng{i}"].copy_(t)
-            row = torch.stack([stats[k] for k in STAT_KEYS])
+            row = store_step(b, *step(p, r, x, y))
             if epoch:
                 b["stats"].index_copy_(0, b["step"], row[None])
                 b["step"].add_(1)
@@ -881,7 +897,7 @@ class DTMEngine:
         the buffers, never the copies."""
         new = dataclasses.replace(prog, **{f: graph.state[f].clone()
                                            for f in TRAINED})
-        new_prng = _prng_like(prng, [
+        new_prng = prng_like(prng, [
             graph.state[f"prng{i}"].clone()
             for i in range(len(prng.leaves()))])
         graph.mark("state", new, new_prng)
@@ -891,7 +907,10 @@ class DTMEngine:
                       lits: torch.Tensor, labels: torch.Tensor):
         """One train step through the step graph at this batch shape (one
         replay on the card) -> (new program, new PRNG, stats: int32 0-d
-        tensors keyed by :data:`STAT_KEYS`), all copies."""
+        tensors keyed by :data:`STAT_KEYS`), all copies.  ``TMSession.
+        step`` and ``TMServer.train`` take their steps here; the graph's
+        lock is held from the copy-in to the copy-out and nothing else is
+        taken under it."""
         graph = self._train_graph(conv, prog, prng, lits, labels)
         with graph.lock:
             self._load_state(graph, prog, prng)
@@ -945,6 +964,78 @@ class DTMEngine:
         [N, P, W]; the step is :meth:`train_conv`)."""
         return self._epoch(True, prog, prng, plits, labels, idx, sync_guard)
 
+    # ------------------------------------------------------------------ #
+    # single-program inference: one graph per (stage, shape) across every #
+    # program of the geometry (JAX: the jitted infer / infer_conv)        #
+    # ------------------------------------------------------------------ #
+    def _infer_graph(self, conv: bool, prog: DTMProgram,
+                     lits: torch.Tensor) -> StepGraph:
+        """The graph of one inference at this literal shape, made once.
+        Its read-only buffers are the program leaves of
+        :data:`INFER_LEAVES` (include bitplane, weights and the clause,
+        literal, class and patch masks; never the TA states, which
+        inference does not read and which are the bulk of a program) and
+        the literals; its state buffers are the answers, ``sums`` [B, H]
+        and ``cl`` [B, R].  The body builds the program from those leaves
+        alone: any other leaf is ``None``."""
+        stage = "infer_conv" if conv else "infer"
+        key = (stage, _sig(getattr(prog, f) for f in INFER_LEAVES),
+               _sig((lits,)))
+        graph = self._graphs.get(key)
+        if graph is not None:
+            return graph
+        dev, B = self.device, lits.shape[0]
+        const = {f: getattr(prog, f).clone(
+            memory_format=torch.contiguous_format) for f in INFER_LEAVES}
+        const["lits"] = lits.clone(memory_format=torch.contiguous_format)
+        state = {"sums": torch.zeros((B, self.H), dtype=torch.int32,
+                                     device=dev),
+                 "cl": torch.zeros((B, self.R), dtype=torch.int32,
+                                   device=dev)}
+        impl = self._infer_conv_impl if conv else self._infer_impl
+
+        def body(b):
+            progs = DTMProgram(**{f: b[f][None] if f in INFER_LEAVES
+                                  else None for f in FIELDS})
+            sums, cl = impl(progs, b["lits"][None], stage=stage)
+            b["sums"].copy_(sums[0])
+            b["cl"].copy_(cl[0])
+
+        graph = self.step_graph(stage, body, state, const)
+        graph.mark("prog", prog, *(getattr(prog, f) for f in INFER_LEAVES))
+        self._graphs[key] = graph
+        return graph
+
+    def served_infer(self, spec, prog: DTMProgram, lits: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Inference of one program of ``spec``'s kind through the
+        engine's graph of its stage (``infer``, or ``infer_conv`` for a
+        conv spec) at this literal shape: on the card one replay, shared
+        by every program of the geometry.  The program's
+        :data:`INFER_LEAVES` are copied in unless the buffers hold them
+        already (the same program object with the same leaves).  Returns
+        (sums [B, H], clause [B, R]) as copies taken under the graph's
+        lock, so a later request cannot overwrite an answer a caller still
+        holds.  The CPU and the forced ``ref`` path run the same body
+        eagerly."""
+        graph = self._infer_graph(getattr(spec, "kind", None) == "conv",
+                                  prog, lits)
+        leaves = tuple(getattr(prog, f) for f in INFER_LEAVES)
+        with graph.lock:
+            if not graph.holds("prog", prog, *leaves):
+                for f, t in zip(INFER_LEAVES, leaves):
+                    graph.const[f].copy_(t)
+                graph.mark("prog", prog, *leaves)
+            graph.const["lits"].copy_(lits)
+            graph.run()
+            return graph.state["sums"].clone(), graph.state["cl"].clone()
+
+    def cache_sizes(self) -> Tuple[int, int]:
+        """(graphs alive of stage ``infer``, of stage ``train``): the JAX
+        engine's ``cache_sizes``, (0, 0) without capture."""
+        report = self.cache_report()
+        return report["infer"], report["train"]
+
     def cache_report(self) -> dict:
         """The CUDA graphs captured and alive per stage, under the JAX
         engine's stage executable names (:data:`GRAPH_STAGES`; 0 where
@@ -952,7 +1043,10 @@ class DTMEngine:
         ``path_per_stage``: the kernels each stage ran last (the clause
         datapath per stage; ``<stage>_ta`` and ``<stage>_prng`` for the TA
         update of the train stages).  Program swaps reuse a graph: each
-        count stays at most 1 per stage and shape."""
+        count stays at most 1 per stage and shape.  Graphs live with what
+        owns them: the engine's (sessions, served steps, single-program
+        inference) as long as the engine, a bank's (flushes, bank train
+        steps) as long as the bank."""
         report = {s: len(self._captured.get(s, ())) for s in GRAPH_STAGES}
         report["path_per_stage"] = dict(self._stage_paths)
         return report

@@ -41,6 +41,7 @@ at the issue rate, 128 a clock an SM, 132 SMs and 1980 MHz.
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -72,7 +73,10 @@ def graph_ms(torch, fn, n: int, cold_l2=None, reps: int = 5) -> float:
     """Device time per call of ``fn``: ``n`` calls captured in one CUDA
     graph and replayed ``reps`` times, so no host launch cost is counted.
     With ``cold_l2`` (a buffer larger than L2) each call follows an
-    overwrite of it, whose own time is subtracted."""
+    overwrite of it, whose own time is subtracted.  Dead graphs (a dead
+    engine's, freed only by the cyclic collector) are collected before
+    the capture and no collection runs during it: a graph freed while
+    another captures invalidates that capture."""
     def replay(body):
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
@@ -81,9 +85,16 @@ def graph_ms(torch, fn, n: int, cold_l2=None, reps: int = 5) -> float:
                 body()
         torch.cuda.current_stream().wait_stream(side)
         g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
-            for _ in range(n):
-                body()
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(g):
+                for _ in range(n):
+                    body()
+        finally:
+            if collecting:
+                gc.enable()
         g.replay()
         s, e = torch.cuda.Event(True), torch.cuda.Event(True)
         s.record()

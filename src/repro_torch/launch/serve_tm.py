@@ -5,12 +5,15 @@ rewrite: the engine is the datapath, a :class:`DTMProgram` is the model.
 Two request paths:
 
 * :meth:`TMServer.predict` swaps to one tenant and serves its request
-  (the edge path when the batch slot is <= 4 rows; eager).
+  (the edge path when the batch slot is <= 4 rows): on the card one
+  replay of the engine's inference graph at the slot's shape
+  (:meth:`DTMEngine.served_infer`), shared by every tenant.
 * :meth:`TMServer.enqueue` queues requests; :meth:`TMServer.flush_async`
   runs the resident tenants of each stage family (flat, conv) with
   pending requests through ONE stacked :class:`ProgramBank` launch per
   kernel, and each pending tenant outside the resident roster through a
-  single-program launch (the cold path), and returns without waiting;
+  single-program launch (the cold path, the same inference graph), and
+  returns without waiting;
   :meth:`TMServer.collect` fetches and decodes (the only host-device sync
   of the path: flat banks decode on the device, conv banks and cold
   requests on the host).  :meth:`TMServer.flush` is the two in one.
@@ -19,23 +22,36 @@ Requests are padded to a fixed ``batch_slot`` by repeating their last row,
 and the padding is dropped from the answers.
 
 :meth:`TMServer.train` swaps to one tenant and applies one on-line
-training step to its program (on-chip training on the same datapath);
-the tenant's bank slot is then stale, and the next stacked flush writes
-the fresh program back into it.  Each tenant keeps its own PRNG (made
-from ``seed + 1`` at registration), step count, and a lifetime
-clause-skip fraction (``skip_frac`` in :meth:`TMServer.stats`).
+training step to its program (on-chip training on the same datapath;
+on the card one replay of the engine's step graph at the slot's shape,
+the graph ``TM.partial_fit`` replays); the tenant's bank slot is then
+stale, and the next stacked flush writes the fresh program back into
+it.  Each tenant keeps its own PRNG (made from ``seed + 1`` at
+registration), step count, and a lifetime clause-skip fraction
+(``skip_frac`` in :meth:`TMServer.stats`).
 
 Bank membership is dynamic: :meth:`TMServer.set_resident` restricts a
 family's bank roster, :meth:`TMServer.swap_resident` demotes one tenant
 and promotes another into its slot (two in-place slot writes, no
 restack), and :meth:`TMServer.add_resident` grows the roster (a restack
-at the next flush).  The scheduler (:mod:`repro_torch.launch.scheduler`)
-drives these.  Every device operation of the server runs on the
-device's current stream, the one stream the scheduler and its
-checkpoint writer share: bank slot writes, pipelined flushes and the
-writer's copies are ordered by it.  :meth:`TMServer.snapshot` copies a
-tenant's durable state under the server's lock, so a later in-place
-write cannot reach the copy.  Single device: pods are not ported.
+at the next flush).  A roster change that keeps the family's K and
+shapes (``set_resident``, ``register``) keeps its bank and flush graph:
+the next flush writes the new members into their slots in place; only a
+new K stacks a new bank, which captures anew.  The scheduler
+(:mod:`repro_torch.launch.scheduler`) drives these.  Every device
+operation of the server runs on the device's current stream, the one
+stream the scheduler and its checkpoint writer share: bank slot writes,
+pipelined flushes and the writer's copies are ordered by it.
+:meth:`TMServer.snapshot` copies a tenant's durable state under the
+server's lock, so a later in-place write cannot reach the copy.  Single
+device: pods are not ported.
+
+Locks: the server's ``_lock`` and a graph's ``lock`` are never held
+together.  A train step or an inference runs under its graph's lock
+alone, and the step's commit (program, PRNG, steps) runs under the
+server's lock after the graph's lock is released; ``snapshot`` takes
+only the server's lock.  So the scheduler's thread, the checkpoint
+writer and a caller's thread cannot deadlock on them.
 """
 from __future__ import annotations
 
@@ -109,6 +125,9 @@ class TMServer:
         self.membership_swaps = 0
         self._pending: List[Tuple[str, torch.Tensor, int, float]] = []
         self._banks: Dict[bool, Tuple[List[str], ProgramBank]] = {}
+        # per family: the bank of a roster that changed, kept until the
+        # next flush, which reuses it at an unchanged K
+        self._spare: Dict[bool, Tuple[List[str], ProgramBank]] = {}
         # per family: the resident roster in slot order (None: every
         # registered tenant)
         self._membership: Dict[bool, Optional[List[str]]] = {}
@@ -148,15 +167,24 @@ class TMServer:
     def _put(self, name: str, tenant: _Tenant) -> None:
         with self._lock:
             if name in self.tenants:        # its old family loses it
-                self._banks.pop(self._is_conv(name), None)
+                self._retire(self._is_conv(name))
+                # a new model under an old name: a kept bank's slot of it
+                # is stale
+                self._dirty.add(name)
             self.tenants[name] = tenant
-            # the family's roster changed: restacked at its next flush
-            self._banks.pop(tenant.spec.kind == "conv", None)
+            # the family's roster changed: rebuilt at its next flush
+            self._retire(tenant.spec.kind == "conv")
             self._decode_info[name] = (tenant.spec.kind == "regression",
                                        int(tenant.spec.tm_config().T))
             # a (re-)registered tenant is a new model: skip accounting anew
             self._skip_acc.pop(name, None)
-            self._dirty.discard(name)
+
+    def _retire(self, conv: bool) -> None:
+        """The family's roster changed: its bank is rebuilt at the next
+        flush, from this one when K and the shapes stay."""
+        bank = self._banks.pop(conv, None)
+        if bank is not None:
+            self._spare[conv] = bank
 
     def _swap_to(self, name: str) -> _Tenant:
         tenant = self.tenants[name]
@@ -191,11 +219,13 @@ class TMServer:
 
     # ---- request paths ----------------------------------------------------
     def predict(self, name: str, x, encoded: bool = False) -> np.ndarray:
-        """Swap to tenant ``name`` and serve one request."""
+        """Swap to tenant ``name`` and serve one request (one replay of
+        the engine's inference graph on the card)."""
         tenant = self._swap_to(name)
         self.requests += 1
         lits, n = self._encode_request(tenant, x, encoded)
-        sums, cl = self.engine.infer_fn(tenant.spec)(tenant.program, lits)
+        sums, cl = self.engine.served_infer(tenant.spec, tenant.program,
+                                            lits)
         return self._decode_one(name, sums, cl)[:n]
 
     def _decode_one(self, name: str, sums: torch.Tensor, cl: torch.Tensor
@@ -209,10 +239,13 @@ class TMServer:
 
     def train(self, name: str, x, y, encoded: bool = False) -> dict:
         """Swap to tenant ``name`` and apply one training step to its
-        program.  A training request fills the batch slot (padding would
-        repeat the last example's feedback).  ``encoded=True`` takes
-        packed engine literals and encoded labels.  Returns the step's
-        stats as host ints (one fetch)."""
+        program: one replay of the engine's step graph at the slot's
+        shape (:meth:`DTMEngine._session_step`, under the graph's lock
+        only), then the commit under the server's lock.  A training
+        request fills the batch slot (padding would repeat the last
+        example's feedback).  ``encoded=True`` takes packed engine
+        literals and encoded labels.  Returns the step's stats as host
+        ints (one fetch)."""
         tenant = self._swap_to(name)
         self.requests += 1
         if len(x) != self.batch_slot:
@@ -225,8 +258,9 @@ class TMServer:
             lits = self.engine.encode(tenant.spec, np.asarray(x))
             lab = tenant.spec.encode_labels(np.asarray(y)).to(
                 self.engine.device)
-        step = self.engine.train_fn(tenant.spec)
-        program, prng, stats = step(tenant.program, tenant.prng, lits, lab)
+        program, prng, stats = self.engine._session_step(
+            tenant.spec.kind == "conv", tenant.program, tenant.prng, lits,
+            lab.to(torch.int32))
         host = dict(zip(stats, torch.stack(list(stats.values())).tolist()))
         with self._lock:
             tenant.program, tenant.prng = program, prng
@@ -286,7 +320,7 @@ class TMServer:
                                  f"{'conv' if conv else 'flat'} family")
         with self._lock:
             self._membership[conv] = names
-            self._banks.pop(conv, None)
+            self._retire(conv)
 
     def _member(self, conv: bool) -> List[str]:
         member = self._membership.get(conv)
@@ -333,23 +367,43 @@ class TMServer:
         self.membership_swaps += 1
         with self._lock:
             member.append(in_name)
-            self._banks.pop(conv, None)
+            self._retire(conv)
         return None
 
     def _bank_for(self, conv: bool) -> Tuple[List[str], ProgramBank]:
         """The resident bank of a family (flat or conv), built once per
-        roster; slots of tenants trained since are rewritten first."""
+        roster; slots of tenants trained since are rewritten first.  A
+        new roster of the last one's K and shapes takes over its bank
+        (and so its flush graph): the slots whose tenant changed are
+        rewritten in place.  Another K stacks a new bank, and the old
+        one goes with its graphs."""
         if conv not in self._banks:
             names = self._group_names(conv)
-            self._banks[conv] = (names, api.stack(
-                [self.tenants[n].program for n in names], self.engine,
-                conv=conv))
-            self._dirty -= set(names)
+            old_names, bank = self._spare.pop(conv, (None, None))
+            if bank is None or not self._fits(bank, names):
+                bank = None         # the old bank and its graphs go first
+                bank = api.stack([self.tenants[n].program for n in names],
+                                 self.engine, conv=conv)
+                old_names = names
+                self._dirty -= set(names)
+            for k, n in enumerate(names):
+                if old_names[k] != n:
+                    bank.swap_in(k, self.tenants[n].program)
+                    self._dirty.discard(n)
+            self._banks[conv] = (names, bank)
         names, bank = self._banks[conv]
         for n in sorted(self._dirty & set(names)):
             bank.swap_in(names.index(n), self.tenants[n].program)
         self._dirty -= set(names)
         return names, bank
+
+    def _fits(self, bank: ProgramBank, names: List[str]) -> bool:
+        """Whether ``names``' programs fit ``bank``'s slots: K, and every
+        leaf's shape and dtype."""
+        slot = [(t.shape[1:], t.dtype) for t in bank.progs.leaves()]
+        return bank.k == len(names) and all(
+            [(t.shape, t.dtype) for t in self.tenants[n].program.leaves()]
+            == slot for n in names)
 
     # ---- stacked serving ------------------------------------------------------
     def enqueue(self, name: str, x, encoded: bool = False) -> None:
@@ -373,7 +427,9 @@ class TMServer:
         copied into its slot of the graph's static buffer first; idle
         slots replay a pending tenant's literals and their outputs are
         dropped), one single-program launch per non-resident tenant (the
-        eager cold path).  A tenant that queued twice is served its last
+        cold path: one replay of the engine's inference graph, whose
+        answers are copies a later flush does not overwrite while this
+        one is in flight).  A tenant that queued twice is served its last
         request.  Everything runs on the current stream, after the slot
         writes of ``swap_in`` and ``swap_resident``."""
         if not self._pending:
@@ -401,8 +457,8 @@ class TMServer:
             if name in claimed:
                 continue
             tenant = self.tenants[name]
-            sums, cl = self.engine.infer_fn(tenant.spec)(tenant.program,
-                                                         by_name[name][0])
+            sums, cl = self.engine.served_infer(tenant.spec, tenant.program,
+                                                by_name[name][0])
             self.cold_requests += 1
             cold.append((name, sums, cl))
         return PendingFlush(t0=t0,

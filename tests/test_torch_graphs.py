@@ -288,8 +288,9 @@ def test_conv_flush_body_equals_infer_conv_bank_across_swap_in(jeng):
 
 
 def test_a_bank_rebuilt_by_train_serves_its_new_programs(jeng):
-    """``ProgramBank.train`` gives the bank new program tensors: the next
-    flush reads those (its graph is made anew), not the old ones."""
+    """``ProgramBank.train`` writes the new programs into the bank's own
+    tensors: the next flush reads those through the bank's one flush
+    graph (no new graph), and an answer taken before stays as it was."""
     teng = _port(jeng)
     tspec = _tspec(FLAT)
     starts = [_start(jeng, FLAT, s) for s in (15, 16)]
