@@ -200,6 +200,23 @@ a capture runs no kernel and ``Capture`` skips calls made under one):
      kernel checks of phase 13 and the bank step's of phase 9 take their
      arguments from eager building-block calls on the same state.
 
+The dispatcher's plan cache and the analysis layer:
+ 18. "tuned": (a) the launch checker (``repro_torch.analysis.
+     kernel_check``) with ``HardwareModel.from_device(0)``: 0 violations
+     over every plan, its restated ``fused_step`` shared memory equal to
+     the library's ``dtm_fused_step_smem``; (b) ``autotune="measure"``
+     into a temporary cache at the roster's width (L=3200, R=4224, H=16)
+     and the training width (L=1664, R=2048, H=16): eval buckets 1-64,
+     train buckets 1, 4, 8 and 32 and ``ta`` at 32, each candidate's ms
+     beside the seed model's pick and seconds; the file reloaded in a
+     cleared state gives the same plans; engines under ``off``, ``seed``
+     and ``measure`` answer and train bit for bit the same at B = 1, 8
+     and 32; (c) the trace audit on the card (default and forced
+     ``packed_vpu`` legs) against the port's golden; (d)
+     ``reconfig_benchmark(small=False)``: steady, swap, train-swap and
+     resynthesis times, launch counts from 0 just before.  The ``tuned``
+     line reports them.
+
 Bounds: bytes over 3.35 TB/s; integer operations over 64 per clock per
 SM (the CUDA guide's rate for 32-bit integer add, logic, shift, compare
 and multiply-add on compute capability 9.0) × the SM count × the card's
@@ -237,8 +254,8 @@ spreads over more than one integer pipe, and ran above 64 a clock).  No
 kernel here does float work.
 
 Prints the card line, ``serving``, ``training``, ``conv``,
-``scheduler``, ``threefry``, ``ref_path``, ``graphs`` and
-``served_graphs`` JSON lines, a
+``scheduler``, ``threefry``, ``ref_path``, ``graphs``,
+``served_graphs`` and ``tuned`` JSON lines, a
 ``kernels`` JSON line and, last, ``{"ok": true, "device": {...}}``.  Any
 failed check raises, and the exit code is then non-zero.  Without a CUDA card,
 or without the repository beside it, it exits non-zero and prints no
@@ -1707,6 +1724,148 @@ def served_graphs_phase(torch, np, api, ops, datasets, roster, progs, conv,
         "phase_s": time.perf_counter() - t_phase}
 
 
+TUNE_WIDTHS = {"roster": (3200, 4224, 16), "training": (1664, 2048, 16)}
+TUNE_EVAL = (1, 2, 4, 8, 16, 32, 64)     # eval batch buckets measured
+TUNE_TRAIN = (1, 4, 8, 32)               # train batch buckets measured
+TUNE_TA = 32
+
+
+def tuned_phase(torch, np, api, ops, tm_paper, x_tr, y_tr, card: str,
+                seed: int) -> dict:
+    """Phase 18: the launch checker on this card, ``measure`` plans at the
+    roster and training widths against the seed model, the three modes
+    answering the same, the trace audit on the card and the
+    reconfiguration benchmark at ``demo_specs(small=False)``."""
+    import shutil
+    import tempfile
+    from repro_torch.analysis import kernel_check, trace_audit
+    from repro_torch.kernels import _build, autotune
+    from repro_torch.launch import tm_perf
+    from repro_torch.launch.mesh import HardwareModel
+    from repro_torch.launch.serve_tm import reconfig_benchmark
+    t_phase = time.perf_counter()
+    report = {"card": card}
+
+    # (a) the launch checker at this card's limits
+    hw = HardwareModel.from_device(0)
+    n_plans, violations, findings = kernel_check.check_all(hw)
+    check(not violations, "launch violations: "
+          + "; ".join(v.render() for v in violations[:5]))
+    _, smem_fn = _build.entry("fused_step", "dtm_fused_step_smem",
+                              [ctypes.c_int] * 3, ctypes.c_size_t)
+    for H, W in ((16, 100), (16, 52), (10, 12), (16, 32), (4, 8)):
+        for bulk in (False, True):
+            check(smem_fn(H, W, int(bulk)) == kernel_check.fused_smem(
+                H, W, bulk), f"fused_step shared memory H={H} W={W}")
+    report["kernel_check"] = {
+        "hw": {"name": hw.name, "sms": hw.sms,
+               "smem_per_block_optin": hw.smem_per_block_optin},
+        "plans": n_plans, "violations": 0,
+        "findings": [f.render() for f in findings]}
+
+    # (b) measured plans against the seed model's picks
+    tmp = tempfile.mkdtemp(prefix="tuned-")
+    try:
+        cache = os.path.join(tmp, "autotune.json")
+        fresh = os.path.join(tmp, "none.json")    # never written: seed only
+        autotune.clear_cache()
+        rows, plans = [], {}
+        t0 = time.perf_counter()
+        for width, shape in TUNE_WIDTHS.items():
+            L, R, _ = shape
+            for stage, buckets in (("eval", TUNE_EVAL),
+                                   ("train", TUNE_TRAIN), ("ta", (TUNE_TA,))):
+                for b in buckets:
+                    plan = autotune.lookup(stage, b, shape, mode="measure",
+                                           cache=cache, device="cuda")
+                    plans[stage, b, shape] = plan
+                    sp = autotune.seed_plan(stage, b, shape)
+                    row = {"width": width, "stage": stage, "bucket": b,
+                           "candidates_ms": {k: v / 1e3 for k, v in
+                                             plan["candidates_us"].items()},
+                           "measured": plan["path"],
+                           "seed": None if sp is None else sp["path"],
+                           "tiles": plan["tiles"]}
+                    if stage == "eval":
+                        c = tm_perf.packed_eval_costs(b, L, R)
+                        row["seed_model_s"] = {"packed_vpu": c["vpu_s"],
+                                               "mxu_popcount": c["mxu_s"]}
+                    rows.append(row)
+        measure_s = time.perf_counter() - t0
+        autotune.clear_cache()
+        for (stage, b, shape), plan in plans.items():
+            again = autotune.lookup(stage, b, shape, mode="measure",
+                                    cache=cache, device="cuda")
+            check(again == plan, f"reloaded plan {stage}/{b}/{shape}")
+        report["plans"] = rows
+        report["measure_s"] = measure_s
+
+        # the three modes answer and train the same
+        spec = paper_spec(api, tm_paper.TM_MNIST_COTM, "lfsr")
+        tile = api.tile_for(spec)
+        # seed on an empty cache file: the model's own picks
+        engs = {m: api.compile(tile, autotune=m, autotune_cache=(
+                    fresh if m == "seed" else cache))
+                for m in autotune.MODES}
+        tm = api.TM(spec, engine=engs["off"], seed=seed)
+        paths = {}
+        for B in (1, 8, 32):
+            outs = {}
+            for m, e in engs.items():
+                lits = e.encode(spec, x_tr[:B])
+                lab = spec.encode_labels(y_tr[:B]).to(e.device)
+                sums, cl = e.infer(tm.program, lits)
+                prog, prng, st = e.train_step(tm.program, tm.prng, lits, lab)
+                outs[m] = (sums, cl, *prog.leaves(), *prng.leaves(),
+                           *st.values())
+                pps = e.cache_report()["path_per_stage"]
+                paths[f"{m} B={B}"] = {k: pps[k] for k in
+                                       ("infer", "train", "train_ta")}
+            for m in ("seed", "measure"):
+                check(all(torch.equal(a, b_) for a, b_ in
+                          zip(outs[m], outs["off"])),
+                      f"autotune={m} differs from off at B={B}")
+        report["mode_paths"] = paths
+
+        # (c) the trace audit on the card
+        audits = []
+        for leg in ({}, {"kernel_path": "packed_vpu"}):
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            rep = trace_audit.run_audit(device="cuda", autotune_cache=fresh,
+                                        **leg)
+            audits.append({"leg": rep.leg, "s": time.perf_counter() - t0,
+                           "session_caches": rep.session_caches,
+                           "serving_caches": rep.serving_caches,
+                           "launches": {k: v for k, v in
+                                        ops.launch_counts().items() if v}})
+        report["audit"] = audits
+
+        # (d) the reconfiguration benchmark at full demo width
+        ops.reset_launch_counts()
+        rc = reconfig_benchmark(small=False,
+                                out=os.path.join(tmp, "reconfig.json"),
+                                autotune_cache=fresh)
+        launches = {k: v for k, v in ops.launch_counts().items() if v}
+        check(any(launches.get(k, 0) for k in ("packed_clause_eval",
+                                                "packed_clause_tile",
+                                                "clause_eval")),
+              f"the reconfiguration benchmark launched {launches}")
+        report["reconfig"] = {
+            k: rc[k] for k in ("device", "batch_slot", "n_models", "rounds",
+                               "engine_compile_s", "train_compile_s",
+                               "steady_us", "swap_us", "swap_overhead_us",
+                               "train_swap_us", "resynthesis_baseline_s",
+                               "speedup_vs_resynthesis")}
+        report["reconfig"]["cache"] = rc["server"]["cache"]
+        report["reconfig"]["launches"] = launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        autotune.clear_cache()
+    report["phase_s"] = time.perf_counter() - t_phase
+    return report
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0,
@@ -2436,6 +2595,10 @@ def main(argv=None) -> int:
         torch, np, api, ops, datasets, roster, progs,
         (ctile, spec_cv, conv_progs, creqs), sched13, card, args.seed)
 
+    # ---- 18. the plan cache, the launch checker, the audit, reconfiguration -
+    tuned_report = tuned_phase(torch, np, api, ops, tm_paper, x_tr, y_tr,
+                               card, args.seed)
+
     # ---- 6. timing -------------------------------------------------------------
     cold = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
     it = ITERS
@@ -3074,6 +3237,7 @@ def main(argv=None) -> int:
     print(json.dumps({"ref_path": ref_report}))
     print(json.dumps({"graphs": graphs_report}))
     print(json.dumps({"served_graphs": served_report}))
+    print(json.dumps({"tuned": tuned_report}))
     print(json.dumps({"kernels": rows_out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -237,17 +237,22 @@ def tile_for(*specs: TMSpec, x: int = 128, y: int = 128, m: int = 128,
 
 def compile(tile: Optional[TileConfig] = None, device: Device = None,
             rand_bits: int = 16, kernel_path: Optional[str] = None,
-            skip: bool = True, ta_prng: str = "inkernel") -> DTMEngine:
+            skip: bool = True, ta_prng: str = "inkernel",
+            autotune: str = "seed", autotune_cache=None) -> DTMEngine:
     """Build the one engine for a geometry (on the card unless ``device``
     says otherwise).  ``kernel_path`` forces a clause datapath (``mxu``,
     ``packed_vpu``, ``mxu_popcount``, ``fused``, or ``ref``: every stage's
     plain version, no clause or TA kernel), ``skip=False`` trains
     with the dense TA update and ``ta_prng="stream"`` with the streamed
-    random words: the JAX package's ``REPRO_KERNEL_PATH``, ``REPRO_SKIP``
-    and ``REPRO_TA_PRNG``, as arguments."""
+    random words; ``autotune`` (``off``, ``seed`` or ``measure``) is the
+    dispatcher's plan cache and ``autotune_cache`` its file: the JAX
+    package's ``REPRO_KERNEL_PATH``, ``REPRO_SKIP``, ``REPRO_TA_PRNG``,
+    ``REPRO_AUTOTUNE`` and ``REPRO_AUTOTUNE_CACHE``, as arguments.  An
+    unknown name raises ``ValueError``."""
     return DTMEngine(tile or TileConfig(), rand_bits=rand_bits,
                      device=device, kernel_path=kernel_path, skip=skip,
-                     ta_prng=ta_prng)
+                     ta_prng=ta_prng, autotune=autotune,
+                     autotune_cache=autotune_cache)
 
 
 class TM:
@@ -495,6 +500,7 @@ class ProgramBank:
             for name, t in zip(out, fn(progs, b["lits"])):
                 b[name].copy_(t)
 
+        eng.resolve_plans(B * (shape[2] if "conv" in stage else 1), K)
         return eng.step_graph(stage, body, state, const)
 
     def _train_graph(self, shape: tuple, label_shape: tuple):
@@ -519,6 +525,7 @@ class ProgramBank:
             b["stats"].copy_(store_step(
                 b, *eng.train_bank(p, r, b["lits"], b["labels"])))
 
+        eng.resolve_plans(shape[1], self.k, training=True)
         return eng.step_graph("train_bank", body, state, const)
 
     def infer(self, lits):
@@ -629,7 +636,9 @@ def serve(roster: Optional[dict], batch_slot: int = 32,
           device: Device = None, *, config=None,
           slas: Optional[dict] = None, seed: int = 0,
           durable_dir: Optional[str] = None, ckpt_keep: int = 3,
-          injector=None):
+          injector=None, kernel_path: Optional[str] = None,
+          skip: bool = True, ta_prng: str = "inkernel",
+          autotune: str = "seed", autotune_cache=None):
     """The scheduled serving stack for a tenant roster in one call: a
     :func:`tile_for`-sized engine on ``device`` (the card unless the
     caller asks for another; no fallback), a
@@ -651,7 +660,9 @@ def serve(roster: Optional[dict], batch_slot: int = 32,
     package's program).  ``injector`` (a
     :class:`repro_torch.runtime.fault.FaultInjector`) plumbs a failure
     schedule into the driver and writer.  One card: the JAX package's
-    ``mesh`` (pods) is not ported, and passing it is a ``TypeError``."""
+    ``mesh`` (pods) is not ported, and passing it is a ``TypeError``.
+    ``kernel_path``, ``skip``, ``ta_prng``, ``autotune`` and
+    ``autotune_cache`` are the engine's settings (:func:`compile`)."""
     # imported here: the launch layer imports this module
     from repro_torch.launch.scheduler import SLAClass, TMScheduler
     from repro_torch.launch.serve_tm import TMServer
@@ -676,7 +687,9 @@ def serve(roster: Optional[dict], batch_slot: int = 32,
         raise ValueError("serve() needs at least one tenant spec (or a "
                          "durable_dir with a manifest to cold-start from)")
     slas = slas or {}
-    engine = compile(tile_for(*roster.values()), device=device)
+    engine = compile(tile_for(*roster.values()), device=device,
+                     kernel_path=kernel_path, skip=skip, ta_prng=ta_prng,
+                     autotune=autotune, autotune_cache=autotune_cache)
     server = TMServer(engine, batch_slot=batch_slot)
     sched = TMScheduler(server, config=config, durable=store,
                         injector=injector)

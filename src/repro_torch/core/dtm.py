@@ -208,19 +208,27 @@ class DTMEngine:
     step runs the dense one.  ``ta_prng`` is the provenance of the TA
     update's random words (``REPRO_TA_PRNG``): ``"inkernel"`` (made in the
     kernel) or ``"stream"`` (made first as a tensor, read by the dense
-    streamed kernel).  Every choice gives the same states.
+    streamed kernel).  ``autotune`` (``off`` | ``seed`` | ``measure``)
+    and ``autotune_cache`` (a file, or None for the default one) are the
+    dispatcher's plan cache (``REPRO_AUTOTUNE``, ``REPRO_AUTOTUNE_CACHE``;
+    :mod:`repro_torch.kernels.autotune`): the engine hands the dispatcher
+    its padded ``(L, R, H)``.  Every choice gives the same states.
     """
 
     def __init__(self, tile: TileConfig, rand_bits: int = 16,
                  device: Device = None, kernel_path: Optional[str] = None,
-                 skip: bool = True, ta_prng: str = kops.TA_PRNG_INKERNEL):
+                 skip: bool = True, ta_prng: str = kops.TA_PRNG_INKERNEL,
+                 autotune: str = "seed", autotune_cache=None):
         self.device = resolve_device(device)
         if kernel_path is not None:
             kops.select_path(1, force=kernel_path)      # validates the name
-        kops.select_ta_path(ta_prng=ta_prng)            # validates the name
+        kops.select_ta_path(ta_prng=ta_prng,            # validates the names
+                            autotune=autotune)
         self.kernel_path = kernel_path
         self.skip = skip
         self.ta_prng = ta_prng
+        self.autotune = autotune
+        self.autotune_cache = autotune_cache
         self.tile = tile
         self.rand_bits = rand_bits
         self.L, self.R, self.H = tile.padded_dims()
@@ -392,8 +400,32 @@ class DTMEngine:
     # ------------------------------------------------------------------ #
     # datapath stages (bank form: every leaf and operand has a K axis)    #
     # ------------------------------------------------------------------ #
-    def _eval_path(self, batch: int, stage: str) -> str:
-        path = kops.select_path(batch, force=self.kernel_path)
+    def _plan(self) -> dict:
+        """The dispatcher's shape and plan arguments for this engine."""
+        return dict(shape=(self.L, self.R, self.H), autotune=self.autotune,
+                    cache=self.autotune_cache, device=self.device)
+
+    def _ta_path(self, lanes: int) -> str:
+        return kops.select_ta_path(lanes, self.skip, self.ta_prng,
+                                   **self._plan())
+
+    def resolve_plans(self, rows: int, lanes: int = 1,
+                      training: bool = False) -> None:
+        """Resolve the dispatcher's plans of a stage ahead of its run:
+        the clause path at ``rows`` per program (B, or B·P for the conv
+        kind) and, ``training``, the front half's and the TA update's.
+        Under ``measure`` this times what is not yet planned, so a graph
+        calls it before its warm-up and capture."""
+        kops.select_path(rows, force=self.kernel_path, lanes=lanes,
+                         **self._plan())
+        if training:
+            kops.select_path(rows, force=self.kernel_path, training=True,
+                             lanes=lanes, **self._plan())
+            self._ta_path(lanes)
+
+    def _eval_path(self, batch: int, stage: str, lanes: int = 1) -> str:
+        path = kops.select_path(batch, force=self.kernel_path, lanes=lanes,
+                                **self._plan())
         if path == kops.PATH_FUSED:
             # the fused kernel exists for train steps only; eval stages run
             # its dense front half, as in the JAX engine
@@ -404,7 +436,7 @@ class DTMEngine:
     def _clause_outputs(self, progs: DTMProgram, plits: torch.Tensor,
                         eval_mode: bool, stage: str) -> torch.Tensor:
         """Clause stage: packed [K, B, W] literals -> [K, B, R] int32."""
-        path = self._eval_path(plits.shape[1], stage)
+        path = self._eval_path(plits.shape[1], stage, lanes=plits.shape[0])
         if path == kops.PATH_REF:
             cl = kops.ref_clause_op(plits, progs.inc, progs.l_mask, self.L,
                                     eval_mode=eval_mode)
@@ -516,7 +548,8 @@ class DTMEngine:
         (``packed_vpu``) or tile (``mxu_popcount``) clause kernel, the
         unfused dense stages (``mxu``) or the plain ones (``ref``)."""
         path = kops.select_path(plits.shape[1], force=self.kernel_path,
-                                training=True)
+                                training=True, lanes=plits.shape[0],
+                                **self._plan())
         self._stage_paths[stage] = path
         rest = (progs.weights, cls_lab, neg, sel_rand.to(torch.int32),
                 progs.cl_mask, progs.h_mask, progs.T,
@@ -604,7 +637,7 @@ class DTMEngine:
         cl2 = torch.cat([cl, cl], dim=1)
         t1 = torch.cat([t1_lab, t1_neg], dim=1)
         t2 = torch.cat([t2_lab, t2_neg], dim=1)
-        ta_path = kops.select_ta_path(lanes, self.skip, self.ta_prng)
+        ta_path = self._ta_path(lanes)
         family = "lfsr" if prngs.backend == "lfsr" else "counter"
         self._stage_paths[stage + "_ta"] = ta_path
         self._stage_paths[stage + "_prng"] = f"{family}-{self.ta_prng}"
@@ -870,6 +903,11 @@ class DTMEngine:
             else:
                 b["stats"].copy_(row)
 
+        B = plan_shape[1] if epoch else lits.shape[0]
+        if conv:
+            self.resolve_plans(B * lits.shape[-2])
+        else:
+            self.resolve_plans(B, training=True)
         graph = self.step_graph(stage, body, state, const)
         graph.mark("state", prog, prng)
         graph.mark("data", lits, labels)
@@ -1001,6 +1039,7 @@ class DTMEngine:
             b["sums"].copy_(sums[0])
             b["cl"].copy_(cl[0])
 
+        self.resolve_plans(B * lits.shape[1] if conv else B)
         graph = self.step_graph(stage, body, state, const)
         graph.mark("prog", prog, *(getattr(prog, f) for f in INFER_LEAVES))
         self._graphs[key] = graph
@@ -1174,7 +1213,7 @@ class TMSession:
             self.replays += steps if self.engine.graphed else 0
             self.steps += steps
             # exact integer epoch totals from the per-step stats
-            per_step = step_stats.cpu().numpy()
+            per_step = step_stats.cpu().numpy()  # dtmlint: disable=DTM003 (the epoch's one fetch)
             self.epoch_s.append(time.perf_counter() - t0)
             agg = {k: int(per_step[:, i].sum(dtype=np.int64))
                    for i, k in enumerate(STAT_KEYS)}

@@ -6,21 +6,26 @@ K; the kernels take K directly, so a bank is one launch per kernel.  On
 CPU tensors each op runs its kernel's plain version; on CUDA tensors it
 launches the kernel, or raises.
 
-:func:`select_path` picks the clause datapath from the per-program batch:
-the GEMV-shaped edge kernel (:data:`PATH_PACKED`) when B <= 4; above it,
-the tile kernel (:data:`PATH_PACKED_MXU`) for inference and the fused
-training-step kernel (:data:`PATH_FUSED`) for training.  A caller may
-force any of :data:`PATHS`, the dense clause kernel (:data:`PATH_MXU`:
-``clause_eval`` on unpacked int8 operands, and the unfused training front
-half) among them, and the plain datapath (:data:`PATH_REF`: the JAX
-engine's ``ref`` branch, every clause, class-sum and TA stage through its
-plain version on the engine's device, :func:`ref_clause_op` and
-:func:`ref_step_op`), which it never picks itself.
-:func:`select_ta_path` picks the TA-update datapath: the Alg-6 compacted
-update (:data:`TA_COMPACT`, the sparse kernel over the active clause
-groups) or the dense one (:data:`TA_DENSE`: skip off, program banks, or
-the streamed random words of :data:`TA_PRNG_STREAM`, which have no
-compacted kernel).  The names are the JAX package's, so
+:func:`select_path` picks the clause datapath in the JAX package's order
+(``repro/kernels/ops.py:select_path``): a forced path first, then, when
+the caller hands over its padded ``(L, R, H)`` shape, the plan of the
+autotuner (:mod:`repro_torch.kernels.autotune`: ``off``, ``seed`` from
+the card's cost model, or ``measure``), then the heuristics: the
+GEMV-shaped edge kernel (:data:`PATH_PACKED`) when B <= 4; above it the
+fused training-step kernel (:data:`PATH_FUSED`) for training and the
+dense clause kernel (:data:`PATH_MXU`: ``clause_eval`` on unpacked int8
+operands) for inference.  The tile kernel (:data:`PATH_PACKED_MXU`) is
+what a plan picks for throughput batches, or a caller forces.  A caller
+may force any of :data:`PATHS`, among them the plain datapath
+(:data:`PATH_REF`: the JAX engine's ``ref`` branch, every clause,
+class-sum and TA stage through its plain version on the engine's
+device, :func:`ref_clause_op` and :func:`ref_step_op`), which nothing
+picks by itself.  :func:`select_ta_path` picks the TA-update datapath:
+the Alg-6 compacted update (:data:`TA_COMPACT`, the sparse kernel over
+the active clause groups) or the dense one (:data:`TA_DENSE`: skip off,
+program banks, or the streamed random words of :data:`TA_PRNG_STREAM`,
+which have no compacted kernel); with a shape, a measured plan decides
+between them.  The names are the JAX package's, so
 ``cache_report()["path_per_stage"]`` reads the same in both.
 :func:`launch_counts` also counts the PRNG kernels that ``PRNG.bits``
 launches: ``lfsr_bits`` (the lfsr cluster) and ``threefry_bits``; a
@@ -33,7 +38,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.core.booleanize import unpack_literals
-from . import ref
+from . import autotune as _autotune, ref
 from .class_sum import class_sum
 from .clause_eval import clause_eval
 from .fused_step import fused_step
@@ -61,7 +66,8 @@ TA_PRNG_STREAM = "stream"         # ... read from a pre-made [K, 2B, C, L]
 TA_PRNGS = (TA_PRNG_INKERNEL, TA_PRNG_STREAM)
 
 # At and below this per-program batch the include bitplane is used by so
-# few literal rows that the GEMV shape wins (the JAX package's threshold).
+# few literal rows that the GEMV shape wins (the JAX package's threshold;
+# the card's measured crossovers are in PERF.md).
 PACKED_MAX_BATCH = 4
 
 _WRAPPERS = {"packed_clause_eval": packed_clause_eval,
@@ -77,35 +83,53 @@ _WRAPPERS = {"packed_clause_eval": packed_clause_eval,
              "threefry_bits": threefry_bits}
 
 
-def select_path(batch: int, force: Optional[str] = None,
-                training: bool = False) -> str:
-    """Clause datapath for a per-program batch; ``force`` (one of
-    :data:`PATHS`) overrides the choice at every batch.  A forced packed
-    path makes the training front half run the packed stages on that
-    clause kernel; a forced ``mxu`` runs the unfused dense front half, a
-    forced ``ref`` the plain stages.  The engine maps a forced ``fused``
-    to ``mxu`` for its eval stages."""
+def select_path(batch, force: Optional[str] = None, training: bool = False,
+                lanes: int = 1, shape=None, autotune: str = "seed",
+                cache=None, device=None) -> str:
+    """Clause datapath for a per-program ``batch`` (None: unknown, the
+    throughput default).  ``force`` (one of :data:`PATHS`) overrides the
+    choice at every batch: a forced packed path makes the training front
+    half run the packed stages on that clause kernel, a forced ``mxu``
+    the unfused dense front half, a forced ``ref`` the plain stages; the
+    engine maps ``fused`` to ``mxu`` for its eval stages.  Otherwise, with
+    ``shape`` = the engine's padded ``(L, R, H)``, the ``autotune`` plan
+    (``off`` | ``seed`` | ``measure``; ``cache``: its file; ``device``:
+    where ``measure`` times) for the stage ``train`` or ``eval`` decides;
+    without a plan the heuristics do.  ``lanes`` is the bank width of the
+    launch: the edge-regime test stays on the per-program batch."""
     if force is not None:
         if force not in PATHS:
             raise ValueError(f"kernel path {force!r} not recognised; use "
                              f"one of {PATHS}")
         return force
-    if batch <= PACKED_MAX_BATCH:
+    planned = _autotune.planned_path("train" if training else "eval",
+                                     batch, shape, lanes, autotune, cache,
+                                     device)
+    if planned in PATHS:
+        return planned
+    if batch is not None and batch <= PACKED_MAX_BATCH:
         return PATH_PACKED
-    return PATH_FUSED if training else PATH_PACKED_MXU
+    return PATH_FUSED if training else PATH_MXU
 
 
 def select_ta_path(lanes: int = 1, skip: bool = True,
-                   ta_prng: str = TA_PRNG_INKERNEL) -> str:
-    """TA-update datapath: compacted unless ``skip`` is off, the launch
-    carries a bank of ``lanes`` > 1 programs (as in the JAX package,
-    whose vmapped banks always take the dense update) or the random words
-    are streamed (``ta_prng="stream"``: no compacted kernel reads them)."""
+                   ta_prng: str = TA_PRNG_INKERNEL, shape=None,
+                   autotune: str = "seed", cache=None, device=None) -> str:
+    """TA-update datapath: dense when ``skip`` is off, the launch carries
+    a bank of ``lanes`` > 1 programs (as in the JAX package, whose vmapped
+    banks always take the dense update) or the random words are streamed
+    (``ta_prng="stream"``: no compacted kernel reads them).  Otherwise,
+    with ``shape``, a plan of the stage ``ta`` decides (only ``measure``
+    makes one), else the compacted update."""
     if ta_prng not in TA_PRNGS:
         raise ValueError(f"TA prng provenance {ta_prng!r} not recognised; "
                          f"use one of {TA_PRNGS}")
-    return (TA_COMPACT if skip and lanes == 1 and ta_prng == TA_PRNG_INKERNEL
-            else TA_DENSE)
+    _autotune.check_mode(autotune)
+    if not skip or lanes > 1 or ta_prng != TA_PRNG_INKERNEL:
+        return TA_DENSE
+    planned = _autotune.planned_path("ta", None, shape, lanes, autotune,
+                                     cache, device)
+    return planned if planned in (TA_DENSE, TA_COMPACT) else TA_COMPACT
 
 
 def _banked(fn, *args, **kw) -> torch.Tensor:

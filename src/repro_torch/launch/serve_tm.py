@@ -52,10 +52,19 @@ alone, and the step's commit (program, PRNG, steps) runs under the
 server's lock after the graph's lock is released; ``snapshot`` takes
 only the server's lock.  So the scheduler's thread, the checkpoint
 writer and a caller's thread cannot deadlock on them.
+
+:func:`reconfig_benchmark` (``python -m repro_torch.launch.serve_tm
+--smoke --out PATH``) times the reconfiguration claim: the five
+``demo_specs`` kinds served and trained round-robin off one engine
+(steady, swap-every-request and train-swap latency) against building a
+fresh engine for one model (the resynthesis baseline), and asserts that
+no stage holds more than one CUDA graph across the swaps.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import json
 import threading
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -232,10 +241,12 @@ class TMServer:
                     ) -> np.ndarray:
         """One tenant's [B] answers from its engine outputs (fetched)."""
         is_reg, t = self._decode_info[name]
+        # the fetch of the answers a request returns
         if is_reg:
+            votes = cl.sum(dim=-1).clamp(0, t)
             return self._decode(name, None,
-                                cl.sum(dim=-1).clamp(0, t).cpu().numpy())
-        return torch.argmax(sums, dim=-1).cpu().numpy()
+                                votes.cpu().numpy())  # dtmlint: disable=DTM003 (the answer)
+        return torch.argmax(sums, dim=-1).cpu().numpy()  # dtmlint: disable=DTM003 (the answer)
 
     def train(self, name: str, x, y, encoded: bool = False) -> dict:
         """Swap to tenant ``name`` and apply one training step to its
@@ -261,7 +272,8 @@ class TMServer:
         program, prng, stats = self.engine._session_step(
             tenant.spec.kind == "conv", tenant.program, tenant.prng, lits,
             lab.to(torch.int32))
-        host = dict(zip(stats, torch.stack(list(stats.values())).tolist()))
+        row = torch.stack(list(stats.values()))
+        host = dict(zip(stats, row.tolist()))  # dtmlint: disable=DTM003 (the one fetch)
         with self._lock:
             tenant.program, tenant.prng = program, prng
             tenant.steps += 1
@@ -582,3 +594,139 @@ def demo_batch(spec: TMSpec, batch: int, seed: int = 1) -> np.ndarray:
         return rng.standard_normal(
             (batch, spec.thresholds.shape[0])).astype(np.float32)
     return (rng.random((batch, spec.features)) < 0.5).astype(np.int8)
+
+
+# ---------------------------------------------------------------------------
+# reconfiguration-latency benchmark
+# ---------------------------------------------------------------------------
+
+def _block(device: torch.device) -> None:
+    # the benchmark's timing fence, not the serving path
+    if device.type == "cuda":
+        torch.cuda.synchronize()  # dtmlint: disable=DTM003 (a timing fence)
+
+
+def reconfig_benchmark(device=None, batch_slot: int = 32, rounds: int = 8,
+                       small: bool = True, out: str = "BENCH_reconfig.json",
+                       autotune: str = "seed", autotune_cache=None) -> dict:
+    """Serve all five TM kinds round-robin off one engine and time it (on
+    the card unless ``device`` says otherwise; host clock, fenced by a
+    synchronise).  The report has the JAX package's keys, with
+    ``device`` (the card's name, or ``cpu``) for its ``backend``; it is
+    written to ``out``.  Raises when a stage holds more than one graph."""
+    specs = demo_specs(small)
+    tile = api.tile_for(*specs.values())
+    engine = api.compile(tile, device=device, autotune=autotune,
+                         autotune_cache=autotune_cache)
+    dev = engine.device
+    server = TMServer(engine, batch_slot=batch_slot)
+    for name, spec in specs.items():
+        server.register(name, spec)
+    batches = {n: demo_batch(s, batch_slot) for n, s in specs.items()}
+    names = sorted(specs)
+
+    def timed(fn) -> float:
+        t0 = time.perf_counter()
+        fn()
+        _block(dev)
+        return time.perf_counter() - t0
+
+    # the first request per tenant: its stage's graph is captured
+    compile_s = {n: timed(lambda n=n: server.predict(n, batches[n]))
+                 for n in names}
+
+    steady_us = {}
+    for name in names:
+        server.predict(name, batches[name])                 # make resident
+        steady_us[name] = timed(lambda name=name: [
+            server.predict(name, batches[name])
+            for _ in range(rounds)]) / rounds * 1e6
+
+    swap_us = timed(lambda: [server.predict(n, batches[n])
+                             for _ in range(rounds) for n in names]
+                    ) / (rounds * len(names)) * 1e6
+
+    labels = {n: (np.zeros(batch_slot, np.float32)
+                  if specs[n].kind == "regression"
+                  else np.zeros(batch_slot, np.int32)) for n in names}
+    train_compile_s = {n: timed(lambda n=n: server.train(
+        n, batches[n], labels[n])) for n in names}
+    train_swap_us = timed(lambda: [server.train(n, batches[n], labels[n])
+                                   for _ in range(rounds) for n in names]
+                          ) / (rounds * len(names)) * 1e6
+
+    # the no-DTM baseline: a fresh engine ("resynthesis") per model switch
+    spec0 = specs["cotm"]
+
+    def resynthesise():
+        fresh = api.compile(tile, device=device, autotune=autotune,
+                            autotune_cache=autotune_cache)
+        prog = fresh.lower(spec0, threefry.key(0, dev))
+        fresh.served_infer(spec0, prog, fresh.encode(spec0,
+                                                     batches["cotm"]))
+    resynthesis_s = timed(resynthesise)
+
+    cache = engine.cache_report()
+    if any(v > 1 for v in cache.values() if isinstance(v, int)):
+        raise RuntimeError(f"a stage recaptured across swaps: {cache}")
+    mean_steady = float(np.mean(list(steady_us.values())))
+    report = {
+        "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                   else dev.type),
+        "tile": dataclasses.asdict(tile),
+        "batch_slot": batch_slot,
+        "n_models": len(names),
+        "rounds": rounds,
+        "engine_compile_s": compile_s,
+        "train_compile_s": train_compile_s,
+        "steady_us": steady_us,
+        "swap_us": swap_us,
+        "swap_overhead_us": swap_us - mean_steady,
+        "train_swap_us": train_swap_us,
+        "resynthesis_baseline_s": resynthesis_s,
+        "speedup_vs_resynthesis": resynthesis_s * 1e6 / max(swap_us, 1e-9),
+        "server": server.stats(),
+    }
+    with open(out, "w") as f:
+        json.dump(report, f, indent=2)
+    return report
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=reconfig_benchmark.__doc__
+                                 .splitlines()[0])
+    ap.add_argument("--smoke", action="store_true",
+                    help="tiny models and few rounds")
+    ap.add_argument("--device", default=None,
+                    help="cpu for the plain versions (default: the card)")
+    ap.add_argument("--batch-slot", type=int, default=32)
+    ap.add_argument("--rounds", type=int, default=None)
+    ap.add_argument("--autotune", default="seed")
+    ap.add_argument("--autotune-cache", default=None)
+    ap.add_argument("--out", default="BENCH_reconfig.json")
+    args = ap.parse_args(argv)
+    rounds = args.rounds if args.rounds is not None else (
+        4 if args.smoke else 16)
+    rep = reconfig_benchmark(device=args.device, batch_slot=args.batch_slot,
+                             rounds=rounds, small=args.smoke, out=args.out,
+                             autotune=args.autotune,
+                             autotune_cache=args.autotune_cache)
+    steady = float(np.mean(list(rep["steady_us"].values())))
+    print(f"device={rep['device']}  tenants={rep['n_models']}  "
+          f"requests={rep['server']['requests']}  "
+          f"swaps={rep['server']['swaps']}")
+    print(f"steady latency      : {steady:10.1f} us/req")
+    print(f"swap-every-request  : {rep['swap_us']:10.1f} us/req "
+          f"(overhead {rep['swap_overhead_us']:+.1f} us)")
+    print(f"train swap          : {rep['train_swap_us']:10.1f} us/step")
+    print(f"resynthesis baseline: "
+          f"{rep['resynthesis_baseline_s'] * 1e6:10.1f} us "
+          f"({rep['speedup_vs_resynthesis']:.0f}x a hot swap)")
+    print(f"cache entries       : {rep['server']['cache']} "
+          "(every stage <= 1 graph across swaps)")
+    print(f"wrote {args.out}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -24,8 +24,15 @@ from repro_torch import api as tapi
 from repro_torch.core import threefry
 from repro_torch.core.dtm import STAT_KEYS
 from repro_torch.core.types import TileConfig
+from repro_torch.kernels import autotune
 from repro_torch.launch.serve_tm import TMServer
 from test_torch_train import _assert_same, _bridge
+
+
+def _planned(eng, rows):
+    """The seed plan's clause path for ``rows`` rows a program."""
+    return autotune.planned_path("eval", rows, (eng.L, eng.R, eng.H),
+                                 device="cpu")
 
 
 def _conv(backend="counter", lfsr_bits=24, refresh=True, **kw):
@@ -143,9 +150,9 @@ def test_infer_conv_matches_jax(engines, B):
     np.testing.assert_array_equal(sums.numpy(), np.asarray(js))
     np.testing.assert_array_equal(cl.numpy(), np.asarray(jc))
     assert int(cl.sum()) > 0
-    # the [B·P, W] view has B·16 rows: the tile kernel's batches
+    # the clause stage runs on the [B·P, W] view: the plan of B·P rows
     assert teng.cache_report()["path_per_stage"]["infer_conv"] == (
-        "mxu_popcount")
+        _planned(teng, B * teng.P))
 
 
 def test_infer_conv_bank_matches_jax(engines):
@@ -162,7 +169,7 @@ def test_infer_conv_bank_matches_jax(engines):
     np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
     np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
     assert teng.cache_report()["path_per_stage"]["infer_conv_bank"] == (
-        "mxu_popcount")
+        _planned(teng, 4 * teng.P))
     # each slot answers as its program does alone
     for k, (s, x) in enumerate(zip(specs, xs)):
         one, _ = teng.infer_conv(starts[k][2], teng.encode(_tspec(s), x))
@@ -198,7 +205,7 @@ def test_train_conv_matches_jax(engines, backend, lfsr_bits, refresh, steps):
         cycles = int(tprng.state.cycles)
         assert cycles < 15 if refresh else cycles >= 15
     assert teng.cache_report()["path_per_stage"]["train_conv"] == (
-        "mxu_popcount")
+        _planned(teng, B * teng.P))
 
 
 def test_train_conv_leaves_its_inputs(engines):
@@ -343,7 +350,8 @@ def test_server_with_flat_and_conv_tenants_matches_jax(engines):
     st, sj = tsrv.stats(), jsrv.stats()
     for key in ("requests", "stacked_launches", "coalesced_requests"):
         assert st[key] == sj[key], key
-    assert st["cache"]["path_per_stage"]["infer_conv_bank"] == "mxu_popcount"
+    assert st["cache"]["path_per_stage"]["infer_conv_bank"] == (
+        _planned(teng, slot * teng.P))
     for i, name in enumerate(roster):        # edge requests, 1 row padded
         x = request(name, 1, 40 + i)
         np.testing.assert_array_equal(tsrv.predict(name, x),

@@ -18,6 +18,7 @@ from repro import api as japi
 from repro_torch import api as tapi, convert
 from repro_torch.core.dtm import FIELDS, DTMEngine
 from repro_torch.core.types import TileConfig
+from repro_torch.kernels import autotune
 
 _CALIB = np.random.default_rng(42).standard_normal((64, 5)).astype(np.float32)
 SPECS = {
@@ -123,7 +124,10 @@ def test_infer_predict_match_jax(engines, kind, B):
     np.testing.assert_array_equal(
         tspec.decode_output(ts, tc).numpy(),
         np.asarray(jspec.decode_output(js, jc)))
-    want = "packed_vpu" if B <= 4 else "mxu_popcount"
+    # the seed plan's choice at the engine's padded shape
+    want = autotune.planned_path("eval", B, (teng.L, teng.R, teng.H),
+                                 device="cpu")
+    assert want == "packed_vpu" or B > 4
     assert teng.cache_report()["path_per_stage"]["infer"] == want
 
 

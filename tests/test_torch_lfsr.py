@@ -22,7 +22,7 @@ from repro_torch import api, convert
 from repro_torch.core import prng as tprng, threefry
 from repro_torch.core.dtm import STAT_KEYS
 from repro_torch.core.types import TMConfig
-from repro_torch.kernels import ops
+from repro_torch.kernels import autotune, ops
 from repro_torch.kernels.lfsr import lfsr_bits, lfsr_bits_plain
 from test_torch_prng import jax_prng_numpy
 
@@ -211,5 +211,11 @@ def test_conv_step_on_the_card_equals_the_cpu_engine(dev, backend, width):
         sums_c, _ = cpu.infer_conv(prog, cpu.encode(spec, x))
         assert torch.equal(sums_g.cpu(), sums_c)
     counts = ops.launch_counts()
-    assert counts["packed_clause_tile"] == 6 and counts["class_sum"] == 6
+    # the clause kernel of the plan for the [B·P, W] view (its seed plan
+    # keeps the edge kernel at this small shape)
+    path = autotune.planned_path("eval", 8 * gpu.P, (gpu.L, gpu.R, gpu.H),
+                                 device=dev)
+    clause = {"packed_vpu": "packed_clause_eval",
+              "mxu_popcount": "packed_clause_tile"}[path]
+    assert counts[clause] == 6 and counts["class_sum"] == 6
     assert counts["lfsr_bits"] == (12 if backend == "lfsr" else 0)

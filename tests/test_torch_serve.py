@@ -19,6 +19,7 @@ from repro_torch import api as tapi, convert
 from repro_torch.core import threefry
 from repro_torch.core.dtm import FIELDS
 from repro_torch.core.types import TileConfig
+from repro_torch.kernels import autotune
 from repro_torch.launch.serve_tm import TMServer as TServer
 
 _CALIB = np.random.default_rng(7).standard_normal((64, 4)).astype(np.float32)
@@ -109,8 +110,10 @@ def test_stacked_flush_matches_jax(batch_slot):
     for key in ("requests", "stacked_launches", "coalesced_requests",
                 "program_nbytes", "tenants"):
         assert st[key] == sj[key], key
+    eng = ts.engine
     assert st["cache"]["path_per_stage"]["infer_bank"] == (
-        "packed_vpu" if batch_slot <= 4 else "mxu_popcount")
+        autotune.planned_path("eval", batch_slot, (eng.L, eng.R, eng.H),
+                              device="cpu"))
     assert set(st["last_flush_latency_s"]) == set(ROSTER)
     # bank slots read back to exactly the JAX server's programs
     jprogs, tprogs = js.unstack(), ts.unstack()
