@@ -217,6 +217,30 @@ The dispatcher's plan cache and the analysis layer:
      resynthesis times, launch counts from 0 just before.  The ``tuned``
      line reports them.
 
+Pods over ``torch.distributed``:
+ 19. "pods": ``torch.cuda.device_count()`` NCCL ranks, rank 0 in this
+     process, the others spawned (none on a one-card machine), all
+     running ``pods_work``: the legacy training core at the MNIST
+     CoTM's widths with the kernels (``dp_train_step`` over the data
+     axis, 8 rows a rank, and a sequential step of 2 rows, counter
+     streams, each against rank 0's CPU replay); ``ShardedTM`` over a
+     ``clauses`` mesh (the training model, lfsr): two inferences and 4
+     train steps equal the engine's own ``infer`` and ``train_step`` (at
+     one card the unfused sharded front half against ``fused_step``),
+     and an inference on a forced ``mxu`` engine; ``pod_stack`` of the
+     serving roster (K=4) over a ``tenants`` mesh: 3 flushes and 2
+     train steps equal ``api.stack``'s bank; ``api.serve(mesh=)``
+     drains phase 13's 87 requests with answers equal to phase 13's.
+     Launch counts from 0 before the pod path, read after it.  Then the
+     TA update on the last of four clause windows of the roster's train
+     shape (an eager KWS-6 Vanilla step at L=3200, R=4224: rows [3168,
+     4224), ``row0`` = 3168): ``ta_update_sparse`` and ``ta_update``
+     against their plain versions and the full-width launch's rows (two
+     ``pod window`` rows of the kernels line, with the full width's
+     ms); ``plan_for`` on the H100 budget for the roster and the
+     training model, on this world and on 4 devices.  The ``pods`` line
+     reports them.
+
 Bounds: bytes over 3.35 TB/s; integer operations over 64 per clock per
 SM (the CUDA guide's rate for 32-bit integer add, logic, shift, compare
 and multiply-add on compute capability 9.0) × the SM count × the card's
@@ -255,7 +279,7 @@ kernel here does float work.
 
 Prints the card line, ``serving``, ``training``, ``conv``,
 ``scheduler``, ``threefry``, ``ref_path``, ``graphs``,
-``served_graphs`` and ``tuned`` JSON lines, a
+``served_graphs``, ``tuned`` and ``pods`` JSON lines, a
 ``kernels`` JSON line and, last, ``{"ok": true, "device": {...}}``.  Any
 failed check raises, and the exit code is then non-zero.  Without a CUDA card,
 or without the repository beside it, it exits non-zero and prints no
@@ -569,7 +593,8 @@ def scheduled_serving(torch, np, api, ops, datasets, roster, progs, cpu,
     """Phase 13: ``api.serve`` of the four paper models at full width
     behind the scheduler, with a durable directory, on the card.  Returns
     (report, the kernel launches of the scheduled path, the captures of
-    its kernel calls, the scheduler of the live stack).
+    its kernel calls, the scheduler of the live stack, (the drain's plan
+    of rounds of (kind, tenant, x, y), its answers in submission order)).
 
     The launch counts run from 0 at the first scheduled request to the
     end of the fault stacks; the synchronous twins, the CPU round and
@@ -914,7 +939,7 @@ def scheduled_serving(torch, np, api, ops, datasets, roster, progs, cpu,
         "checkpoint_saves": ck["saves"], "cold_start_ms": cold_ms,
         "cycle_profile": cycle_prof, "kernel_launches": counts,
         "phase_s": time.perf_counter() - t_phase}
-    return report, counts, caps, sched
+    return report, counts, caps, sched, (plan, drain_out)
 
 
 def threefry_phase(torch, np, api, ops, tm_paper, eng, eng_cpu, x_tr, y_tr,
@@ -1866,6 +1891,337 @@ def tuned_phase(torch, np, api, ops, tm_paper, x_tr, y_tr, card: str,
     return report
 
 
+# Phase 19: the pods over torch.distributed, one rank a card (NCCL).
+POD_STEPS = 4                # ShardedTM train steps of the lfsr model
+POD_FLUSHES = 3              # PodBank flushes of the serving roster
+POD_TRAINS = 2               # PodBank train steps (the first captures)
+
+
+def pods_work(rank: int, world: int, init_file: str, inp: dict) -> dict:
+    """Phase 19's SPMD body, the same on every rank (rank 0 in the main
+    process, the others spawned by :func:`pods_phase`): an NCCL group of
+    ``world`` ranks, one a card, then (a) ``ShardedTM`` over a
+    ``clauses`` mesh: an inference and ``POD_STEPS`` train steps of the
+    lfsr training model, each against the engine's own ``infer`` and
+    ``train_step`` from the same program and PRNG; (b) ``pod_stack`` of
+    the serving roster (K=4) over a ``tenants`` mesh: ``POD_FLUSHES``
+    flushes and ``POD_TRAINS`` train steps against ``api.stack``'s bank;
+    (c)
+    ``api.serve(mesh=)`` draining phase 13's 87 requests (trains and
+    inferences), answers equal to phase 13's.  ``inp`` holds numpy data
+    only (the spawn pickles it).  The references run before the launch
+    counts are set to 0 and the pod path after; returns the counts, the
+    timings and what the checks compared."""
+    import datetime
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch import api, convert
+    from repro_torch.core.prng import PRNG
+    from repro_torch.kernels import ops
+    from repro_torch.launch import pod
+    from repro_torch.launch.mesh import make_clause_mesh, make_tenant_mesh
+    from repro_torch.launch.scheduler import SchedulerConfig
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method=f"file://{init_file}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        return _pods_body(np, torch, api, convert, PRNG, ops, pod,
+                          make_clause_mesh, make_tenant_mesh,
+                          SchedulerConfig, rank, world, inp)
+    finally:
+        dist.destroy_process_group()
+
+
+def _pods_body(np, torch, api, convert, PRNG, ops, pod, make_clause_mesh,
+               make_tenant_mesh, SchedulerConfig, rank, world, inp):
+    from repro_torch.core import (TMConfig, feedback, init_state, threefry,
+                                  to_literals)
+    from repro_torch.core.distributed import _shard_prng, dp_train_step
+    from repro_torch.launch.mesh import make_host_mesh
+    out = {}
+    sync = torch.cuda.synchronize
+    # ---- references (not counted) ------------------------------------------
+    tspec = api.TMSpec.from_dict(inp["train_spec"])
+    eng = api.compile(api.tile_for(tspec))
+    p0 = convert.program_from_numpy(inp["p0"])
+    r0 = convert.prng_from_numpy(inp["r0"])
+    batches = [(eng.encode(tspec, x), tspec.encode_labels(y).cuda())
+               for x, y in inp["train_batches"]]
+    ref_sums, ref_cl = eng.infer(p0, batches[0][0])
+    ref_steps, p_, r_ = [], p0, r0
+    for lits, lab in batches:
+        p_, r_, st = eng.train_step(p_, r_, lits, lab)
+        ref_steps.append((p_, r_, st))
+    specs = {n: api.TMSpec.from_dict(d) for n, d in inp["specs"].items()}
+    names = list(specs)
+    gpu = api.compile(api.tile_for(*specs.values()))
+    progs = [convert.program_from_numpy(inp["progs"][n]) for n in names]
+
+    def bank_prngs():
+        return [PRNG.create(specs[n].tm_config(), 40 + i)
+                for i, n in enumerate(names)]
+    blits = [gpu.encode(specs[n], inp["bank_x"][n]) for n in names]
+    blab = torch.as_tensor(inp["bank_y"]).cuda()
+    ref_bank = api.stack(progs, gpu, prngs=bank_prngs())
+    # the pod bank's roster padded to a multiple of the world (pad slots
+    # replay the first program; only the real slots are compared)
+    fill = [0 if n is None else names.index(n)
+            for n in pod.pad_roster(names, world)]
+    ref_pred = ref_bank.predict(blits)
+    ref_bst = [ref_bank.train(blits, blab) for _ in range(POD_TRAINS)]
+    ref_slots = ref_bank.unstack()
+    # the legacy core at the MNIST CoTM's widths with the kernels
+    # (compute_backend="pallas"), counter streams: dp_train_step over the
+    # world's data axis (8 rows a rank: the dense clause kernel) and a
+    # sequential step of 2 rows (the edge kernel a row); rank 0 replays
+    # both on the CPU (the dp step as the sum of every shard's deltas)
+    lcfg = TMConfig(tm_type="coalesced", features=784, clauses=2000,
+                    classes=10, T=500, s=10.0, prng_backend="counter",
+                    compute_backend="pallas")
+    lx, ly = inp["legacy_batch"]
+    lb = 8 * world
+    lx, ly = lx[:lb], ly[:lb]
+    if rank == 0:
+        st_c = init_state(lcfg, threefry.key(inp["seed"], "cpu"),
+                          device="cpu")
+        lit_c, lab_c = to_literals(lx), torch.from_numpy(ly)
+        acc = None
+        for i in range(world):
+            _, *parts = feedback.batched_deltas(
+                lcfg, st_c, _shard_prng(lcfg, inp["seed"], i, "cpu"),
+                lit_c[8 * i:8 * (i + 1)], lab_c[8 * i:8 * (i + 1)], 4)
+            acc = parts if acc is None else [a + b for a, b in zip(acc,
+                                                                  parts)]
+        ref_dp, _ = feedback.apply_deltas(lcfg, st_c, *acc)
+        ref_seq, ref_seq_prng, _ = feedback.train_step(
+            lcfg, st_c, PRNG.create(lcfg, inp["seed"], device="cpu"),
+            (lit_c[:2], lab_c[:2]), mode="sequential")
+    sync()
+
+    # ---- the pod path (counted from 0 here) --------------------------------
+    ops.reset_launch_counts()
+    t_phase = time.perf_counter()
+    lstate = init_state(lcfg, threefry.key(inp["seed"]))
+    llit, llab = to_literals(lx).cuda(), torch.from_numpy(ly).cuda()
+    t = time.perf_counter()
+    dp_state, _ = dp_train_step(lcfg, lstate, llit, llab,
+                                make_host_mesh(1), seed=inp["seed"],
+                                chunk=4, compact_frac=0.25)
+    sync()
+    legacy_ms = {"dp_train_step": (time.perf_counter() - t) * 1e3}
+    t = time.perf_counter()
+    seq_state, seq_prng, _ = feedback.train_step(
+        lcfg, lstate, PRNG.create(lcfg, inp["seed"]), (llit[:2], llab[:2]),
+        mode="sequential")
+    sync()
+    legacy_ms["sequential"] = (time.perf_counter() - t) * 1e3
+    cmesh = make_clause_mesh()
+    stm = pod.ShardedTM(eng, cmesh)
+    p = stm.shard(p0)
+    infer_ms = []
+    for _ in range(2):          # the first sets up the communicator
+        t = time.perf_counter()
+        sums, cl = stm.infer(p, batches[0][0])
+        sync()
+        infer_ms.append((time.perf_counter() - t) * 1e3)
+    r, got_steps, step_ms = r0, [], []
+    for lits, lab in batches:
+        t = time.perf_counter()
+        p, r, st = stm.train_step(p, r, lits, lab)
+        sync()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        got_steps.append((stm.gather(p), r, st))
+    # the forced dense clause kernel in the sharded inference
+    eng_mxu = api.compile(api.tile_for(tspec), kernel_path="mxu")
+    stm_mxu = pod.ShardedTM(eng_mxu, cmesh)
+    sums_mxu, cl_mxu = stm_mxu.infer(stm_mxu.shard(p0), batches[0][0])
+    tmesh = make_tenant_mesh()
+    prngs_ = bank_prngs()
+    pbank = pod.pod_stack([progs[i] for i in fill], gpu, tmesh,
+                          prngs=[prngs_[i] for i in fill])
+    plits, plab = [blits[i] for i in fill], blab[fill]
+    flush_ms, preds = [], None
+    for _ in range(POD_FLUSHES):
+        t = time.perf_counter()
+        preds = pbank.predict(plits)
+        sync()
+        flush_ms.append((time.perf_counter() - t) * 1e3)
+    pbst, bank_train_ms = [], []
+    for _ in range(POD_TRAINS):  # the first captures the bank's graph
+        t = time.perf_counter()
+        pbst.append(pbank.train(plits, plab))
+        sync()
+        bank_train_ms.append((time.perf_counter() - t) * 1e3)
+    pslots = pbank.unstack()[:len(names)]
+    sched = api.serve(specs, batch_slot=32, mesh=tmesh,
+                      config=SchedulerConfig(pipeline_depth=2),
+                      seed=inp["seed"])
+    for i, n in enumerate(names):
+        sched.register(n, specs[n], program=progs[i], seed=inp["seed"] + i)
+    futs = []
+    t = time.perf_counter()
+    for rnd in inp["plan"]:
+        for kind, n, x, y in rnd:
+            futs.append(sched.submit_train(n, x, y) if kind == "train"
+                        else sched.submit(n, x))
+        sched.drain()
+    sync()
+    drain_s = time.perf_counter() - t
+    drained = [f.result(timeout=60) for f in futs]
+    sync()
+    out["launches"] = ops.launch_counts()
+    out["phase_s"] = time.perf_counter() - t_phase
+
+    # ---- checks --------------------------------------------------------------
+    check(torch.equal(sums, ref_sums) and torch.equal(cl, ref_cl)
+          and torch.equal(sums_mxu, ref_sums) and torch.equal(cl_mxu, ref_cl),
+          "ShardedTM.infer differs from the engine's infer")
+    if rank == 0:
+        for what, got, want in (("dp_train_step", dp_state, ref_dp),
+                                ("sequential train_step", seq_state,
+                                 ref_seq)):
+            check(torch.equal(got.ta.cpu(), want.ta)
+                  and torch.equal(got.weights.cpu(), want.weights),
+                  f"the legacy {what} on the card differs from the CPU's")
+        check(same_state(torch, seq_prng, ref_seq_prng),
+              "the legacy sequential step's PRNG differs from the CPU's")
+    for i, ((gp, gr, gst), (wp, wr, wst)) in enumerate(zip(got_steps,
+                                                           ref_steps)):
+        check(same_state(torch, gp, wp) and same_state(torch, gr, wr)
+              and all(int(gst[k]) == int(wst[k]) for k in wst),
+              f"ShardedTM step {i} differs from the engine's train_step")
+    real = len(names)
+    check(all(torch.equal(a[:real], b) for a, b in zip(preds, ref_pred)),
+          "PodBank flush differs from ProgramBank's")
+    check(all(torch.equal(a[k][:real], b[k]) for a, b in zip(pbst, ref_bst)
+              for k in b), "PodBank train stats differ from ProgramBank's")
+    check(all(same_state(torch, a, b) for a, b in zip(pslots, ref_slots)),
+          "PodBank programs after train differ from ProgramBank's")
+    want = inp["drain13"]
+    check(len(drained) == len(want), "the pod drain lost requests")
+    for k, (a, b) in enumerate(zip(drained, want)):
+        check(a == b if isinstance(b, dict) else np.array_equal(a, b),
+              f"pod-served request {k} differs from phase 13's")
+    st = sched.stats()
+    out.update({
+        "world": world, "clause_shards": stm.shards,
+        "r_loc": eng.R // stm.shards,
+        "sharded_infer_ms": infer_ms, "sharded_step_ms": step_ms,
+        "legacy": {"model": "MNIST CoTM widths, counter streams, "
+                   "compute_backend=pallas", "dp_rows": lb,
+                   "host_ms": legacy_ms},
+        "sharded_paths": {k: v for k, v in
+                          eng.cache_report()["path_per_stage"].items()
+                          if "sharded" in k},
+        "bank": {"k": pbank.k, "slots_per_rank": pbank.spd,
+                 "flush_ms": flush_ms, "train_ms": bank_train_ms},
+        "drain": {"requests": len(drained), "seconds": drain_s,
+                  "requests_per_s": len(drained) / drain_s,
+                  "pod_devices": st["server"]["pod_devices"],
+                  "stacked_launches": st["server"]["stacked_launches"]}})
+    return out
+
+
+def pods_child(rank: int, world: int, init_file: str, inp: dict,
+               src: str) -> None:
+    """A spawned rank of phase 19 (ranks 1 .. world-1)."""
+    sys.path.insert(0, src)
+    pods_work(rank, world, init_file, inp)
+
+
+def ta_windows(torch, ops, a, kw):
+    """The roster train shape's TA updates (phase 13's captured compacted
+    update ``a``, ``kw``) on the clause window [3R/4, R) with ``row0`` =
+    3R/4, as the last of 4 clause shards runs them, and at full width:
+    ((sparse window, full), (dense window, full)), each an (args, kwargs)
+    pair.  The window's group list is its own."""
+    ta, lits, cl, t1, t2, l_mask, inc, idx, count = a[:9]
+    seed, p_ta, boost, n_states = a[9:13]
+    C = ta.shape[1]
+    row0 = 3 * C // 4
+    w = slice(row0, C)
+
+    def win(t):
+        return t[..., w].contiguous()
+    t1w, t2w = win(t1), win(t2)
+    w_idx, w_count = ops.active_groups(t1w, t2w)
+    ta_w, inc_w = ta[:, w].contiguous(), inc[:, w].contiguous()
+    kw_s = {**kw, "inplace": False}
+    kw_d = {k: kw[k] for k in ("rand_bits", "prng", "lfsr_bits",
+                               "seed_refresh")}
+    scal = (seed, p_ta, boost, n_states)
+    sparse = (((ta_w, lits, win(cl), t1w, t2w, l_mask, inc_w, w_idx,
+                w_count, *scal, row0), kw_s),
+              ((ta, lits, cl, t1, t2, l_mask, inc, idx, count, *scal, 0),
+               kw_s))
+    dense = (((ta_w, lits, win(cl), t1w, t2w, l_mask, *scal, row0), kw_d),
+             ((ta, lits, cl, t1, t2, l_mask, *scal, 0), kw_d))
+    return row0, C - row0, sparse, dense
+
+
+def pods_phase(torch, np, api, ops, inp: dict, plan_specs: dict,
+               card: str) -> dict:
+    """Phase 19: :func:`pods_work` over the largest power of two of
+    ``torch.cuda.device_count()`` ranks, rank 0 here and the others
+    spawned (NCCL init through a file
+    under ``$TMPDIR``; every child is joined, or terminated if rank 0
+    fails), and ``plan_for`` on the H100 budget for the serving roster
+    and the training model, on this world's mesh and on a 4-device one.
+    Returns the ``pods`` report (with rank 0's launch counts)."""
+    import multiprocessing
+    import shutil
+    import tempfile
+    import types
+    from repro_torch.launch.mesh import H100
+    # the largest power of two of the cards: it splits the training
+    # model's R = 2048 clause rows (the serving roster is padded)
+    world = 1 << (torch.cuda.device_count().bit_length() - 1)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pods_")
+    init_file = os.path.join(tmp, "init")
+    src = str(pathlib.Path(__file__).resolve().parent / "src")
+    ctx = multiprocessing.get_context("spawn")
+    kids = [ctx.Process(target=pods_child, args=(r, world, init_file, inp,
+                                                 src), daemon=True)
+            for r in range(1, world)]
+    for k in kids:
+        k.start()
+    try:
+        out = pods_work(0, world, init_file, inp)
+        for k in kids:
+            k.join(timeout=300)
+            check(k.exitcode == 0, f"pod rank {kids.index(k) + 1} ended "
+                  f"with {k.exitcode}")
+    finally:
+        for k in kids:
+            if k.is_alive():
+                k.terminate()
+                k.join()
+        shutil.rmtree(tmp, ignore_errors=True)
+    plans = {}
+    four = types.SimpleNamespace(mesh_dim_names=("tenants",), shape=(4,))
+    for label, specs in plan_specs.items():
+        for mesh_label, mesh in (("world", (world,)), ("4 devices", four)):
+            if isinstance(mesh, tuple):
+                mesh = types.SimpleNamespace(mesh_dim_names=("tenants",),
+                                             shape=mesh)
+            pl = api.plan_for(mesh, *specs)
+            plans[f"{label} on {mesh_label}"] = {
+                "mode": pl.mode, "shards": pl.shards,
+                "program_bytes": pl.program_bytes,
+                "budget_bytes": pl.budget_bytes, "reason": pl.reason}
+            print(f"plan_for {label} on {mesh_label}: {pl.mode} "
+                  f"({pl.reason})")
+    check(plans["serving roster on 4 devices"]["mode"] == "tenants",
+          f"the serving roster does not plan tenant-parallel: {plans}")
+    check(H100.l2_bytes == plans["serving roster on 4 devices"][
+        "budget_bytes"], "plan_for's default budget is not the H100's L2")
+    out.update({"card": card, "cards": torch.cuda.device_count(),
+                "plans": plans})
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0,
@@ -2558,7 +2914,7 @@ def main(argv=None) -> int:
                                                 lits32, lab32))
 
     # ---- 13. scheduled durable serving: api.serve on the card --------------
-    sched_report, counts13, caps13, sched13 = scheduled_serving(
+    sched_report, counts13, caps13, sched13, drain13 = scheduled_serving(
         torch, np, api, ops, datasets, roster, progs, cpu, card, args.seed)
 
     # ---- 14. threefry: the MNIST CoTM with prng_backend="threefry" --------
@@ -2598,6 +2954,69 @@ def main(argv=None) -> int:
     # ---- 18. the plan cache, the launch checker, the audit, reconfiguration -
     tuned_report = tuned_phase(torch, np, api, ops, tm_paper, x_tr, y_tr,
                                card, args.seed)
+
+    # ---- 19. pods: ShardedTM, PodBank and api.serve(mesh=) on NCCL ranks ----
+    from repro_torch import convert
+    specs13 = {n: paper_spec(api, c, "lfsr") for n, (c, _) in roster.items()}
+    brng = np.random.default_rng(args.seed + 19)
+    pods_inp = {
+        "seed": args.seed, "train_spec": spec.to_dict(),
+        "p0": convert.program_to_numpy(p0), "r0": convert.prng_to_numpy(r0),
+        "train_batches": [(x_tr[i * 32:(i + 1) * 32],
+                           y_tr[i * 32:(i + 1) * 32])
+                          for i in range(POD_STEPS)],
+        "specs": {n: s_.to_dict() for n, s_ in specs13.items()},
+        "progs": {n: convert.program_to_numpy(progs[n]) for n in roster},
+        "bank_x": {n: reqs[n][:B] for n in roster},
+        "bank_y": np.stack([brng.integers(0, specs13[n].classes, B)
+                            for n in roster]).astype(np.int32),
+        "plan": drain13[0], "drain13": drain13[1],
+        "legacy_batch": (x_tr[:64], y_tr[:64].astype(np.int32))}
+    pods_report = pods_phase(
+        torch, np, api, ops, pods_inp,
+        {"serving roster": list(specs13.values()), "training model": [spec]},
+        card)
+    counts19 = pods_report["launches"]
+    check(all(counts19[k] > 0 for k in (
+        "packed_clause_eval", "packed_clause_tile", "class_sum", "fused_step",
+        "ta_update_sparse", "ta_update", "clause_eval", "lfsr_bits",
+        "threefry_bits")), f"the pod path launched {counts19}")
+    # the TA update on the last of four clause windows of the roster's
+    # train shape (row0 = 3R/4), against its plain version and the rows
+    # of the full-width launch: the arguments of an eager KWS-6 Vanilla
+    # step at the roster tile (700 x 6 = 4200 clause rows, so the window
+    # gets feedback), not counted
+    srv13 = sched13.server
+    kv = srv13.tenants["kws6_vanilla"]
+    xk, yk = datasets.make_bool_dataset(datasets.KWS6_LIKE, B,
+                                        seed=args.seed + 1900)
+    counted = ops.launch_counts()
+    with Capture(ops, "ta_update_sparse") as cap_win:
+        srv13.engine.train_step(
+            kv.program, kv.prng,
+            srv13.engine.encode(specs13["kws6_vanilla"], xk),
+            specs13["kws6_vanilla"].encode_labels(yk).cuda())
+        torch.cuda.synchronize()
+    ops.set_launch_counts(counted)
+    row0_w, r_loc_w, win_sparse, win_dense = ta_windows(
+        torch, ops, copies(cap_win.args[0]), cap_win.args[1])
+    w_t1 = win_sparse[0][0][3]
+    check(int(win_sparse[0][0][8].sum()) > 0 and bool((w_t1 > 0).any()),
+          "the window's rows got no Type I feedback")
+    win_err = {}
+    for name, kern, plain, ((wa, wkw), (fa, fkw)) in (
+            ("ta_update_sparse", ta_update_sparse, ta_update_sparse_plain,
+             win_sparse),
+            ("ta_update", ta_update, ta_update_plain, win_dense)):
+        got_w, win_err[name] = compare_all(kern, plain, wa, wkw)
+        full = kern(*copies(fa), **fkw)
+        torch.cuda.synchronize()
+        check(all(torch.equal(g, f_[:, row0_w:])
+                  for g, f_ in zip(got_w, full)),
+              f"{name} on the window at row0={row0_w} differs from the "
+              "full-width launch's rows")
+    pods_report["ta_window"] = {"row0": row0_w, "r_loc": r_loc_w,
+                                "max_abs_err": win_err}
 
     # ---- 6. timing -------------------------------------------------------------
     cold = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
@@ -3115,6 +3534,39 @@ def main(argv=None) -> int:
     check(all(counts13[k] > 0 for k in (
         "packed_clause_tile", "class_sum", "fused_step", "ta_update_sparse",
         "lfsr_bits")), f"the scheduled path launched {counts13}")
+    # the pod window rows: the TA update of the last of four clause shards
+    # at the roster's train shape.  Phase 19's pod path never runs that
+    # shape (its clause-sharded steps are the training model's, its bank
+    # trains at full R), so ``launches`` is 0; ``path_launches`` counts
+    # the kernel's launches on the pod path at its own shapes
+    w19 = pods_report["world"]
+    for name, kern, plain, prep, ((wa, wkw), (fa, fkw)), sparse, line in (
+            ("ta_update_sparse", ta_update_sparse, ta_update_sparse_plain,
+             prepare_ta_update_sparse, win_sparse, True, 238),
+            ("ta_update", ta_update, ta_update_plain, prepare_ta_update,
+             win_dense, False, 285)):
+        k_, c_, l_ = wa[0].shape
+        nb, no = ta_cost(wa, wkw, sparse=sparse)
+        row(name, cu + "ta_update.cu", f"src/repro/kernels/ta_update.py:"
+            f"{line}", 0, win_err[name],
+            lambda k=kern, a=wa, kw=wkw: k(*a, **kw),
+            lambda p_=plain, a=wa, kw=wkw: p_(*a, **kw), None, nb, no,
+            f"pod window row0={row0_w} of R={fa[0].shape[1]} K={k_} "
+            f"2B={wa[1].shape[1]} C={c_} L={l_} prng={wkw['prng']}"
+            + (f" active_groups={int(wa[8].sum())}/{-(-c_ // 128)}"
+               if sparse else ""),
+            plain_graph=False, bare=prep(*wa, **wkw)[0],
+            extra={"path_launches": counts19[name],
+                   "path_launches_shapes": (
+                       f"phase 19 at world {w19}: ShardedTM train steps "
+                       f"of the training model at r_loc={2048 // w19}, "
+                       f"row0=rank*r_loc, and PodBank.train of "
+                       f"{pods_report['bank']['slots_per_rank']} roster "
+                       f"slots a rank at full R"),
+                   "full_width_ms": graph_ms(
+                       torch, lambda k=kern, a=fa, kw=fkw: k(*a, **kw), it),
+                   "full_width_bound_ms": bound(
+                       *ta_cost(fa, fkw, sparse=sparse), int_rate)[0]})
 
     def ms_of(name, shape):
         """``ms`` of the kernels-line row ``name`` whose shape starts
@@ -3238,6 +3690,7 @@ def main(argv=None) -> int:
     print(json.dumps({"graphs": graphs_report}))
     print(json.dumps({"served_graphs": served_report}))
     print(json.dumps({"tuned": tuned_report}))
+    print(json.dumps({"pods": pods_report}))
     print(json.dumps({"kernels": rows_out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

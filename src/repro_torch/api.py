@@ -9,8 +9,10 @@ or the estimator shell, ``TM(spec).fit(x, y)`` / ``.partial_fit`` /
 ``.predict(x)`` / ``.score(x, y)`` / ``.save(dir)`` / ``TM.load(dir)``,
 :func:`stack` for a :class:`ProgramBank` of K programs served and trained
 by one launch per kernel (``stack(conv=True)``: a conv bank, served
-only), and :func:`serve`, the scheduled multi-tenant serving stack in one
-call.  :class:`TMSpec` serialises to the same JSON as the JAX package's
+only), :func:`serve`, the scheduled multi-tenant serving stack in one
+call, and :func:`plan_for`, the per-mesh plan (tenant-parallel or
+clause-sharded, :mod:`repro_torch.launch.pod`).  :class:`TMSpec`
+serialises to the same JSON as the JAX package's
 and ``TM.save`` writes its checkpoint format, so specs and saved models
 cross between the two packages.
 """
@@ -233,6 +235,75 @@ def tile_for(*specs: TMSpec, x: int = 128, y: int = 128, m: int = 128,
         max_clauses=max(c.total_clauses for c in cfgs),
         max_classes=max(c.classes for c in cfgs),
         max_patches=max(s.n_patches for s in specs))
+
+
+@dataclasses.dataclass(frozen=True)
+class PodPlan:
+    """A per-mesh execution plan: what :func:`plan_for` decided and why.
+
+    ``mode``: ``"single"`` (one device, no sharding), ``"tenants"``
+    (programs fit the per-device budget: a tenant-parallel
+    :class:`repro_torch.launch.pod.PodBank` over ``axis``) or
+    ``"clauses"`` (an over-budget program: one machine clause-sharded
+    over ``axis`` in ``shards`` windows, :class:`repro_torch.launch.pod.
+    ShardedTM`)."""
+
+    mode: str
+    axis: str
+    shards: int
+    tile: TileConfig
+    program_bytes: int
+    budget_bytes: int
+    reason: str
+
+
+def plan_for(mesh, *specs: TMSpec, vmem_budget: Optional[float] = None,
+             **tile_kw) -> PodPlan:
+    """:func:`tile_for` grown into a per-mesh planner (the JAX
+    ``plan_for``): size the engine for the roster, then choose tenant- or
+    clause-sharding by the padded program's bytes
+    (:func:`repro_torch.launch.tm_perf.program_bytes`) against the
+    per-device budget, ``vmem_budget`` or, by default, the H100's L2
+    (:attr:`repro_torch.launch.mesh.HardwareModel.l2_bytes`; the JAX
+    planner's default is the TPU's VMEM).  A program that fits serves
+    tenant-parallel (no collectives); one that does not is clause-sharded
+    over the fewest shards (dividing the padded R, at most the mesh's
+    devices) whose window fits.  ``mesh`` is a ``DeviceMesh`` (or any
+    object with ``mesh_dim_names`` and ``shape``)."""
+    # imported here: the launch layer imports this module
+    from repro_torch.launch import tm_perf
+    from repro_torch.launch.mesh import H100, mesh_chips
+
+    tile = tile_for(*specs, **tile_kw)
+    L, R, H = tile.padded_dims()
+    ta_bits = max(s.ta_bits for s in specs)
+    pbytes = tm_perf.program_bytes(L, R, H, ta_bits=ta_bits,
+                                   P=tile.max_patches)
+    budget = int(vmem_budget if vmem_budget is not None else H100.l2_bytes)
+    n = mesh_chips(mesh)
+    axes = tuple(mesh.mesh_dim_names)
+    if n <= 1:
+        return PodPlan("single", axes[0] if axes else "", 1, tile, pbytes,
+                       budget, "one device — nothing to shard")
+    if pbytes <= budget:
+        axis = "tenants" if "tenants" in axes else axes[0]
+        return PodPlan(
+            "tenants", axis, n, tile, pbytes, budget,
+            f"program image {pbytes}B fits the {budget}B device budget: "
+            f"tenant-parallel bank over '{axis}' ({n} devices)")
+    axis = "clauses" if "clauses" in axes else axes[-1]
+    shards = 1
+    for s in range(2, n + 1):
+        if R % s:
+            continue
+        shards = s
+        if pbytes // s <= budget:
+            break
+    return PodPlan(
+        "clauses", axis, shards, tile, pbytes, budget,
+        f"program image {pbytes}B exceeds the {budget}B device budget: "
+        f"clause-shard R={R} over '{axis}' x{shards} "
+        f"({pbytes // shards}B per shard window)")
 
 
 def compile(tile: Optional[TileConfig] = None, device: Device = None,
@@ -633,7 +704,7 @@ def stack(programs: Sequence[DTMProgram], engine: DTMEngine,
 
 
 def serve(roster: Optional[dict], batch_slot: int = 32,
-          device: Device = None, *, config=None,
+          device: Device = None, *, mesh=None, config=None,
           slas: Optional[dict] = None, seed: int = 0,
           durable_dir: Optional[str] = None, ckpt_keep: int = 3,
           injector=None, kernel_path: Optional[str] = None,
@@ -642,7 +713,9 @@ def serve(roster: Optional[dict], batch_slot: int = 32,
     """The scheduled serving stack for a tenant roster in one call: a
     :func:`tile_for`-sized engine on ``device`` (the card unless the
     caller asks for another; no fallback), a
-    :class:`repro_torch.launch.serve_tm.TMServer` and a
+    :class:`repro_torch.launch.serve_tm.TMServer` (pod-sharded over the
+    ``tenants`` axis of ``mesh`` when it spans more than one device; every
+    rank of the mesh makes the same call) and a
     :class:`repro_torch.launch.scheduler.TMScheduler` in front of it,
     which it returns.  Call ``.start()`` for the background loop or
     drive it inline with ``.step()`` / ``.drain()``.
@@ -659,10 +732,9 @@ def serve(roster: Optional[dict], batch_slot: int = 32,
     (a tenant without a checkpoint is lowered from its seed, to the JAX
     package's program).  ``injector`` (a
     :class:`repro_torch.runtime.fault.FaultInjector`) plumbs a failure
-    schedule into the driver and writer.  One card: the JAX package's
-    ``mesh`` (pods) is not ported, and passing it is a ``TypeError``.
-    ``kernel_path``, ``skip``, ``ta_prng``, ``autotune`` and
-    ``autotune_cache`` are the engine's settings (:func:`compile`)."""
+    schedule into the scheduler's loop and writer.  ``kernel_path``,
+    ``skip``, ``ta_prng``, ``autotune`` and ``autotune_cache`` are the
+    engine's settings (:func:`compile`)."""
     # imported here: the launch layer imports this module
     from repro_torch.launch.scheduler import SLAClass, TMScheduler
     from repro_torch.launch.serve_tm import TMServer
@@ -690,7 +762,7 @@ def serve(roster: Optional[dict], batch_slot: int = 32,
     engine = compile(tile_for(*roster.values()), device=device,
                      kernel_path=kernel_path, skip=skip, ta_prng=ta_prng,
                      autotune=autotune, autotune_cache=autotune_cache)
-    server = TMServer(engine, batch_slot=batch_slot)
+    server = TMServer(engine, batch_slot=batch_slot, mesh=mesh)
     sched = TMScheduler(server, config=config, durable=store,
                         injector=injector)
     for i, (name, spec) in enumerate(roster.items()):

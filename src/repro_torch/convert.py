@@ -14,10 +14,14 @@ counter) for ``counter``, ``state`` [2] (the key, the JAX PRNG's
 ``jax.random.PRNGKey`` array) for ``threefry``, and ``lanes``
 [n_lanes], ``master`` and ``cycles`` for ``lfsr``; a bank's PRNG has a
 leading K on each.
+
+A legacy :class:`~repro_torch.core.types.TMState` crosses as ``{"ta",
+"weights"}`` (``weights`` ``None`` for Vanilla), the JAX ``TMState``'s
+arrays with their dtypes: ``{"ta": np.asarray(s.ta), "weights": ...}``.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -25,6 +29,7 @@ import torch
 from repro_torch.core.dtm import (FIELDS, U32_FIELDS, Device, DTMProgram,
                                   resolve_device)
 from repro_torch.core.prng import PRNG, LFSRState
+from repro_torch.core.types import TMState
 
 PRNG_CONFIG = ("backend", "lfsr_bits", "rand_bits", "seed_refresh")
 LFSR_LEAVES = ("lanes", "master", "cycles")
@@ -88,3 +93,22 @@ def prng_to_numpy(prng: PRNG) -> Dict:
     for k, t in zip(names, prng.leaves()):
         out[k] = t.detach().cpu().numpy().astype(np.uint32)
     return out
+
+
+def state_from_numpy(leaves: Mapping[str, Optional[np.ndarray]],
+                     device: Device = None) -> TMState:
+    """``{"ta", "weights"}`` numpy arrays (``weights`` None or absent for
+    Vanilla) -> a :class:`TMState` on ``device`` (default CUDA), dtypes
+    kept."""
+    dev = resolve_device(device)
+    w = leaves.get("weights")
+    return TMState(torch.from_numpy(np.array(leaves["ta"], order="C")).to(dev),
+                   None if w is None else
+                   torch.from_numpy(np.array(w, order="C")).to(dev))
+
+
+def state_to_numpy(state: TMState) -> Dict[str, Optional[np.ndarray]]:
+    """Inverse of :func:`state_from_numpy`."""
+    return {"ta": state.ta.detach().cpu().numpy(),
+            "weights": (None if state.weights is None
+                        else state.weights.detach().cpu().numpy())}

@@ -27,6 +27,13 @@ def words_from_u32(values: torch.Tensor) -> torch.Tensor:
                        values).to(torch.int32)
 
 
+def to_literals(bool_features) -> torch.Tensor:
+    """[..., f] {0,1} -> [..., 2f] int8 literals = concat(x, 1 - x), the
+    legacy core's layout (:mod:`repro_torch.core.feedback`)."""
+    x = torch.as_tensor(bool_features).to(torch.int8)
+    return torch.cat([x, 1 - x], dim=-1)
+
+
 def pack_literals(literals: torch.Tensor) -> torch.Tensor:
     """{0,1} [..., n] -> packed int32 words [..., ceil(n/32)].
 

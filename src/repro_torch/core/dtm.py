@@ -70,6 +70,15 @@ capture or replay that fails raises.  The ``train_step``,
 ``train_conv``, ``infer*`` and ``train_bank`` methods stay the eager
 building blocks.  ``cache_report()`` counts the graphs captured per JAX
 stage name (0 without capture).
+
+The clause-sharded stage bodies (``_infer_sharded_impl``,
+``_infer_conv_sharded_impl``, ``_train_sharded_impl``,
+``_train_conv_sharded_impl``; :class:`repro_torch.launch.pod.ShardedTM`
+runs them on every rank of a ``clauses`` mesh axis) are the same bodies
+on one rank's window of clause rows (:class:`Shard`), with the class
+sums, a regression program's vote count and the Alg-6 stat inputs
+reduced or gathered over the axis's process group; they record
+``<stage>_shard`` = ``"<axis>:<shards>"`` and run eager.
 """
 from __future__ import annotations
 
@@ -89,6 +98,7 @@ from .device import Device, resolve_device
 from .evaluate import epoch_record
 from .graph import StepGraph
 from . import threefry
+from .collectives import all_sum, gather_dim, row_window
 from .prng import PRNG
 from .types import COALESCED, TMConfig, TileConfig
 
@@ -163,6 +173,25 @@ TRAINED = ("ta", "weights", "inc")    # the leaves a train step changes
 # the leaves inference reads (_infer_impl, _infer_conv_impl; l_mask only
 # on the forced ref path): never the TA states
 INFER_LEAVES = ("inc", "weights", "cl_mask", "l_mask", "h_mask", "p_mask")
+
+
+@dataclasses.dataclass(frozen=True)
+class Shard:
+    """This rank's clause-row window in a clause-sharded stage: the process
+    group of the mesh axis ``axis``, the ``shards`` along it, and the rows
+    ``[row0, row0 + r_loc)`` of the engine's R that the rank's program
+    leaves hold (:meth:`DTMEngine._shard_window`)."""
+
+    group: object
+    axis: str
+    shards: int
+    row0: int
+    r_loc: int
+
+
+def _one(prog: DTMProgram) -> DTMProgram:
+    """One program in bank form (a leading K = 1 axis on every leaf)."""
+    return prog.map(lambda t: t.unsqueeze(0))
 
 
 def _sig(tensors) -> tuple:
@@ -465,26 +494,39 @@ class DTMEngine:
         return torch.where(progs.h_mask[:, None, :] == 1, sums,
                            torch.full_like(sums, NEG_INF_SUM))
 
+    def _reduced_sums(self, progs: DTMProgram, cl: torch.Tensor,
+                      shard: Optional[Shard] = None) -> torch.Tensor:
+        """Weight stage, pinned: clause-sharded, the raw partial sums are
+        summed over the shards first (pinning before the all-reduce would
+        add the NEG_INF sentinels together)."""
+        sums = self._class_sums_raw(progs, cl)
+        if shard is not None:
+            sums = all_sum(sums, shard.group)
+        return self._pin_class_sums(progs, sums)
+
     def _infer_impl(self, progs: DTMProgram, plits: torch.Tensor,
-                    stage: str) -> Tuple[torch.Tensor, torch.Tensor]:
+                    stage: str, shard: Optional[Shard] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
         cl = self._clause_outputs(progs, plits, eval_mode=True, stage=stage)
-        return self._pin_class_sums(progs, self._class_sums_raw(progs, cl)), cl
+        return self._reduced_sums(progs, cl, shard), cl
 
     def _conv_clauses(self, progs: DTMProgram, plits: torch.Tensor,
                       eval_mode: bool, stage: str
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Conv clause stage: [K, B, P, W] -> (per-patch clauses
-        [K, B, P, R] with padded slots zeroed, their OR [K, B, R])."""
+        [K, B, P, R] with padded slots zeroed, their OR [K, B, R]; R the
+        rows the programs hold)."""
         K, B, P, W = plits.shape
         cl_p = self._clause_outputs(progs, plits.reshape(K, B * P, W),
                                     eval_mode=eval_mode, stage=stage)
-        cl_p = cl_p.reshape(K, B, P, self.R) * progs.p_mask[:, None, :, None]
+        cl_p = cl_p.reshape(K, B, P, -1) * progs.p_mask[:, None, :, None]
         return cl_p, cl_p.amax(dim=2)
 
     def _infer_conv_impl(self, progs: DTMProgram, plits: torch.Tensor,
-                         stage: str) -> Tuple[torch.Tensor, torch.Tensor]:
+                         stage: str, shard: Optional[Shard] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
         _, cl = self._conv_clauses(progs, plits, eval_mode=True, stage=stage)
-        return self._pin_class_sums(progs, self._class_sums_raw(progs, cl)), cl
+        return self._reduced_sums(progs, cl, shard), cl
 
     # ------------------------------------------------------------------ #
     # inference                                                           #
@@ -571,12 +613,14 @@ class DTMEngine:
 
     def _train_impl(self, progs: DTMProgram, prngs: PRNG,
                     plits: torch.Tensor, labels: torch.Tensor, lanes: int,
-                    stage: str, donate: bool = False):
+                    stage: str, donate: bool = False,
+                    shard: Optional[Shard] = None):
         """One batched train step of K programs (bank form: every program
         leaf and PRNG state leaf has a leading K axis; ``plits`` [K, B, W],
         ``labels`` [K, B] int32).  Returns (programs, PRNGs, stats [K]).
         ``donate``: the compacted TA update writes into ``progs.ta`` and
-        ``progs.inc`` in place."""
+        ``progs.inc`` in place.  ``shard``: the programs hold the rank's
+        clause-row window (:meth:`_train_sharded_impl`)."""
         K, B = plits.shape[:2]
         rb = self.rand_bits
         n_cls = progs.h_mask.sum(dim=-1)                               # [K]
@@ -588,6 +632,8 @@ class DTMEngine:
         prngs, sel_rand = prngs.bits((2, B, self.R))
         prngs, seed_bits = prngs.bits((2,))
         ta_seed = ((seed_bits[:, 0] << rb) | seed_bits[:, 1]) & M32
+        if shard is not None:        # full-width draws, the window's rows
+            sel_rand = sel_rand[..., shard.row0:shard.row0 + shard.r_loc]
 
         # regression programs carry a vote target in `labels`; the class
         # machinery runs on a pinned in-range label
@@ -596,8 +642,12 @@ class DTMEngine:
         rn = (c_rand % torch.clamp(n_cls - 1, min=1)[:, None]).to(torch.int32)
         neg = torch.where(rn < cls_lab, rn, rn + 1)                    # [K, B]
 
-        cl, sums_m, sel_lab, sel_neg = self._train_front(
-            progs, plits, cls_lab, neg, sel_rand, stage)
+        if shard is None:
+            cl, sums_m, sel_lab, sel_neg = self._train_front(
+                progs, plits, cls_lab, neg, sel_rand, stage)
+        else:
+            cl, sums_m, sel_lab, sel_neg = self._train_front_sharded(
+                progs, plits, cls_lab, neg, sel_rand, stage, shard)
         hits = (torch.argmax(sums_m, dim=-1) == labels).sum(
             dim=-1, dtype=torch.int32)
         correct = torch.where(reg, torch.zeros_like(hits), hits)
@@ -605,8 +655,10 @@ class DTMEngine:
         # Regression TM: clipped vote count against the target; the error
         # picks Type I (under) or Type II (over) through the same compare
         T = progs.T[:, None]
-        votes = torch.minimum(cl.sum(dim=-1, dtype=torch.int32).clamp(min=0),
-                              T)
+        votes = cl.sum(dim=-1, dtype=torch.int32)
+        if shard is not None:        # the global vote count
+            votes = all_sum(votes, shard.group)
+        votes = torch.minimum(votes.clamp(min=0), T)
         err = labels - votes                                           # [K, B]
         sel_reg = ((sel_rand[:, 0].to(torch.int32) * (2 * T)[..., None])
                    < (err.abs()[..., None] << rb))
@@ -616,7 +668,7 @@ class DTMEngine:
         # Type I / II split per round by the sign of the class's weight
         # row (regression: by the sign of the error)
         def rows_of(cls):
-            idx = cls.long()[..., None].expand(K, B, self.R)
+            idx = cls.long()[..., None].expand(K, B, cl.shape[-1])
             return torch.gather(progs.weights, 1, idx)
         w_lab, w_neg = rows_of(cls_lab), rows_of(neg)
         regb = reg[:, None, None]
@@ -641,8 +693,10 @@ class DTMEngine:
         family = "lfsr" if prngs.backend == "lfsr" else "counter"
         self._stage_paths[stage + "_ta"] = ta_path
         self._stage_paths[stage + "_prng"] = f"{family}-{self.ta_prng}"
+        # clause-sharded: the streams keyed at the global rows
         kw = dict(seed=ta_seed, p_ta=progs.p_ta, boost=progs.boost,
                   n_states=progs.n_states, rand_bits=rb, prng=family,
+                  row0=0 if shard is None else shard.row0,
                   lfsr_bits=prngs.lfsr_bits, seed_refresh=prngs.seed_refresh,
                   plain=self.kernel_path == kops.PATH_REF)
         if ta_path == kops.TA_COMPACT:
@@ -655,15 +709,41 @@ class DTMEngine:
                 stream=self.ta_prng == kops.TA_PRNG_STREAM, **kw)
 
         new_w, stats = self._weights_and_stats(
-            progs, cl, sel_lab, sel_neg, cls_lab, neg, correct, abs_err)
+            progs, cl, sel_lab, sel_neg, cls_lab, neg, correct, abs_err,
+            shard)
         new = dataclasses.replace(progs, ta=new_ta.to(progs.ta.dtype),
                                   weights=new_w, inc=new_inc)
         return new, prngs, stats
 
+    def _train_front_sharded(self, progs: DTMProgram, plits: torch.Tensor,
+                             cls_lab: torch.Tensor, neg: torch.Tensor,
+                             sel_rand: torch.Tensor, stage: str,
+                             shard: Shard):
+        """The clause-sharded front half: the window's clause stage, the
+        partial sums all-reduced and pinned, then both Alg-3 rounds on the
+        window's random words and weight columns (selection is
+        column-independent given the global sums).  ``fused_step`` cannot
+        run it: the sums are reduced between its stages."""
+        cl = self._clause_outputs(progs, plits, eval_mode=False, stage=stage)
+        sums = self._reduced_sums(progs, cl, shard)
+        wf = progs.w_frozen.to(torch.int32)
+        sel_lab = kops.round_select_op(
+            sums, cls_lab, 1, sel_rand[:, 0], progs.weights, progs.cl_mask,
+            progs.T, wf, rand_bits=self.rand_bits)
+        sel_neg = kops.round_select_op(
+            sums, neg, 0, sel_rand[:, 1], progs.weights, progs.cl_mask,
+            progs.T, wf, rand_bits=self.rand_bits)
+        return cl, sums, sel_lab, sel_neg
+
     def _weights_and_stats(self, progs: DTMProgram, cl, sel_lab, sel_neg,
-                           lab, neg, correct, abs_err):
+                           lab, neg, correct, abs_err,
+                           shard: Optional[Shard] = None):
         """Alg-4 weight nudges as exact int32 scatter-adds, and the Alg-6
-        group accounting on the engine's y-tile (128-row) groups."""
+        group accounting on the engine's y-tile (128-row) groups.
+        Clause-sharded (the JAX ``_weights_and_stats_sharded``), the nudges
+        act on the window's weight columns and the group accounting runs
+        on the selection counts and clause mask gathered to all R rows (a
+        window can be smaller than a group)."""
         K, B, R = cl.shape
         d_w = torch.zeros_like(progs.weights)
         d_w.scatter_add_(1, lab.long()[..., None].expand(K, B, R),
@@ -674,9 +754,13 @@ class DTMEngine:
         new_w = torch.where(progs.w_frozen[:, None, None], progs.weights,
                             torch.clamp(progs.weights + d_w, -clip, clip))
         d_sel = (sel_lab + sel_neg).sum(dim=1, dtype=torch.int32)     # [K, R]
+        cl_mask = progs.cl_mask
+        if shard is not None:
+            d_sel = gather_dim(d_sel, shard.group, 1)
+            cl_mask = gather_dim(cl_mask, shard.group, 1)
         y = self.tile.y
         g = (d_sel > 0).to(torch.int32).reshape(K, -1, y).amax(dim=-1)
-        gmask = progs.cl_mask.reshape(K, -1, y).amax(dim=-1)
+        gmask = cl_mask.reshape(K, -1, y).amax(dim=-1)
         stats = {"selected": d_sel.sum(dim=-1, dtype=torch.int32),
                  "active_groups": (g * gmask).sum(dim=-1, dtype=torch.int32),
                  "total_groups": gmask.sum(dim=-1, dtype=torch.int32),
@@ -698,7 +782,9 @@ class DTMEngine:
                 {k: v[0] for k, v in stats.items()})
 
     def _train_conv_impl(self, progs: DTMProgram, prngs: PRNG,
-                         plits: torch.Tensor, labels: torch.Tensor):
+                         plits: torch.Tensor, labels: torch.Tensor,
+                         stage: str = "train_conv",
+                         shard: Optional[Shard] = None):
         """One batched conv train step in bank form (``plits``
         [K, B, P, W], ``labels`` [K, B]; the engine runs it at K=1).
 
@@ -709,7 +795,9 @@ class DTMEngine:
         first on a tie, as ``jnp.argmax``), its literals gathered, the
         deltas summed over the batch as integer products (no int32 GEMM
         on the card), clipped, and the include bitplane packed anew.
-        The draws come in the JAX engine's order."""
+        The draws come in the JAX engine's order.  ``shard``: the programs
+        hold the rank's clause-row window, and the full-width draws are
+        sliced to it (:meth:`_train_conv_sharded_impl`)."""
         K, B, P, W = plits.shape
         L, R = self.L, self.R
         labels = labels.to(torch.int32)
@@ -719,14 +807,19 @@ class DTMEngine:
         prngs, patch_rand = prngs.bits((B, P, R))
         prngs, sel_rand = prngs.bits((2, B, R))
         prngs, ta_rand = prngs.bits((2, B, R, L))
+        if shard is not None:       # transient memory scales with the global R
+            rows = slice(shard.row0, shard.row0 + shard.r_loc)
+            patch_rand, sel_rand = patch_rand[..., rows], sel_rand[..., rows]
+            ta_rand = ta_rand[..., rows, :]
+            R = shard.r_loc
 
         # uint32 draws held in int64: the remainder is the unsigned one
         rn = (c_rand % torch.clamp(n_cls - 1, min=1)[:, None]).to(torch.int32)
         neg = torch.where(rn < labels, rn, rn + 1)                     # [K, B]
 
         cl_p, cl = self._conv_clauses(progs, plits, eval_mode=False,
-                                      stage="train_conv")
-        sums = self._pin_class_sums(progs, self._class_sums_raw(progs, cl))
+                                      stage=stage)
+        sums = self._reduced_sums(progs, cl, shard)
         correct = (torch.argmax(sums, dim=-1) == labels).sum(
             dim=-1, dtype=torch.int32)
         wf = progs.w_frozen.to(torch.int32)
@@ -777,7 +870,7 @@ class DTMEngine:
 
         new_w, stats = self._weights_and_stats(
             progs, cl, sel_lab, sel_neg, labels, neg, correct,
-            torch.zeros_like(correct))
+            torch.zeros_like(correct), shard)
         new = dataclasses.replace(progs, ta=new_ta.to(progs.ta.dtype),
                                   weights=new_w,
                                   inc=pack_include(new_ta, progs.n_states))
@@ -792,6 +885,94 @@ class DTMEngine:
         new, prngs, stats = self._train_conv_impl(
             prog.map(lambda t: t[None]), prng.map(lambda t: t[None]),
             plits[None], labels[None])
+        return (new.map(lambda t: t[0]), prngs[0],
+                {k: v[0] for k, v in stats.items()})
+
+    # ------------------------------------------------------------------ #
+    # clause-sharded stage bodies (one rank each: launch/pod.py ShardedTM) #
+    # ------------------------------------------------------------------ #
+    # One machine's clause rows spread over a ``clauses`` mesh axis: each
+    # rank holds a contiguous row window of the clause-indexed leaves (ta
+    # [r_loc, L], inc [r_loc, W], cl_mask [r_loc], weight COLUMNS
+    # [H, r_loc]); every other leaf, the literals, labels and PRNG are
+    # replicated.  The results equal the single-device stages bit for bit
+    # through three invariants (the JAX engine's):
+    #   1. every rank draws the same FULL-width random words as a
+    #      single-device step (the PRNG is replicated) and slices its
+    #      window, so no stream position moves;
+    #   2. class sums (and a regression program's vote count) are summed
+    #      over the ranks RAW and pinned after; the Alg-3 selection is
+    #      column-independent given the global sums, so it runs on the
+    #      window;
+    #   3. the TA update keys its in-kernel streams at the GLOBAL rows
+    #      through ``row0``: no TA traffic between ranks.
+    # The collectives are eager (a stage of this kind is not captured).
+
+    def _shard_window(self, prog: DTMProgram, group,
+                      axis: str = "clauses") -> Shard:
+        """This rank's window of a program's clause rows (one program or
+        a bank): ``row0`` from the rank's position in ``group``."""
+        shards, row0, r_loc = row_window(self.R, group, axis)
+        if prog.ta.shape[-2] != r_loc:
+            raise ValueError(f"a window of {prog.ta.shape[-2]} rows is not "
+                             f"1/{shards} of the engine's R={self.R}")
+        return Shard(group, axis, shards, row0, r_loc)
+
+    def _sharded(self, stage: str, shard: Shard) -> None:
+        self._stage_paths[stage + "_shard"] = f"{shard.axis}:{shard.shards}"
+
+    def _infer_sharded_impl(self, prog: DTMProgram, plits: torch.Tensor,
+                            group, axis: str = "clauses",
+                            stage: str = "infer_sharded"):
+        """Clause-sharded inference of one program: the window's clause
+        stage, one [B, H] all-reduce, pinning after it.  Returns (global
+        sums [B, H], the window's clause columns [B, r_loc])."""
+        shard = self._shard_window(prog, group, axis)
+        sums, cl = self._infer_impl(_one(prog), plits[None], stage, shard)
+        self._sharded(stage, shard)
+        return sums[0], cl[0]
+
+    def _infer_conv_sharded_impl(self, prog: DTMProgram,
+                                 plits: torch.Tensor, group,
+                                 axis: str = "clauses",
+                                 stage: str = "infer_conv_sharded"):
+        """:meth:`_infer_sharded_impl` of the conv kind (plits [B, P, W])."""
+        shard = self._shard_window(prog, group, axis)
+        sums, cl = self._infer_conv_impl(_one(prog), plits[None], stage,
+                                         shard)
+        self._sharded(stage, shard)
+        return sums[0], cl[0]
+
+    def _train_sharded_impl(self, prog: DTMProgram, prng: PRNG,
+                            plits: torch.Tensor, labels: torch.Tensor,
+                            group, axis: str = "clauses",
+                            stage: str = "train_sharded"):
+        """Clause-sharded train step of one flat program: :meth:`_train_impl`
+        stage for stage, its front half unfused
+        (:meth:`_train_front_sharded`).  The collectives are the [B, H]
+        class-sum and [B] vote all-reduces and the [r_loc] stat gathers;
+        the TA, include and weight updates stay on the rank.  Returns the
+        window's new program, the PRNG and the global stats."""
+        shard = self._shard_window(prog, group, axis)
+        new, prngs, stats = self._train_impl(
+            _one(prog), prng.map(lambda t: t[None]), plits[None],
+            labels[None], lanes=1, stage=stage, shard=shard)
+        self._sharded(stage, shard)
+        return (new.map(lambda t: t[0]), prngs[0],
+                {k: v[0] for k, v in stats.items()})
+
+    def _train_conv_sharded_impl(self, prog: DTMProgram, prng: PRNG,
+                                 plits: torch.Tensor, labels: torch.Tensor,
+                                 group, axis: str = "clauses",
+                                 stage: str = "train_conv_sharded"):
+        """Clause-sharded conv train step (:meth:`_train_conv_impl` on the
+        window; its full-width ``ta_rand`` draw scales with the global R,
+        the price of exact streams)."""
+        shard = self._shard_window(prog, group, axis)
+        new, prngs, stats = self._train_conv_impl(
+            _one(prog), prng.map(lambda t: t[None]), plits[None],
+            labels[None], stage=stage, shard=shard)
+        self._sharded(stage, shard)
         return (new.map(lambda t: t[0]), prngs[0],
                 {k: v[0] for k, v in stats.items()})
 

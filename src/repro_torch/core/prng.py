@@ -120,6 +120,20 @@ def make_cluster(master_seed: int, n_lanes: int, lfsr_bits: int,
                      torch.zeros((), dtype=torch.int64, device=device))
 
 
+def indexed_bits(key, rows: torch.Tensor, n_cols: int, rand_bits: int
+                 ) -> torch.Tensor:
+    """Counter-mode numbers addressed by index: ``out[i, j]`` depends only
+    on (``key``, ``rows[i]``, ``j``), so a gathered subset of rows draws
+    what the whole would (the Alg-6 feedback compaction of
+    :mod:`repro_torch.core.distributed`).  ``key`` a uint32 (int or int64
+    0-d tensor), ``rows`` [n] -> int64 [n, n_cols] in [0, 2^rand_bits)."""
+    col = torch.arange(n_cols, dtype=torch.int64, device=rows.device)
+    base = ((rows.to(torch.int64)[:, None] * n_cols) & M32) + col
+    key = torch.as_tensor(key, dtype=torch.int64, device=rows.device) & M32
+    out = _splitmix32(key ^ ((base & M32) * 0x9E3779B1 & M32))
+    return out >> (32 - rand_bits)
+
+
 State = Union[torch.Tensor, LFSRState]
 
 

@@ -16,6 +16,9 @@ Bit for bit what ``jax.random`` gives with its default configuration
 * :func:`bernoulli_half` is ``jax.random.bernoulli(key, 0.5, shape)``:
   ``bits < 2^31`` in row-major order (the float draw ``u < 0.5`` keeps
   only the top bit).
+* :func:`fold_in` is ``jax.random.fold_in(key, data)``: threefry of the
+  key over the one counter ``(hi, lo) = (0, data)``, both outputs the new
+  key.
 
 uint32 arithmetic runs in int64 tensors masked to 32 bits, on any device.
 A key is an int64 tensor ``[..., 2]``; leading axes are a bank of keys.
@@ -88,6 +91,17 @@ def split(k: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     a0, a1 = threefry2x32(k0, k1, zero, zero)
     b0, b1 = threefry2x32(k0, k1, zero, torch.ones_like(k0))
     return torch.stack([a0, a1], dim=-1), torch.stack([b0, b1], dim=-1)
+
+
+def fold_in(k: torch.Tensor, data) -> torch.Tensor:
+    """``jax.random.fold_in(k, data)`` for a uint32 ``data`` (an int or an
+    int64 tensor broadcasting against the key's leading axes) -> the new
+    key ``[..., 2]``."""
+    k0, k1 = k[..., 0], k[..., 1]
+    d = torch.as_tensor(data, dtype=torch.int64, device=k.device) & M32
+    d = d.expand_as(k0)
+    a0, a1 = threefry2x32(k0, k1, torch.zeros_like(k0), d)
+    return torch.stack([a0, a1], dim=-1)
 
 
 def bits(k: torch.Tensor, n: int) -> torch.Tensor:

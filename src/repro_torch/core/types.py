@@ -111,3 +111,60 @@ class TileConfig:
         return (rup(self.max_literals, self.x),
                 rup(self.max_clauses, self.y),
                 rup(self.max_classes, self.n))
+
+
+class TMState:
+    """Learnable state of a TM in the legacy training core
+    (:mod:`repro_torch.core.feedback`, :mod:`repro_torch.core.distributed`).
+
+    ``ta``     : TA states, Vanilla [classes*clauses, 2f], CoTM
+                 [clauses, 2f]; values in [0, 2^ta_bits - 1], the action
+                 Include iff state >= 2^(ta_bits-1).
+    ``weights``: CoTM [classes, clauses] int32 (Vanilla: ``None``; its ±1
+                 polarity follows from the clause parity).
+    """
+
+    def __init__(self, ta, weights):
+        self.ta = ta
+        self.weights = weights
+
+    def __repr__(self):
+        w = None if self.weights is None else tuple(self.weights.shape)
+        return f"TMState(ta={tuple(self.ta.shape)}:{self.ta.dtype}, weights={w})"
+
+
+def init_state(cfg: TMConfig, key, dtype=None, device=None) -> TMState:
+    """TA states at the include boundary (J-1 or J) and CoTM weights ±1,
+    drawn as the JAX ``init_state`` draws them: the threefry ``key``
+    (:func:`repro_torch.core.threefry.key`, or a JAX ``PRNGKey`` array)
+    split into ``kt, kw``, the TA states J-1 + bernoulli(kt, 0.5) and the
+    weights ±1 by bernoulli(kw, 0.5).  ``dtype`` defaults to int32; the
+    state lands on ``device`` (default CUDA), where each draw is one
+    ``threefry_bits`` launch."""
+    import torch
+    # imported here: the kernels package imports this module
+    from repro_torch.kernels.threefry import threefry_bits
+    from . import threefry
+    from .device import resolve_device
+
+    dev = resolve_device(device)
+    k = threefry.as_key(key, dev)
+    rows, lits = cfg.total_clauses, cfg.literals
+    n_w = cfg.classes * cfg.clauses if cfg.tm_type == COALESCED else 0
+    # the split with kw's words, then kt's words (rand_bits=1: the top bit,
+    # which is bernoulli(·, 0.5)'s complement)
+    kt, w_bits = threefry_bits(k[None], n_w, rand_bits=1)
+    _, t_bits = threefry_bits(kt, rows * lits, rand_bits=1, split=False)
+    j = cfg.include_threshold
+    ta = (j - t_bits[0].reshape(rows, lits).to(torch.int32)).to(
+        dtype or torch.int32)
+    weights = None
+    if cfg.tm_type == COALESCED:
+        weights = 1 - 2 * w_bits[0].reshape(cfg.classes, cfg.clauses).to(
+            torch.int32)
+    return TMState(ta, weights)
+
+
+def ta_actions(cfg: TMConfig, ta):
+    """Include/Exclude decision per TA (bool [rows, 2f])."""
+    return ta >= cfg.include_threshold

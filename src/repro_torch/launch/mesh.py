@@ -1,16 +1,105 @@
-"""The card's hardware model: the rates and launch limits of one NVIDIA H100.
+"""Device meshes over ``torch.distributed`` and the card's hardware model:
+the rates and launch limits of one NVIDIA H100.
 
-The JAX package's ``launch/mesh.py`` builds device meshes and holds the
-TPU v5e constants its roofline and pod planner read.  Only the model is
-ported here, with the H100's own figures; the mesh functions belong to
-the pod layer, which is not ported.  :data:`H100` is the SXM part at its
-data-sheet rates; :meth:`HardwareModel.from_device` fills the SM count,
-the opt-in shared memory a block may take and the device memory from
+The mesh constructors are the JAX package's (``make_tenant_mesh``,
+``make_clause_mesh``, ``make_host_mesh``, ``make_production_mesh``), each
+a ``torch.distributed.device_mesh.DeviceMesh`` with the JAX mesh's named
+axes over the ranks of the default process group, one rank per device.
+The caller initialises that group (``dist.init_process_group`` with an
+explicit ``init_method``, world size and rank: ``gloo`` for CPU meshes,
+``nccl`` on the cards); a constructor raises when no group is
+initialised or when the mesh's size is not the world's.  Meshes are on
+the cards (``device_type="cuda"``) unless the caller asks for ``"cpu"``.
+:func:`mesh_axis_size`, :func:`mesh_chips` and :func:`data_axes` read a
+mesh's shape by axis name.
+
+:data:`H100` is the SXM part at its data-sheet rates;
+:meth:`HardwareModel.from_device` fills the SM count, the opt-in shared
+memory a block may take, the L2 size and the device memory from
 ``torch.cuda.get_device_properties`` of a live card.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Sequence
+
+
+def _device_mesh(shape: Sequence[int], names: Sequence[str],
+                 device_type: str):
+    """A DeviceMesh of ``shape`` named ``names`` over the default group."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    if not dist.is_initialized():
+        raise RuntimeError("no process group: call torch.distributed."
+                           "init_process_group(backend, init_method=..., "
+                           "world_size=..., rank=...) first")
+    size = 1
+    for d in shape:
+        size *= int(d)
+    world = dist.get_world_size()
+    if size != world:
+        raise ValueError(f"mesh {tuple(shape)} over {names} has {size} "
+                         f"devices; the process group has {world} ranks")
+    return init_device_mesh(device_type, tuple(int(d) for d in shape),
+                            mesh_dim_names=tuple(names))
+
+
+def _world() -> int:
+    import torch.distributed as dist
+    if not dist.is_initialized():
+        raise RuntimeError("no process group: call torch.distributed."
+                           "init_process_group first")
+    return dist.get_world_size()
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda"):
+    """One pod (16, 16) = 256 devices over (data, model), or two, (2, 16,
+    16) over (pod, data, model); pod is pure data parallelism."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return _device_mesh(shape, axes, device_type)
+
+
+def make_host_mesh(model_axis: int = 1, device_type: str = "cuda"):
+    """Whatever the group holds: (n // model_axis, model_axis) over
+    (data, model)."""
+    n = _world()
+    return _device_mesh((max(n // model_axis, 1), model_axis),
+                        ("data", "model"), device_type)
+
+
+def make_tenant_mesh(n: Optional[int] = None, device_type: str = "cuda"):
+    """1-D serving mesh over a ``tenants`` axis (:mod:`repro_torch.launch.
+    pod`: each rank hosts a device-local slice of a stacked bank); ``n``
+    defaults to the world size."""
+    return _device_mesh((_world() if n is None else n,), ("tenants",),
+                        device_type)
+
+
+def make_clause_mesh(n: Optional[int] = None, device_type: str = "cuda"):
+    """1-D mesh over a ``clauses`` axis (one machine's clause rows spread
+    over the ranks); ``n`` defaults to the world size."""
+    return _device_mesh((_world() if n is None else n,), ("clauses",),
+                        device_type)
+
+
+def mesh_axis_size(mesh, axis: str) -> int:
+    """Devices along one named axis."""
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))[axis]
+
+
+def mesh_chips(mesh) -> int:
+    """Devices in the mesh."""
+    n = 1
+    for d in mesh.shape:
+        n *= int(d)
+    return n
+
+
+def data_axes(mesh) -> tuple:
+    """The data-parallel axes of a mesh: ``pod`` and ``data``, in order."""
+    return tuple(a for a in ("pod", "data") if a in mesh.mesh_dim_names)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -26,11 +115,21 @@ class HardwareModel:
     (2 blocks of 8 an SM) each run 8 independent chains of products
     (``b1_probe_chains_per_sm``).  Limits: threads a
     block, the dynamic shared memory a block may opt into, the portable
-    and the non-portable cluster size, and the grid's y and z extents."""
+    and the non-portable cluster size, and the grid's y and z extents.
+
+    ``l2_bytes`` is the L2 cache (50 MiB on the SXM part) and the pod
+    planner's per-device budget (:func:`repro_torch.api.plan_for`; the
+    JAX planner's is the TPU's VMEM): a train step rereads a program's
+    TA plane and include words from the level that holds them, and a
+    program that fits L2 is served from it across steps, so one that
+    does not is clause-sharded until its window does.  That threshold is
+    a premise, not a measurement: no run has yet timed clause sharding
+    over NCCL against one card reading the program from HBM."""
 
     name: str = "NVIDIA H100 80GB HBM3"
     hbm_bw: float = 3.35e12
     hbm_bytes: float = 80e9
+    l2_bytes: int = 50 * 1024 * 1024
     sms: int = 132
     sm_clock_hz: float = 1.98e9
     int32_ops: int = 64
@@ -59,6 +158,7 @@ class HardwareModel:
                        cls.smem_per_block_optin)
         return cls(name=p.name, sms=p.multi_processor_count,
                    smem_per_block_optin=int(smem),
+                   l2_bytes=int(getattr(p, "L2_cache_size", cls.l2_bytes)),
                    hbm_bytes=float(p.total_memory))
 
 

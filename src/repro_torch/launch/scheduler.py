@@ -42,6 +42,23 @@ The JAX package's ``launch/scheduler.py``, ported:
 * **Auto-pause**: with ``cfg.pause_skip_threshold`` set, a tenant whose
   clause-skip EWMA says it has converged stops training (its train
   requests serve eval probes) and resumes on a probe-accuracy drop.
+* **Pod mode** (a :class:`TMServer` whose ``pod_devices`` > 1): every
+  rank runs a scheduler over its rank of the pod server and is handed
+  the same requests in the same order per tenant, but its clock and
+  the moment a request reaches it are its own, while every flush and
+  membership move runs collectives.  So rank 0 of the tenants axis
+  decides for all: each driver cycle opens with one broadcast of its
+  batch (the tenants, in order, and each head's per-tenant submit
+  number), whether its queues hold more, and whether its loop stops;
+  each membership tick with one broadcast of its promotions.  The
+  other ranks take those heads from their queues (waiting up to
+  ``POD_SYNC_S`` for one to arrive) and follow.  Admission control
+  is rank 0's: a request it shed is dropped on the other ranks when a
+  later request of the tenant is batched, and its future there fails
+  with :class:`Backpressure`.  ``drain`` and the loop end when rank 0's
+  queues are empty; every rank calls ``start``, ``step``, ``drain`` and
+  ``stop`` alike.  Fault retries stay each rank's own, so an
+  injected fault schedule must be the same on every rank.
 
 One stream: every device operation of the driver (encodes, bank slot
 writes, flushes, training steps, collects) and of the checkpoint
@@ -82,10 +99,17 @@ import time
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
+from repro_torch.core.collectives import broadcast
 from repro_torch.launch.serve_tm import TMServer
 from repro_torch.runtime.fault import (InjectedFault, RetryPolicy,
                                        StepMonitor, with_retry)
+
+
+# pod mode: how long a rank waits for a request that rank 0 batched
+POD_SYNC_S = 30.0
 
 
 class Backpressure(RuntimeError):
@@ -228,6 +252,7 @@ class _Request:
     future: TMFuture
     y: object = None             # training labels (kind == "train")
     kind: str = "infer"          # "infer" | "train"
+    tseq: int = 0                # the tenant's submit number (pod mode)
 
 
 @dataclasses.dataclass
@@ -235,6 +260,7 @@ class _TenantState:
     sla: SLAClass
     queue: collections.deque
     arrivals: int = 0            # since the last membership tick
+    submits: int = 0             # submit calls, shed ones included
     ewma_qps: float = 0.0
     completed: int = 0
     rejected: int = 0
@@ -293,6 +319,13 @@ class TMScheduler:
         self.degraded_rejections = 0
         self.pauses = self.resumes = 0
         self._recover_until = 0.0    # batch-SLA shed deadline (perf_counter)
+        # pod mode (module docstring): rank 0 of the tenants axis leads
+        self._pod = server.pod_devices > 1
+        self._group = (server.mesh.get_group(server.tenants_axis)
+                       if self._pod else None)
+        self._follower = self._pod and dist.get_rank(self._group) != 0
+        self._more = False           # rank 0 had requests left after a pick
+        self._halt = False           # rank 0's loop stopped
         self._writer = None          # durable checkpoint writer
         if durable is not None:
             self.attach_durable(durable)
@@ -408,14 +441,18 @@ class TMScheduler:
         now = time.perf_counter()
         fut = TMFuture()
         with self._work:
-            if st.sla.priority <= 0 and now < self._recover_until:
+            st.submits += 1
+            # admission is rank 0's in pod mode
+            if (not self._follower and st.sla.priority <= 0
+                    and now < self._recover_until):
                 st.rejected += 1
                 self.rejected += 1
                 self.degraded_rejections += 1
                 raise Backpressure(
                     f"tenant {name!r} ({st.sla.name}) shed while fault "
                     "recovery is in progress — retry after the cooldown")
-            if len(st.queue) >= st.sla.max_queue_depth:
+            if (not self._follower
+                    and len(st.queue) >= st.sla.max_queue_depth):
                 st.rejected += 1
                 self.rejected += 1
                 raise Backpressure(
@@ -425,7 +462,7 @@ class TMScheduler:
             st.queue.append(_Request(
                 tenant=name, x=x, encoded=encoded, t_submit=now,
                 deadline=now + st.sla.deadline_ms / 1e3, seq=self._seq,
-                future=fut, y=y, kind=kind))
+                future=fut, y=y, kind=kind, tseq=st.submits))
             st.arrivals += 1
             self.submitted += 1
             if kind == "train":
@@ -443,21 +480,11 @@ class TMScheduler:
         order, ``max_batch_tenants`` cap): apply its training requests
         inline (per-tenant FIFO order — bit-identical to the sequential
         path), then dispatch its inference requests un-synced."""
-        now = time.perf_counter()
-        with self._work:
-            heads = [(st.queue[0], st.sla.priority)
-                     for st in self._tenants.values() if st.queue]
-            if not heads:
-                return False
-            cap = self.cfg.max_batch_tenants or len(heads)
-            if not force and len(heads) < cap:
-                oldest = min(r.t_submit for r, _ in heads)
-                if now - oldest < self.cfg.max_wait_s:
-                    return False          # keep filling the batch window
-            heads.sort(key=lambda h: (h[0].deadline, -h[1], h[0].seq))
-            batch = [r for r, _ in heads[:cap]]
-            for req in batch:
-                self._tenants[req.tenant].queue.popleft()
+        batch = None if self._follower else self._pick(force)
+        if self._pod:
+            batch = self._agree(batch)
+        if not batch:
+            return False
         # device work OUTSIDE the lock: host encode of this batch
         # overlaps whatever launch is still in flight on the device.
         # Training first: a trained tenant's bank slot is dirty and the
@@ -492,6 +519,92 @@ class TMScheduler:
                 self._in_flight.append((pf, launched))
                 self.launches += 1
         return True
+
+    def _pick(self, force: bool) -> Optional[List[_Request]]:
+        """This rank's next batch, popped from its queues (``None``: no
+        launch this cycle)."""
+        now = time.perf_counter()
+        with self._work:
+            heads = [(st.queue[0], st.sla.priority)
+                     for st in self._tenants.values() if st.queue]
+            if not heads:
+                return None
+            cap = self.cfg.max_batch_tenants or len(heads)
+            if not force and len(heads) < cap:
+                oldest = min(r.t_submit for r, _ in heads)
+                if now - oldest < self.cfg.max_wait_s:
+                    return None           # keep filling the batch window
+            heads.sort(key=lambda h: (h[0].deadline, -h[1], h[0].seq))
+            batch = [r for r, _ in heads[:cap]]
+            for req in batch:
+                self._tenants[req.tenant].queue.popleft()
+        return batch
+
+    # ---- pod mode: rank 0's decisions, broadcast ----------------------------
+    def _bcast(self, msg: List[int]) -> List[int]:
+        """Rank 0's ``msg`` (ints, the same length on every rank) on
+        every rank of the tenants axis."""
+        t = torch.tensor(msg, dtype=torch.int64,
+                         device=self.server.engine.device)
+        return broadcast(t, 0, self._group).tolist()  # dtmlint: disable=DTM003 (rank 0's decision, read by every rank)
+
+    def _agree(self, batch: Optional[List[_Request]]
+               ) -> Optional[List[_Request]]:
+        """Rank 0's batch on every rank: it sends [tenants, halt, more,
+        len, then (tenant index, submit number) for each request];
+        the others take those requests from their own queues."""
+        names = sorted(self._tenants)
+        msg = [len(names), 0, 0, 0] + [-1] * (2 * len(names))
+        if not self._follower:
+            with self._work:
+                more = bool(self._queued())
+            msg[1:4] = [int(self._stop.is_set()), int(more),
+                        len(batch or ())]
+            for j, req in enumerate(batch or ()):
+                msg[4 + 2 * j:6 + 2 * j] = [names.index(req.tenant),
+                                            req.tseq]
+        msg = self._bcast(msg)
+        if msg[0] != len(names):
+            raise RuntimeError(f"rank 0 serves {msg[0]} tenants and this "
+                               f"rank {len(names)}: register the same "
+                               "roster on every rank")
+        self._halt, self._more = bool(msg[1]), bool(msg[2])
+        if not self._follower:
+            return batch
+        return [self._take(names[msg[4 + 2 * j]], msg[5 + 2 * j])
+                for j in range(msg[3])] or None
+
+    def _take(self, name: str, tseq: int) -> _Request:
+        """A follower's request ``tseq`` of tenant ``name``, which rank 0
+        batched: popped once it has arrived; the heads before it, which
+        rank 0 shed, fail with :class:`Backpressure`."""
+        st = self._tenants[name]
+        deadline = time.monotonic() + POD_SYNC_S
+        shed = []
+        try:
+            with self._work:
+                while not (st.queue and st.queue[-1].tseq >= tseq):
+                    left = deadline - time.monotonic()
+                    if left <= 0:
+                        raise RuntimeError(
+                            f"no request {tseq} of tenant {name!r} reached "
+                            f"this rank in {POD_SYNC_S} s; rank 0 "
+                            "batched it: submit the same requests on every "
+                            "rank")
+                    self._work.wait(min(left, 0.01))
+                while st.queue[0].tseq < tseq:
+                    shed.append(st.queue.popleft())
+                    st.rejected += 1
+                    self.rejected += 1
+                req = st.queue.popleft()
+                if req.tseq != tseq:
+                    raise RuntimeError(f"request {tseq} of tenant {name!r} "
+                                       "is missing on this rank")
+                return req
+        finally:
+            for r in shed:
+                r.future.set_exception(Backpressure(
+                    f"tenant {name!r}: rank 0 shed this request"))
 
     def _encode_one(self, req: _Request) -> None:
         if self.injector is not None:
@@ -656,7 +769,8 @@ class TMScheduler:
         done = 0
         while self._in_flight and (
                 len(self._in_flight) > self.cfg.pipeline_depth
-                or (not launched and not self._queued())):
+                or (not launched and not (self._more if self._pod
+                                          else self._queued()))):
             done += self._resolve_oldest()
         self._cycles += 1
         if (self.cfg.resident_slots is not None
@@ -668,6 +782,11 @@ class TMScheduler:
         """Run the driver inline until every queued and in-flight
         request has completed; returns the number completed."""
         done = 0
+        if self._pod:         # until rank 0's queues are empty
+            while True:
+                done += self.step(force=True)
+                if not (self._in_flight or self._more):
+                    return done
         while self._queued() or self._in_flight:
             done += self.step(force=True)
         return done
@@ -683,6 +802,36 @@ class TMScheduler:
                 st.ewma_qps = a * (st.arrivals / dt) + (1 - a) * st.ewma_qps
                 st.arrivals = 0
                 st.dwell += 1
+        moves = [] if self._follower else self._moves()
+        if self._pod:         # rank 0's moves: [tenants, (hot, cold) x 2]
+            names = sorted(self._tenants)
+            msg = [len(names)] + [-1] * 4
+            for j, (hot, cold) in enumerate(moves):
+                msg[1 + 2 * j:3 + 2 * j] = [
+                    names.index(hot), -1 if cold is None
+                    else names.index(cold)]
+            msg = self._bcast(msg)
+            if msg[0] != len(names):
+                raise RuntimeError(f"rank 0 serves {msg[0]} tenants and "
+                                   f"this rank {len(names)}")
+            moves = [(names[msg[1 + 2 * j]], None if msg[2 + 2 * j] < 0
+                      else names[msg[2 + 2 * j]])
+                     for j in range(2) if msg[1 + 2 * j] >= 0]
+        for hot, cold in moves:
+            if cold is None:
+                self.server.add_resident(hot)
+            else:
+                self.server.swap_resident(cold, hot)
+                self._tenants[cold].dwell = 0
+                self.demotions += 1
+            self._tenants[hot].dwell = 0
+            self.promotions += 1
+
+    def _moves(self) -> list:
+        """This tick's membership moves, at most one a family: (hot,
+        None) promotes ``hot`` into a free slot, (hot, cold) swaps it in
+        for ``cold``."""
+        moves = []
         for conv in (False, True):
             resident = [n for n in self.server.resident_names(conv)
                         if n in self._tenants]
@@ -697,9 +846,7 @@ class TMScheduler:
                 continue
             if self.cfg.resident_slots and (
                     len(resident) < self.cfg.resident_slots):
-                self.server.add_resident(hot)
-                hs.dwell = 0
-                self.promotions += 1
+                moves.append((hot, None))
                 continue
             if not resident:
                 continue
@@ -708,10 +855,8 @@ class TMScheduler:
             if (cs.dwell >= self.cfg.min_dwell_ticks
                     and hs.ewma_qps
                     > self.cfg.promote_margin * max(cs.ewma_qps, 1e-9)):
-                self.server.swap_resident(cold, hot)
-                hs.dwell = cs.dwell = 0
-                self.promotions += 1
-                self.demotions += 1
+                moves.append((hot, cold))
+        return moves
 
     # ---- background thread mode -------------------------------------------
     def start(self) -> None:
@@ -721,6 +866,7 @@ class TMScheduler:
         if self._thread is not None:
             raise RuntimeError("scheduler already running")
         self._stop.clear()
+        self._halt = False
         self._thread = threading.Thread(
             target=self._loop, daemon=True, name="tm-scheduler")
         self._thread.start()
@@ -729,11 +875,16 @@ class TMScheduler:
 
     def _loop(self) -> None:
         poll = max(self.cfg.max_wait_s / 2, 1e-4)
-        while not self._stop.is_set():
+        # pod mode: every rank steps in lockstep with rank 0, which
+        # steps at least once an idle wait (a cycle with no batch) and
+        # stops them all
+        while not (self._halt if self._pod else self._stop.is_set()):
             with self._work:
-                if not self._queued() and not self._in_flight:
+                if (not self._follower and not self._queued()
+                        and not self._in_flight):
                     self._work.wait(self.cfg.idle_wait_s)
-                    continue
+                    if not self._pod:
+                        continue
             before = self.launches
             done = self.step(force=False)
             if done == 0 and self.launches == before:

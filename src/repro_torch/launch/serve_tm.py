@@ -1,4 +1,5 @@
-"""Multi-tenant DTM serving on one device: one engine, N tenant programs.
+"""Multi-tenant DTM serving: one engine, N tenant programs, on one device
+or over a ``tenants`` mesh axis.
 
 The accelerator is built once and switching the hosted model is a memory
 rewrite: the engine is the datapath, a :class:`DTMProgram` is the model.
@@ -43,8 +44,18 @@ operation of the server runs on the device's current stream, the one
 stream the scheduler and its checkpoint writer share: bank slot writes,
 pipelined flushes and the writer's copies are ordered by it.
 :meth:`TMServer.snapshot` copies a tenant's durable state under the
-server's lock, so a later in-place write cannot reach the copy.  Single
-device: pods are not ported.
+server's lock, so a later in-place write cannot reach the copy.
+
+Pod mode (``mesh=`` with more than one device on ``tenants_axis``): the
+banks are :class:`repro_torch.launch.pod.PodBank` s, the roster padded
+to a multiple of the device count (pad slots replay the first tenant's
+program and their answers are dropped), rank d serving its block of
+slots and every rank getting every answer.  Every rank runs the same
+server calls (SPMD); tenant records are replicated, bank slots live on
+their owning rank.  :meth:`TMServer.routing_table` maps each tenant to
+its (device, slot); ``swap_in`` writes on the owner, ``swap_out`` and
+``unstack`` broadcast from it, and :meth:`TMServer.add_resident` fills a
+pad slot in place before it restacks.
 
 Locks: the server's ``_lock`` and a graph's ``lock`` are never held
 together.  A train step or an inference runs under its graph's lock
@@ -77,6 +88,8 @@ from repro_torch.api import TM, ProgramBank, TMSpec
 from repro_torch.core.dtm import DTMEngine, DTMProgram
 from repro_torch.core import threefry
 from repro_torch.core.prng import PRNG
+from repro_torch.launch import pod as _pod
+from repro_torch.launch.pod import Route
 
 
 @dataclasses.dataclass
@@ -85,18 +98,6 @@ class _Tenant:
     program: DTMProgram
     prng: PRNG
     steps: int = 0                # lifetime applied training steps
-
-
-@dataclasses.dataclass(frozen=True)
-class Route:
-    """Where a tenant's program lives: its family's bank (``conv``), the
-    slot ``index`` in it, and the device (always 0: one card) and slot
-    on that device."""
-
-    device: int
-    slot: int
-    index: int
-    conv: bool
 
 
 @dataclasses.dataclass
@@ -119,11 +120,26 @@ class PendingFlush:
 class TMServer:
     """One engine, N resident programs, swap-per-request and stacked
     serving.  ``batch_slot`` is the fixed request batch; requests are
-    padded up to it."""
+    padded up to it.  ``mesh`` (a ``DeviceMesh``) with more than one
+    device on ``tenants_axis`` serves the banks tenant-parallel (pod
+    mode, module docstring)."""
 
-    def __init__(self, engine: DTMEngine, batch_slot: int = 32):
+    def __init__(self, engine: DTMEngine, batch_slot: int = 32, mesh=None,
+                 tenants_axis: str = "tenants"):
         self.engine = engine
         self.batch_slot = batch_slot
+        if mesh is not None:
+            names = getattr(mesh, "mesh_dim_names", None)
+            if names is None:
+                raise TypeError(f"mesh must be a DeviceMesh (repro_torch."
+                                f"launch.mesh), got {type(mesh).__name__}")
+            if tenants_axis not in names:
+                raise ValueError(f"mesh axes {tuple(names)} have no "
+                                 f"{tenants_axis!r} axis")
+        self.mesh = mesh
+        self.tenants_axis = tenants_axis
+        self.pod_devices = (_pod.mesh_axis_size(mesh, tenants_axis)
+                            if mesh is not None else 1)
         self.tenants: Dict[str, _Tenant] = {}
         self.active: Optional[str] = None
         self.swaps = 0
@@ -366,17 +382,29 @@ class TMServer:
             names[idx] = in_name
             member[member.index(out_name)] = in_name
             self._dirty.discard(in_name)
-        return Route(device=0, slot=idx, index=idx, conv=conv)
+        return _pod.routing_table(names, self.pod_devices, conv)[in_name]
 
     def add_resident(self, in_name: str) -> Optional[Route]:
-        """Promote ``in_name`` without demoting anyone: the roster grows
-        and the bank restacks at the next flush (one device has no pad
-        slots to fill in place).  Returns ``None``."""
+        """Promote ``in_name`` without demoting anyone: in pod mode into
+        the first pad slot of a built bank, in place (one routed
+        ``swap_in``; returns its :class:`Route`), else the roster grows
+        and the bank restacks at the next flush (returns ``None``)."""
         conv = self._is_conv(in_name)
         member = self._member(conv)
         if in_name in member:
             raise ValueError(f"{in_name!r} is resident already")
         self.membership_swaps += 1
+        if self.pod_devices > 1 and conv in self._banks:
+            names, bank = self._bank_for(conv)
+            pad = _pod.first_pad_slot(names)
+            if pad is not None:
+                bank.swap_in(pad, self.tenants[in_name].program)
+                with self._lock:
+                    names[pad] = in_name
+                    member.append(in_name)
+                    self._dirty.discard(in_name)
+                return _pod.routing_table(names, self.pod_devices,
+                                          conv)[in_name]
         with self._lock:
             member.append(in_name)
             self._retire(conv)
@@ -388,7 +416,19 @@ class TMServer:
         new roster of the last one's K and shapes takes over its bank
         (and so its flush graph): the slots whose tenant changed are
         rewritten in place.  Another K stacks a new bank, and the old
-        one goes with its graphs."""
+        one goes with its graphs.  Pod mode stacks a
+        :class:`repro_torch.launch.pod.PodBank` of the padded roster
+        anew."""
+        if conv not in self._banks and self.pod_devices > 1:
+            names = self._group_names(conv)
+            self._spare.pop(conv, None)
+            padded = _pod.pad_roster(names, self.pod_devices)
+            bank = _pod.pod_stack(
+                [self.tenants[n if n is not None else names[0]].program
+                 for n in padded], self.engine, self.mesh,
+                axis=self.tenants_axis, conv=conv)
+            self._banks[conv] = (padded, bank)
+            self._dirty -= set(names)
         if conv not in self._banks:
             names = self._group_names(conv)
             old_names, bank = self._spare.pop(conv, (None, None))
@@ -514,13 +554,28 @@ class TMServer:
         names, bank = self._bank_for(conv)
         progs = {}
         for k, name in enumerate(names):
+            if name is None:          # a pod roster's pad slot
+                continue
             progs[name] = bank.swap_out(k)
             self.tenants[name].program = progs[name]
         return progs
 
+    def routing_table(self) -> Dict[str, Route]:
+        """Tenant -> :class:`Route` (device, slot) over both families'
+        banks (built if need be): contiguous blocks of slots a device in
+        pod mode, device 0 on one device."""
+        table: Dict[str, Route] = {}
+        for conv in (False, True):
+            if not self._group_names(conv):
+                continue
+            names, _ = self._bank_for(conv)
+            table.update(_pod.routing_table(names, self.pod_devices, conv))
+        return table
+
     def swap_in(self, name: str, program: DTMProgram) -> int:
-        """Replace a tenant's program and write it into its bank slot;
-        returns the slot index (in its family's bank)."""
+        """Replace a tenant's program and write it into its bank slot (on
+        the owning rank in pod mode); returns the slot index (its route's
+        ``index`` in its family's bank)."""
         names, bank = self._bank_for(self._is_conv(name))
         k = names.index(name)
         program = program.to(self.engine.device)
@@ -546,7 +601,7 @@ class TMServer:
             names = sorted(self.tenants)
             return {"tenants": names, "requests": self.requests,
                     "swaps": self.swaps, "cache": self.engine.cache_report(),
-                    "pod_devices": 1,
+                    "pod_devices": self.pod_devices,
                     "stacked_launches": self.stacked_launches,
                     "coalesced_requests": self.coalesced_requests,
                     "queue_depth": len(self._pending),

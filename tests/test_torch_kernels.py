@@ -320,11 +320,15 @@ def test_port_imports_neither_jax_nor_repro():
         "          'repro_torch.analysis', 'repro_torch.analysis.__main__',\n"
         "          'repro_torch.analysis.lint',\n"
         "          'repro_torch.analysis.kernel_check',\n"
-        "          'repro_torch.analysis.trace_audit'):\n"
+        "          'repro_torch.analysis.trace_audit',\n"
+        "          'repro_torch.core.clause', 'repro_torch.core.feedback',\n"
+        "          'repro_torch.core.distributed',\n"
+        "          'repro_torch.core.collectives',\n"
+        "          'repro_torch.launch.pod'):\n"
         "    assert m in sys.modules, m\n"
         "print(len([m for m in sys.modules if m.startswith('repro_torch')]))\n")
     src = str(pathlib.Path(__file__).resolve().parents[1] / "src")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, env={**os.environ, "PYTHONPATH": src})
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.strip()) >= 45
+    assert int(r.stdout.strip()) >= 50

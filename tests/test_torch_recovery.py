@@ -20,6 +20,7 @@ reaches; a tenant's PRNG is made at registration, as in the JAX server.
 import os
 import sys
 import threading
+import types
 
 import numpy as np
 import pytest
@@ -650,9 +651,17 @@ def test_register_makes_the_prng_eagerly(roster):
 
 
 def test_serve_takes_no_mesh_and_no_cpu_fallback():
+    """``mesh`` must be a device mesh with a ``tenants`` axis (a
+    one-device one serves as no mesh does); no CPU fallback."""
     spec = demo_specs(small=True)["cotm"]
     with pytest.raises(TypeError):
         api.serve({"t": spec}, device="cpu", mesh=object())
+    one = types.SimpleNamespace(mesh_dim_names=("tenants",), shape=(1,))
+    sched = api.serve({"t": spec}, device="cpu", mesh=one)
+    assert sched.server.stats()["pod_devices"] == 1
+    with pytest.raises(ValueError, match="tenants"):
+        api.serve({"t": spec}, device="cpu", mesh=types.SimpleNamespace(
+            mesh_dim_names=("clauses",), shape=(1,)))
     with pytest.raises(ValueError):
         api.serve({}, device="cpu")
     if not torch.cuda.is_available():
