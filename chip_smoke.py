@@ -238,8 +238,34 @@ Pods over ``torch.distributed``:
      against their plain versions and the full-width launch's rows (two
      ``pod window`` rows of the kernels line, with the full width's
      ms); ``plan_for`` on the H100 budget for the roster and the
-     training model, on this world and on 4 devices.  The ``pods`` line
-     reports them.
+     training model, on this world and on 4 devices.  Every rank also
+     runs ``runtime.compression``: ``compressed_psum`` (with and without
+     error feedback) and ``exact_int8_psum`` over the data axis of the
+     world, against a CPU reference of every rank's inputs (rtol 1e-6;
+     the int8 sum exact).  The ``pods`` line reports them.
+
+The legacy variants and the substrate:
+ 20. "legacy": ``feedback_fit`` at fig 7's config (MNIST-like, 784
+     features, 128 clauses, 10 classes, T=24, s=5, threefry), sequential
+     over 64 rows and batched over 1024 rows at batch 64, each with
+     ``compute_backend="jnp"`` and ``"pallas"`` (the edge clause kernel
+     a sequential datapoint, the dense one a batched step); ``conv_tm``
+     at ``benchmarks/convtm_bench.py``'s config (8x8, patch 3, 48
+     clauses, 3 classes, T=12, s=3): 16 steps of 32 translated-motif
+     images, then ``predict`` on 128; ``regression_tm`` (128 clauses,
+     T=128): 4 steps of 32 rows and ``predict``; ``TMHead`` at the system
+     test's config (16 features x 4 thermometer bits, 32 clauses, 3
+     classes, T=16, s=4): 12 ``train_batch`` calls of 32 and ``predict``;
+     ``pool_backbone_features``; AdamW 5 steps on a dict tree in float32,
+     bfloat16 and int8 moments.  All on the card (launch counts from 0
+     just before, read just after) and again on the CPU: states, PRNGs,
+     histories, stats and predictions equal, AdamW and the pooling within
+     rtol 1e-6, atol 1e-6 (int8 moment codes equal); 64 edge and 16
+     dense clause launches.  The ``legacy`` line reports host ms a step
+     of each, and the kernels line gains the ``legacy`` rows: the edge
+     clause kernel at B=1, R=128, W=49, the dense one at B=64, C=128,
+     L=1568, and ``threefry_bits`` at a datapoint's TA draw (401,408
+     words).
 
 Bounds: bytes over 3.35 TB/s; integer operations over 64 per clock per
 SM (the CUDA guide's rate for 32-bit integer add, logic, shift, compare
@@ -279,7 +305,7 @@ kernel here does float work.
 
 Prints the card line, ``serving``, ``training``, ``conv``,
 ``scheduler``, ``threefry``, ``ref_path``, ``graphs``,
-``served_graphs``, ``tuned`` and ``pods`` JSON lines, a
+``served_graphs``, ``tuned``, ``pods`` and ``legacy`` JSON lines, a
 ``kernels`` JSON line and, last, ``{"ok": true, "device": {...}}``.  Any
 failed check raises, and the exit code is then non-zero.  Without a CUDA card,
 or without the repository beside it, it exits non-zero and prints no
@@ -2073,6 +2099,27 @@ def _pods_body(np, torch, api, convert, PRNG, ops, pod, make_clause_mesh,
     sync()
     out["launches"] = ops.launch_counts()
     out["phase_s"] = time.perf_counter() - t_phase
+    # the compressed reductions over the data axis of every rank (one
+    # NCCL rank a card), against a CPU reference of the world's inputs
+    from repro_torch.runtime import compressed_psum, exact_int8_psum
+    grp = make_host_mesh(1).get_group("data")
+    xs = [compression_inputs(np, r) for r in range(world)]
+    cx, ce, cd = (torch.from_numpy(a).cuda() for a in xs[rank])
+    t = time.perf_counter()
+    comp = {"plain": compressed_psum(cx, grp),
+            "error": compressed_psum(cx, grp, ce)}
+    isum = exact_int8_psum(cd, grp)
+    sync()
+    comp_ms = (time.perf_counter() - t) * 1e3
+    for name, (tot, res) in comp.items():
+        w_tot, w_res = compression_reference(torch, xs, rank,
+                                             name == "error")
+        check(torch.allclose(tot.cpu(), w_tot, rtol=1e-6, atol=0)
+              and torch.allclose(res.cpu(), w_res, rtol=1e-6, atol=1e-7),
+              f"compressed_psum ({name}) differs from its CPU reference")
+    check(torch.equal(isum.cpu(), torch.from_numpy(
+        sum(x[2] for x in xs)).to(torch.int32)),
+        "exact_int8_psum differs from the sum of the ranks' deltas")
 
     # ---- checks --------------------------------------------------------------
     check(torch.equal(sums, ref_sums) and torch.equal(cl, ref_cl)
@@ -2109,6 +2156,9 @@ def _pods_body(np, torch, api, convert, PRNG, ops, pod, make_clause_mesh,
         "world": world, "clause_shards": stm.shards,
         "r_loc": eng.R // stm.shards,
         "sharded_infer_ms": infer_ms, "sharded_step_ms": step_ms,
+        "compression": {"shape": list(cx.shape), "ms_three_calls": comp_ms,
+                        "checks": "compressed_psum (plain, error "
+                        "feedback) rtol 1e-6, exact_int8_psum exact"},
         "legacy": {"model": "MNIST CoTM widths, counter streams, "
                    "compute_backend=pallas", "dp_rows": lb,
                    "host_ms": legacy_ms},
@@ -2122,6 +2172,30 @@ def _pods_body(np, torch, api, convert, PRNG, ops, pod, make_clause_mesh,
                   "pod_devices": st["server"]["pod_devices"],
                   "stacked_launches": st["server"]["stacked_launches"]}})
     return out
+
+
+def compression_inputs(np, rank: int):
+    """Rank ``rank``'s inputs of phase 19's compressed reductions: a
+    float32 tensor (its absmax grows with the rank), an error-feedback
+    residual, and int32 deltas in [-100, 100]."""
+    rng = np.random.default_rng(1900 + rank)
+    x = (rng.standard_normal((256, 64)) * (rank + 1)).astype(np.float32)
+    err = (rng.standard_normal((256, 64)) * 0.01).astype(np.float32)
+    return x, err, rng.integers(-100, 101, (128, 64)).astype(np.int32)
+
+
+def compression_reference(torch, xs, rank: int, error: bool):
+    """``compressed_psum``'s (sum, residual) for ``rank`` computed on the
+    CPU from every rank's inputs ``xs``, without a collective."""
+    xf = [torch.from_numpy(x) + (torch.from_numpy(e) if error else 0)
+          for x, e, _ in xs]
+    scale = torch.stack([torch.clamp(x.abs().max() / 127.0, min=1e-20)
+                         for x in xf]).max()
+    q = [torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+         for x in xf]
+    total = torch.stack([v.to(torch.int32) for v in q]).sum(0)
+    return (total.to(torch.float32) * scale,
+            xf[rank] - q[rank].to(torch.float32) * scale)
 
 
 def pods_child(rank: int, world: int, init_file: str, inp: dict,
@@ -2220,6 +2294,301 @@ def pods_phase(torch, np, api, ops, inp: dict, plan_specs: dict,
     out.update({"card": card, "cards": torch.cuda.device_count(),
                 "plans": plans})
     return out
+
+
+LEGACY_SEQ_ROWS = 64         # feedback_fit sequential rows (one epoch)
+LEGACY_BATCH_ROWS = 1024     # feedback_fit batched rows, batch 64
+CONV_IMAGES = 512            # conv_tm training images (batch 32), 128 more
+HEAD_BATCHES = 12            # TMHead.train_batch calls of 32 rows
+REG_STEPS = 4                # regression_tm steps of 32 rows
+ADAM_STEPS = 5               # AdamW steps a moment dtype
+
+
+def translated_motifs(np, n: int, seed: int):
+    """``benchmarks/convtm_bench.py``'s images: one of three 3x3 motifs
+    at a random place of an 8x8 image with 5 % background bits; the
+    label is the motif."""
+    rng = np.random.default_rng(seed)
+    motifs = np.array([[[1, 1, 1], [0, 0, 0], [1, 1, 1]],
+                       [[1, 0, 1], [1, 0, 1], [1, 0, 1]],
+                       [[0, 1, 0], [1, 1, 1], [0, 1, 0]]], np.int8)
+    y = rng.integers(0, 3, n).astype(np.int32)
+    x = (rng.random((n, 8, 8)) < 0.05).astype(np.int8)
+    for i in range(n):
+        r, c = rng.integers(0, 6, 2)
+        x[i, r:r + 3, c:c + 3] = motifs[y[i]]
+    return x, y
+
+
+def legacy_work(torch, np, datasets, dev: str) -> dict:
+    """Phase 20's calls on ``dev``, each timed on the host (a synchronise
+    after each on the card): ``feedback_fit`` at fig 7's config
+    (MNIST-like, 784 features, 128 clauses, 10 classes, T=24, s=5,
+    threefry), sequential over ``LEGACY_SEQ_ROWS`` rows and batched over
+    ``LEGACY_BATCH_ROWS`` at batch 64, each with ``compute_backend``
+    ``jnp`` and ``pallas``; ``conv_tm`` at convtm_bench's config (8x8,
+    patch 3, 48 clauses, 3 classes, T=12, s=3) over ``CONV_IMAGES``
+    translated-motif images at batch 32, then ``predict`` on 128;
+    ``regression_tm`` at 128 clauses, T=128 (``REG_STEPS`` steps, then
+    ``predict``); ``TMHead`` at the system test's config (16 features x 4
+    thermometer bits, 32 clauses, 3 classes, T=16, s=4: ``HEAD_BATCHES``
+    batches of 32, ``predict``) and ``pool_backbone_features``; AdamW
+    ``ADAM_STEPS`` steps on a dict tree in each moment dtype.  Returns
+    every result as numpy (states, PRNGs, histories, predictions, stats)
+    and the host seconds."""
+    from repro_torch import convert
+    from repro_torch.core import (TMConfig, conv_tm, regression_tm,
+                                  threefry, to_literals)
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.core.evaluate import feedback_fit
+    from repro_torch.core.tm_head import TMHead, pool_backbone_features
+    from repro_torch.optim import adam
+
+    def sync():
+        if dev == "cuda":
+            torch.cuda.synchronize()
+
+    def host(t):
+        return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) \
+            else t
+
+    out, secs = {}, {}
+    # ---- feedback_fit at fig 7's config -------------------------------------
+    x7, y7 = datasets.make_bool_dataset(datasets.MNIST_LIKE,
+                                        LEGACY_BATCH_ROWS, seed=7)
+    fig7 = dict(tm_type="coalesced", features=784, clauses=128, classes=10,
+                T=24, s=5.0, prng_backend="threefry")
+    for mode, rows in (("sequential", LEGACY_SEQ_ROWS),
+                       ("batched", LEGACY_BATCH_ROWS)):
+        for backend in ("jnp", "pallas"):
+            cfg = TMConfig(compute_backend=backend, **fig7)
+            t = time.perf_counter()
+            st, pr, hist = feedback_fit(cfg, x7[:rows], y7[:rows], epochs=1,
+                                        batch=64, seed=0, mode=mode,
+                                        device=dev)
+            sync()
+            key = f"feedback_fit {mode} {backend}"
+            secs[key] = time.perf_counter() - t
+            out[key] = (convert.state_to_numpy(st), convert.prng_to_numpy(pr),
+                        hist)
+    # ---- conv_tm at convtm_bench's config -----------------------------------
+    ccfg = conv_tm.ConvTMConfig(img_h=8, img_w=8, patch=3, clauses=48,
+                                classes=3, T=12, s=3.0)
+    xi, yi = translated_motifs(np, CONV_IMAGES + 128, 0)
+    st, pr = conv_tm.init(ccfg, threefry.key(0, dev), device=dev)
+    steps, correct = [], []
+    for i in range(0, CONV_IMAGES, 32):
+        t = time.perf_counter()
+        st, pr, s_ = conv_tm.train_step(ccfg, st, pr, xi[i:i + 32],
+                                        yi[i:i + 32])
+        sync()
+        steps.append(time.perf_counter() - t)
+        correct.append(int(s_["correct"]))
+    pred = conv_tm.predict(ccfg, st, xi[CONV_IMAGES:])
+    out["conv_tm"] = (convert.state_to_numpy(st), convert.prng_to_numpy(pr),
+                      correct, host(pred))
+    secs["conv_tm steps"] = steps
+    secs["conv_tm test_acc"] = float((host(pred) == yi[CONV_IMAGES:]).mean())
+    # ---- regression_tm at 128 clauses, T=128 ------------------------------
+    rcfg = regression_tm.RegressionTMConfig(features=32, clauses=128, T=128,
+                                            s=3.0)
+    rng = np.random.default_rng(20)
+    xr = (rng.random((REG_STEPS * 32 + 64, 32)) < 0.5).astype(np.int8)
+    tr = xr[:, :8].mean(axis=1).astype(np.float32)   # the share of 8 bits
+    st, pr = regression_tm.init(rcfg, threefry.key(1, dev), device=dev)
+    steps, maes = [], []
+    for i in range(REG_STEPS):
+        lits = to_literals(torch.from_numpy(xr[i * 32:(i + 1) * 32])).to(dev)
+        t = time.perf_counter()
+        st, pr, m_ = regression_tm.train_step(
+            rcfg, st, pr, lits, torch.from_numpy(tr[i * 32:(i + 1) * 32]))
+        sync()
+        steps.append(time.perf_counter() - t)
+        maes.append(float(m_["mae"]))
+    pred = regression_tm.predict(
+        rcfg, st, to_literals(torch.from_numpy(xr[-64:])).to(dev))
+    out["regression_tm"] = (convert.state_to_numpy(st),
+                            convert.prng_to_numpy(pr), maes, host(pred))
+    secs["regression_tm steps"] = steps
+    # ---- TMHead at the system test's config, and the pooling --------------
+    rng = np.random.default_rng(0)
+    protos = rng.standard_normal((3, 16))
+    yh = rng.integers(0, 3, 512).astype(np.int32)
+    feats = (protos[yh] + 0.3 * rng.standard_normal((512, 16))).astype(
+        np.float32)
+    head = TMHead.create(16, 3, calib=feats[:128], therm_bits=4, clauses=32,
+                         T=16, s=4.0, seed=0, device=dev)
+    steps, stats = [], []
+    for i in range(HEAD_BATCHES):
+        t = time.perf_counter()
+        st_ = head.train_batch(feats[i * 32:(i + 1) * 32],
+                               yh[i * 32:(i + 1) * 32])
+        sync()
+        steps.append(time.perf_counter() - t)
+        stats.append([int(v) for v in (st_.selected_clauses,
+                                       st_.active_groups, st_.total_groups,
+                                       st_.correct)])
+    pred = host(head.predict(feats[384:]))
+    out["TMHead"] = (convert.state_to_numpy(head.state),
+                     convert.prng_to_numpy(head.prng), stats, pred)
+    secs["TMHead batches"] = steps
+    secs["TMHead test_acc"] = float((pred == yh[384:]).mean())
+    hidden = rng.standard_normal((8, 12, 16)).astype(np.float32)
+    mask = (rng.random((8, 12)) < 0.7).astype(np.int32)
+    out["pool"] = [host(pool_backbone_features(
+        torch.from_numpy(hidden).to(dev),
+        None if m is None else torch.from_numpy(m).to(dev)))
+        for m in (None, mask)]
+    # ---- AdamW in its three moment dtypes ---------------------------------
+    rng = np.random.default_rng(21)
+    shapes = {"w": (64, 32), "b": (32,), "layers": [{"k": (16, 16)}]}
+
+    def normal_tree():
+        return tree_lib.map(
+            lambda s_: rng.standard_normal(s_).astype(np.float32), shapes,
+            is_leaf=lambda s_: isinstance(s_, tuple))
+    p_np = normal_tree()
+    grads = [normal_tree() for _ in range(ADAM_STEPS)]
+
+    def dev_tree(tr_):
+        return tree_lib.map(lambda a: torch.from_numpy(a).to(dev), tr_)
+    for dt in ("float32", "bfloat16", "int8"):
+        cfg = adam.AdamWConfig(lr=1e-2, warmup_steps=2, total_steps=6,
+                               state_dtype=dt)
+        params = dev_tree(p_np)
+        state = adam.init(cfg, params)
+        t = time.perf_counter()
+        for g in grads:
+            params, state, met = adam.apply(cfg, params, dev_tree(g), state)
+        sync()
+        secs[f"adamw {dt}"] = (time.perf_counter() - t) / ADAM_STEPS
+        out[f"adamw {dt}"] = (tree_lib.map(host, params),
+                              convert.adam_state_to_numpy(state),
+                              {k: float(v) for k, v in met.items()})
+    return {"out": out, "secs": secs}
+
+
+def _tree_equal(np, a, b, tol=None) -> bool:
+    """Two numpy trees (dicts, lists, tuples, scalars) equal leaf for
+    leaf: exactly, or for floating leaves within ``tol`` = (rtol, atol)."""
+    from repro_torch.core import tree as tree_lib
+    la, lb = tree_lib.leaves(a), tree_lib.leaves(b)
+    if len(la) != len(lb):
+        return False
+    for x, y in zip(la, lb):
+        x, y = np.asarray(x), np.asarray(y)
+        if x.shape != y.shape or x.dtype != y.dtype:
+            return False
+        if tol is not None and x.dtype.kind == "f":
+            if not np.allclose(x, y, rtol=tol[0], atol=tol[1]):
+                return False
+        elif not np.array_equal(x, y):
+            return False
+    return True
+
+
+def _tree_err(np, a, b) -> float:
+    """The largest absolute difference over the floating leaves of two
+    numpy trees of one structure."""
+    from repro_torch.core import tree as tree_lib
+    return max([float(np.abs(np.asarray(x, np.float64)
+                             - np.asarray(y, np.float64)).max())
+                for x, y in zip(tree_lib.leaves(a), tree_lib.leaves(b))
+                if np.asarray(x).dtype.kind == "f" and np.asarray(x).size]
+               or [0.0])
+
+
+def legacy_phase(torch, np, ops, datasets, card: str) -> dict:
+    """Phase 20: :func:`legacy_work` on the card (launch counts from 0
+    just before, read just after; the edge clause kernel's and the dense
+    clause kernel's arguments captured) and on the CPU, every result held
+    against the CPU's: integer results (TA states, weights, PRNGs,
+    histories, stats, predictions) exactly, AdamW and the pooling at
+    rtol=1e-6, atol=1e-6 (AdamW's int8 moment codes exactly).  Returns the
+    ``legacy`` report, the counts and the captured arguments."""
+    caps = {}
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with Capture(ops, "packed_clause_eval") as cap_pe, \
+            Capture(ops, "clause_eval") as cap_ce:
+        gpu = legacy_work(torch, np, datasets, "cuda")
+    phase_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    caps["packed_clause_eval"], caps["clause_eval"] = cap_pe.args, cap_ce.args
+    t0 = time.perf_counter()
+    cpu = legacy_work(torch, np, datasets, "cpu")
+    cpu_s = time.perf_counter() - t0
+    g, c = gpu["out"], cpu["out"]
+    float_err, bad = {}, []
+    for key in g:
+        if key.startswith("adamw"):
+            # float32 reductions, cos and pow round differently on the
+            # card: rtol 1e-6 with atol 1e-6 for values near 0, as the
+            # pooling; the int8 moment codes exactly
+            params, st, met = g[key]
+            cp, cst, cmet = c[key]
+            float_err[key] = {"params": _tree_err(np, params, cp),
+                              "state": _tree_err(np, tuple(st),
+                                                 tuple(cst)),
+                              "metrics": _tree_err(np, met, cmet)}
+            print(f"legacy: {key} max abs err card vs CPU: "
+                  f"{json.dumps(float_err[key])}")
+            bad.extend([] if _tree_equal(np, params, cp, (1e-6, 1e-6))
+                       and _tree_equal(np, tuple(st), tuple(cst),
+                                       (1e-6, 1e-6))
+                       and _tree_equal(np, met, cmet, (1e-6, 1e-6))
+                       else [key])
+        elif key == "pool":
+            float_err[key] = _tree_err(np, g[key], c[key])
+            check(_tree_equal(np, g[key], c[key], (1e-6, 1e-6)),
+                  "pool_backbone_features on the card differs from the "
+                  f"CPU's: {float_err[key]}")
+        else:
+            check(_tree_equal(np, list(g[key]), list(c[key])),
+                  f"{key} on the card differs from the CPU's")
+    check(not bad, f"{bad} on the card differ from the CPU's beyond rtol "
+          f"1e-6, atol 1e-6: {float_err}")
+    seq = g["feedback_fit sequential pallas"][2][0]
+    bat = g["feedback_fit batched pallas"][2][0]
+    check(seq["selected_clauses"] > 0 and bat["selected_clauses"] > 0,
+          "feedback_fit selected no clause")
+    check(counts["packed_clause_eval"] == LEGACY_SEQ_ROWS
+          and counts["clause_eval"] == LEGACY_BATCH_ROWS // 64
+          and counts["threefry_bits"] > 0,
+          f"the legacy path launched {counts}")
+    secs, csecs = gpu["secs"], cpu["secs"]
+
+    def med_ms(v):
+        return float(np.median(v) * 1e3)
+    host_ms = {}
+    for mode, rows, steps in (("sequential", LEGACY_SEQ_ROWS,
+                               LEGACY_SEQ_ROWS),
+                              ("batched", LEGACY_BATCH_ROWS,
+                               LEGACY_BATCH_ROWS // 64)):
+        for backend in ("jnp", "pallas"):
+            k = f"feedback_fit {mode} {backend}"
+            host_ms[k] = {"fit_s": secs[k], "cpu_fit_s": csecs[k],
+                          "ms_per_step": secs[k] / steps * 1e3,
+                          "steps": steps, "rows": rows}
+    for k in ("conv_tm steps", "regression_tm steps", "TMHead batches"):
+        host_ms[k] = {"median_ms": med_ms(secs[k]),
+                      "cpu_median_ms": med_ms(csecs[k]),
+                      "first_ms": secs[k][0] * 1e3, "n": len(secs[k])}
+    for dt in ("float32", "bfloat16", "int8"):
+        host_ms[f"adamw {dt} step"] = {"ms": secs[f"adamw {dt}"] * 1e3,
+                                       "cpu_ms": csecs[f"adamw {dt}"] * 1e3}
+    for k, v in host_ms.items():
+        print(f"legacy: {k}: {json.dumps(v)}")
+    report = {
+        "card": card, "phase_s": phase_s, "cpu_s": cpu_s,
+        "checks": "every result equal to the CPU's (AdamW and pooling "
+                  "rtol 1e-6, atol 1e-6; int8 moment codes equal)",
+        "float_max_abs_err": float_err,
+        "host_ms": host_ms, "launches": counts,
+        "conv_test_acc": secs["conv_tm test_acc"],
+        "head_test_acc": secs["TMHead test_acc"],
+        "feedback_fit_first_epoch": {"sequential": seq, "batched": bat}}
+    return report, counts, caps
 
 
 def main(argv=None) -> int:
@@ -3018,6 +3387,10 @@ def main(argv=None) -> int:
     pods_report["ta_window"] = {"row0": row0_w, "r_loc": r_loc_w,
                                 "max_abs_err": win_err}
 
+    # ---- 20. the legacy variants, feedback_fit and AdamW, card vs CPU -------
+    legacy_report, counts20, caps20 = legacy_phase(torch, np, ops, datasets,
+                                                   card)
+
     # ---- 6. timing -------------------------------------------------------------
     cold = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
     it = ITERS
@@ -3568,6 +3941,55 @@ def main(argv=None) -> int:
                    "full_width_bound_ms": bound(
                        *ta_cost(fa, fkw, sparse=sparse), int_rate)[0]})
 
+    # phase 20's kernels at its shapes (fig 7's feedback_fit with
+    # compute_backend="pallas"): the edge clause kernel of a sequential
+    # datapoint (B=1), the dense clause kernel of a batched step (B=64),
+    # threefry_bits at a sequential datapoint's TA draw; launches are
+    # phase 20's, counted from 0 just before it
+    lp_a, lp_kw = copies(caps20["packed_clause_eval"][0]), \
+        caps20["packed_clause_eval"][1]
+    _, err_lp = compare_one(packed_clause_eval, packed_clause_eval_plain,
+                            lp_a, lp_kw)
+    lk, lb, lw = lp_a[0].shape
+    lr, lbits = lp_a[1].shape[1], lp_kw.get("n_bits") or 32 * lw
+    lneg = (unpack_literals(lp_a[0], lbits) == 0).to(torch.float32)
+    linc = unpack_literals(lp_a[1], lbits).to(torch.float32)
+    row("packed_clause_eval", cu + "packed_clause.cu",
+        "src/repro/kernels/packed_clause.py:107",
+        counts20["packed_clause_eval"], err_lp,
+        lambda: packed_clause_eval(*lp_a, **lp_kw),
+        lambda: packed_clause_eval_plain(*lp_a, **lp_kw),
+        yardstick(lambda: torch.matmul(lneg, linc.transpose(-1, -2)),
+                  "matmul"),
+        4 * (lb * lw + lr * lw + lb * lr), lb * (lr * lw + lr),
+        f"legacy feedback_fit sequential K={lk} B={lb} R={lr} W={lw} "
+        f"n_bits={lbits} eval_mode={lp_kw.get('eval_mode')}",
+        library_note="torch.matmul float32, TF32 off, on the unpacked "
+        "operands (violation counts)")
+    lc_a, lc_kw = copies(caps20["clause_eval"][0]), caps20["clause_eval"][1]
+    _, err_lc = compare_one(clause_eval, clause_eval_plain, lc_a, lc_kw)
+    k_, b_, l_ = lc_a[0].shape
+    c_ = lc_a[1].shape[1]
+    row("clause_eval", cu + "clause_eval.cu",
+        "src/repro/kernels/clause_eval.py:72", counts20["clause_eval"],
+        err_lc, lambda: clause_eval(*lc_a, **lc_kw),
+        lambda: clause_eval_plain(*lc_a, **lc_kw),
+        yardstick(int_mm((lc_a[0] == 0).to(torch.int8), lc_a[1]), "_int_mm"),
+        k_ * b_ * l_ + k_ * c_ * l_ + 4 * k_ * b_ * c_, 2 * k_ * b_ * c_ * l_,
+        f"legacy feedback_fit batched K={k_} B={b_} C={c_} L={l_} "
+        f"eval_mode={lc_kw.get('eval_mode')}", rate=INT8_TC_OPS_PER_S,
+        library_note=f"torch._int_mm x{k_} (violation counts)")
+    lkey = threefry.key(args.seed, "cuda")
+    lsize = 2 * 128 * 2 * 784            # a datapoint's ta_rand, fig 7
+    _, err_ltf = compare_all(threefry_bits, threefry_bits_plain,
+                             (lkey, lsize, 16), {})
+    row("threefry_bits", cu + "threefry.cu",
+        "no Pallas: src/repro/core/prng.py:214-220",
+        counts20["threefry_bits"], err_ltf, tf_at(lkey, lsize, 16),
+        tf_at(lkey, lsize, 16, fn=threefry_bits_plain), None,
+        *tf_cost(lsize), f"legacy feedback_fit ta_rand K=1 size={lsize} "
+        "rand_bits=16 split=True", plain_graph=False, rate=issue_rate)
+
     def ms_of(name, shape):
         """``ms`` of the kernels-line row ``name`` whose shape starts
         with ``shape``."""
@@ -3691,6 +4113,7 @@ def main(argv=None) -> int:
     print(json.dumps({"served_graphs": served_report}))
     print(json.dumps({"tuned": tuned_report}))
     print(json.dumps({"pods": pods_report}))
+    print(json.dumps({"legacy": legacy_report}))
     print(json.dumps({"kernels": rows_out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

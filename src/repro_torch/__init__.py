@@ -1,4 +1,4 @@
-"""PyTorch and CUDA port of the DTM engine (serving slice).
+"""PyTorch and CUDA port of the DTM engine and its package.
 
 The JAX package ``repro`` is the reference; this package imports neither
 it nor JAX.  Entry points run on the card unless the caller passes

@@ -7,9 +7,10 @@ One directory per step, ``step_XXXXXXXX/``, holding ``shard-0-of-1.npz``
 it with one ``os.replace``, so a crash mid-save never leaves a step that
 :func:`latest_step` would pick; the first writer of a step wins.
 
-The files cross between the two packages.  A tree is dicts of arrays,
-tensors and :class:`~repro_torch.core.prng.PRNG` s, flattened in JAX's
-pytree order: a dict by sorted key, a PRNG as its state's leaves
+The files cross between the two packages.  A tree is dicts (lists,
+tuples) of arrays, tensors and :class:`~repro_torch.core.prng.PRNG` s,
+flattened in JAX's pytree order (:mod:`repro_torch.core.tree`): a dict by
+sorted key, a PRNG as its state's leaves
 (``lanes, master, cycles`` for lfsr, the one counter word for counter,
 the one key [2] for threefry);
 ``TM.save``'s ``{"ta", "weights", "prng"}`` is therefore ``prng…, ta,
@@ -25,7 +26,6 @@ and :func:`restore` pins its step while it reads; the retention sweep
 """
 from __future__ import annotations
 
-import dataclasses
 import errno
 import json
 import os
@@ -37,7 +37,7 @@ from typing import Any, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.prng import PRNG, LFSRState
+from repro_torch.core import tree as tree_lib
 
 # ---- reader/GC coordination (process-local) --------------------------------
 # _RESOLVED:  ckpt_dir -> (step, monotonic time of the last latest_step())
@@ -80,33 +80,19 @@ def _pin(ckpt_dir: str, step: int, delta: int) -> None:
 # A leaf is (value, u32): u32 marks a PRNG word, uint32 in the JAX package
 # and int64 here.
 
+def _u32_marks(td: tree_lib.TreeDef, in_prng: bool = False) -> List[bool]:
+    if td.kind == "leaf":
+        return [in_prng]
+    inner = in_prng or td.kind == "prng"
+    return [m for c in td.children for m in _u32_marks(c, inner)]
+
+
 def _flatten(tree) -> Tuple[List[Tuple[Any, bool]], str]:
-    """(leaves, structure description) of a tree of dicts, PRNGs and
-    arrays."""
-    if isinstance(tree, dict):
-        leaves, parts = [], []
-        for k in sorted(tree):
-            sub, d = _flatten(tree[k])
-            leaves += sub
-            parts.append(f"{k!r}: {d}")
-        return leaves, "{" + ", ".join(parts) + "}"
-    if isinstance(tree, PRNG):
-        names = ("lanes", "master", "cycles") if tree.backend == "lfsr" \
-            else ("state",)
-        return ([(t, True) for t in tree.leaves()],
-                f"PRNG[{tree.backend}]({', '.join(names)})")
-    return [(tree, False)], "*"
-
-
-def _unflatten(like, it):
-    """A tree of ``like``'s structure with its leaves taken from ``it``."""
-    if isinstance(like, dict):
-        return {k: _unflatten(like[k], it) for k in sorted(like)}
-    if isinstance(like, PRNG):
-        leaves = [next(it) for _ in like.leaves()]
-        st = LFSRState(*leaves) if like.backend == "lfsr" else leaves[0]
-        return dataclasses.replace(like, state=st)
-    return next(it)
+    """(leaves with their PRNG marks, structure description) of a tree of
+    dicts, lists, tuples, PRNGs and arrays (:mod:`repro_torch.core.
+    tree`)."""
+    leaves, td = tree_lib.flatten(tree)
+    return list(zip(leaves, _u32_marks(td))), str(td)
 
 
 def _to_numpy(x, u32: bool) -> np.ndarray:
@@ -242,7 +228,7 @@ def _restore_pinned(ckpt_dir: str, step: int, like: Any) -> Tuple[Any, dict]:
                 raise ValueError(f"leaf {i}: saved {tuple(arr.shape)} != "
                                  f"expected {tuple(ref.shape)}")
             out.append(_like_leaf(arr, ref))
-    return _unflatten(like, iter(out)), meta["extra"]
+    return tree_lib.unflatten(tree_lib.flatten(like)[1], out), meta["extra"]
 
 
 def restore_latest(ckpt_dir: str, like: Any

@@ -18,6 +18,14 @@ leading K on each.
 A legacy :class:`~repro_torch.core.types.TMState` crosses as ``{"ta",
 "weights"}`` (``weights`` ``None`` for Vanilla), the JAX ``TMState``'s
 arrays with their dtypes: ``{"ta": np.asarray(s.ta), "weights": ...}``.
+A :class:`~repro_torch.core.tm_head.TMHead` crosses as its config, its
+booleanizer's thresholds, that state dict and that PRNG dict.
+
+An AdamW state (:class:`~repro_torch.optim.adam.AdamState`) crosses as an
+``AdamState`` of numpy leaves over the same trees
+(:mod:`repro_torch.core.tree`): a JAX state is ``jax.tree.map(np.asarray,
+state)``.  bfloat16 moments cross as float32 (the same values; numpy has
+no bfloat16 of its own).
 """
 from __future__ import annotations
 
@@ -28,8 +36,12 @@ import torch
 
 from repro_torch.core.dtm import (FIELDS, U32_FIELDS, Device, DTMProgram,
                                   resolve_device)
+from repro_torch.core import tree as tree_lib
+from repro_torch.core.booleanize import Booleanizer
 from repro_torch.core.prng import PRNG, LFSRState
-from repro_torch.core.types import TMState
+from repro_torch.core.tm_head import TMHead
+from repro_torch.core.types import TMConfig, TMState
+from repro_torch.optim.adam import _DTYPES, AdamState
 
 PRNG_CONFIG = ("backend", "lfsr_bits", "rand_bits", "seed_refresh")
 LFSR_LEAVES = ("lanes", "master", "cycles")
@@ -112,3 +124,47 @@ def state_to_numpy(state: TMState) -> Dict[str, Optional[np.ndarray]]:
     return {"ta": state.ta.detach().cpu().numpy(),
             "weights": (None if state.weights is None
                         else state.weights.detach().cpu().numpy())}
+
+
+def head_from_numpy(cfg: TMConfig, thresholds: np.ndarray,
+                    state: Mapping[str, Optional[np.ndarray]], prng: Mapping,
+                    device: Device = None) -> TMHead:
+    """A :class:`TMHead` of config ``cfg`` from its booleanizer's
+    thresholds [f_raw, bits], a state dict and a PRNG dict, on ``device``
+    (default CUDA)."""
+    return TMHead(cfg, Booleanizer(np.asarray(thresholds, np.float32)),
+                  state_from_numpy(state, device), prng_from_numpy(prng,
+                                                                   device))
+
+
+def _leaf_to_numpy(t) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.to(torch.float32) if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def adam_state_to_numpy(state: AdamState) -> AdamState:
+    """An :class:`AdamState` of tensors -> the same of numpy arrays."""
+    return AdamState(*(tree_lib.map(_leaf_to_numpy, f) for f in state))
+
+
+def adam_state_from_numpy(state, state_dtype: str = "float32",
+                          device: Device = None) -> AdamState:
+    """Inverse of :func:`adam_state_to_numpy` (or a JAX state's numpy
+    leaves) on ``device`` (default CUDA): the moments in ``state_dtype``,
+    the step int32, the scales float32."""
+    dev = resolve_device(device)
+
+    def leaf(dtype):
+        def to(a):
+            a = np.asarray(a)
+            if a.dtype.kind not in "biuf" or a.dtype.name == "bfloat16":
+                a = a.astype(np.float32)      # ml_dtypes' bfloat16
+            return torch.from_numpy(np.array(a, order="C")).to(
+                device=dev, dtype=dtype)
+        return to
+    moment = leaf(_DTYPES[state_dtype])
+    scale = leaf(torch.float32)
+    step, m, v, ms, vs = state
+    return AdamState(leaf(torch.int32)(step), tree_lib.map(moment, m),
+                     tree_lib.map(moment, v), tree_lib.map(scale, ms),
+                     tree_lib.map(scale, vs))

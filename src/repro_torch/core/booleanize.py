@@ -86,3 +86,14 @@ def fit_thermometer(calib: np.ndarray, bits: int = 1) -> Booleanizer:
     qs = np.linspace(0.0, 1.0, bits + 2)[1:-1]
     cuts = np.quantile(calib, qs, axis=0).T.astype(np.float32)
     return Booleanizer(thresholds=np.ascontiguousarray(cuts))
+
+
+def fit_threshold(calib: np.ndarray, value: float | None = None
+                  ) -> Booleanizer:
+    """One cut per feature: ``value`` for every feature, or each
+    feature's median over the calibration array [n, f_raw]."""
+    if value is not None:
+        cuts = np.full((calib.shape[1], 1), value, np.float32)
+    else:
+        cuts = np.median(calib, axis=0)[:, None].astype(np.float32)
+    return Booleanizer(thresholds=cuts)

@@ -104,6 +104,14 @@ def clause_outputs_pallas(cfg: TMConfig, include: torch.Tensor,
     return clause_fn_for_path(path)(cfg, include, literals, eval_mode)
 
 
+def weighted_sums(clause_out: torch.Tensor, weights: torch.Tensor
+                  ) -> torch.Tensor:
+    """CoTM class sums: clause outputs [B, C] x weights [H, C] -> [B, H]
+    int32, an exact integer sum (no int32 matmul on the card)."""
+    return (clause_out[:, None, :].to(torch.int64)
+            * weights[None].to(torch.int64)).sum(dim=-1).to(torch.int32)
+
+
 def class_sums(cfg: TMConfig, state: TMState, literals: torch.Tensor,
                eval_mode: bool, clause_fn=None
                ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -118,9 +126,7 @@ def class_sums(cfg: TMConfig, state: TMState, literals: torch.Tensor,
         out = out.reshape(out.shape[0], cfg.classes, cfg.clauses)
         pol = vanilla_polarity(cfg.clauses, out.device)
         return (out * pol).sum(dim=-1, dtype=torch.int32), out
-    sums = (out[:, None, :].to(torch.int64)
-            * state.weights[None].to(torch.int64)).sum(dim=-1)
-    return sums.to(torch.int32), out
+    return weighted_sums(out, state.weights), out
 
 
 def predict(cfg: TMConfig, state: TMState, literals: torch.Tensor

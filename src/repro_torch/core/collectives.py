@@ -2,7 +2,8 @@
 a rank's window of clause rows: what the engine's clause-sharded stages
 (:mod:`repro_torch.core.dtm`), the pod layer
 (:mod:`repro_torch.launch.pod`), distributed training
-(:mod:`repro_torch.core.distributed`) and the scheduler's pod mode share.
+(:mod:`repro_torch.core.distributed`), the scheduler's pod mode and the
+compressed reductions (:mod:`repro_torch.runtime.compression`) share.
 
 One process per device (SPMD): every rank of a group calls each of these
 in the same order.  The caller starts the process group; nothing here
@@ -29,6 +30,15 @@ def all_sum(t: torch.Tensor, groups: Groups) -> torch.Tensor:
     out = t.clone()
     for g in _groups(groups):
         dist.all_reduce(out, op=dist.ReduceOp.SUM, group=g)
+    return out
+
+
+def all_max(t: torch.Tensor, groups: Groups) -> torch.Tensor:
+    """The element-wise maximum of ``t`` over every rank of each group in
+    turn (JAX's ``pmax``), a new tensor."""
+    out = t.clone()
+    for g in _groups(groups):
+        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=g)
     return out
 
 

@@ -406,8 +406,10 @@ class DTMEngine:
                         device=x.device)
         return torch.cat([x, z, 1 - x, z], dim=-1)
 
-    def pad_features(self, bool_x) -> torch.Tensor:
-        """[B, f] {0,1} -> packed literals [B, W] on the engine device."""
+    def pad_features(self, bool_x, cfg: Optional[TMConfig] = None
+                     ) -> torch.Tensor:
+        """[B, f] {0,1} -> packed literals [B, W] on the engine device.
+        ``cfg`` is accepted and unused, as in the JAX engine."""
         return pack_literals(self._layout(
             torch.as_tensor(bool_x, device=self.device)))
 

@@ -72,3 +72,41 @@ def fit_loop(step_fn: Callable, x, y, epochs: int = 1, batch: int = 32,
         if log_every and ep % log_every == 0:
             print(rec)
     return history
+
+
+def feedback_fit(cfg, x, y, epochs: int = 1, batch: int = 32,
+                 seed: int = 0, mode: str = "sequential", chunk: int = 8,
+                 rng: Optional[np.random.Generator] = None,
+                 log_every: int = 0, device=None):
+    """Train on the legacy core (:func:`repro_torch.core.feedback.
+    train_step`), the paper-faithful driver and the only one with the
+    ``sequential`` mode (one datapoint a step, Fig 9c).  The state and
+    PRNG a seed gives are the JAX package's (``PRNGKey(seed)``, ``seed +
+    1``); they live on ``device`` (default CUDA).  With
+    ``cfg.compute_backend == "pallas"`` the clause stage runs the
+    kernels.  Returns ``(state, prng, history)``."""
+    from . import threefry
+    from .booleanize import to_literals
+    from .device import resolve_device
+    from .feedback import train_step
+    from .prng import PRNG
+    from .types import init_state
+
+    dev = resolve_device(device)
+    box = {"state": init_state(cfg, threefry.key(seed, dev), device=dev),
+           "prng": PRNG.create(cfg, seed + 1,
+                               n_lanes=max(1024, cfg.clauses * 2),
+                               device=dev)}
+
+    def step(xb, yb):
+        lits = to_literals(torch.from_numpy(xb)).to(dev)
+        box["state"], box["prng"], st = train_step(
+            cfg, box["state"], box["prng"],
+            (lits, torch.from_numpy(yb).to(dev)), mode, chunk)
+        return {"selected": st.selected_clauses,
+                "active_groups": st.active_groups,
+                "total_groups": st.total_groups, "correct": st.correct}
+
+    history = fit_loop(step, x, y, epochs=epochs, batch=batch, rng=rng,
+                       log_every=log_every)
+    return box["state"], box["prng"], history

@@ -208,6 +208,10 @@ class PRNG:
         return (self._replace(LFSRState(*leaves)),
                 out.reshape(*lead, *shape))
 
+    @property
+    def max_rand(self) -> int:
+        return 1 << self.rand_bits
+
     def leaves(self) -> Tuple[torch.Tensor, ...]:
         st = self.state
         if isinstance(st, LFSRState):

@@ -39,23 +39,26 @@ KS_PARITY = 0x1BD11BDA
 ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
 
-def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
-    return ((x << r) | (x >> (32 - r))) & M32
-
-
 def threefry2x32(k0: torch.Tensor, k1: torch.Tensor, x0: torch.Tensor,
                  x1: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Threefry-2x32, 20 rounds, of the counter words ``(x0, x1)`` under
-    the key ``(k0, k1)`` (broadcasting int64 tensors of uint32 values)."""
+    the key ``(k0, k1)`` (broadcasting int64 tensors of uint32 values).
+    The rounds update two fresh tensors of the broadcast shape in place:
+    one allocation a round instead of seven."""
     ks = (k0, k1, k0 ^ k1 ^ KS_PARITY)
-    x0 = (x0 + ks[0]) & M32
-    x1 = (x1 + ks[1]) & M32
+    shape = torch.broadcast_shapes(k0.shape, k1.shape, x0.shape, x1.shape)
+    x0 = ((x0 + ks[0]) & M32).expand(shape).contiguous()
+    x1 = ((x1 + ks[1]) & M32).expand(shape).contiguous()
+    hi = torch.empty_like(x1)
     for i in range(5):
         for r in ROTATIONS[i % 2]:
-            x0 = (x0 + x1) & M32
-            x1 = _rotl(x1, r) ^ x0
-        x0 = (x0 + ks[(i + 1) % 3]) & M32
-        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & M32
+            x0.add_(x1).bitwise_and_(M32)
+            # x1 = rotl(x1, r) ^ x0
+            torch.bitwise_left_shift(x1, r, out=hi)
+            x1.bitwise_right_shift_(32 - r).bitwise_or_(hi)
+            x1.bitwise_and_(M32).bitwise_xor_(x0)
+        x0.add_(ks[(i + 1) % 3]).bitwise_and_(M32)
+        x1.add_(ks[(i + 2) % 3] + i + 1).bitwise_and_(M32)
     return x0, x1
 
 

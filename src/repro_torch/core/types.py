@@ -13,7 +13,7 @@ VANILLA = "vanilla"
 COALESCED = "coalesced"
 
 # Recognised PRNG stream constructions; validated here so a typo fails at
-# config level.  The serving slice of the port never draws from them.
+# config level.
 PRNG_BACKENDS = ("lfsr", "counter", "threefry")
 
 
@@ -74,6 +74,18 @@ class TMConfig:
         if self.tm_type == VANILLA:
             return self.clauses * self.classes
         return self.clauses
+
+    def ops_per_inference(self) -> dict:
+        """Analytical op counts of one inference (paper Fig 3): logic
+        ops of the clause chain, integer ops of the class sums."""
+        lits = self.literals
+        if self.tm_type == COALESCED:
+            logic = self.clauses * lits * 2            # (L or not TA), and
+            integer = self.classes * self.clauses * 2  # weight multiply-add
+        else:
+            logic = self.classes * self.clauses * lits * 2
+            integer = self.classes * self.clauses      # +-1 accumulate
+        return {"logic_ops": logic, "integer_ops": integer}
 
 
 @dataclasses.dataclass(frozen=True)

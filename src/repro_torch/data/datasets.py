@@ -1,10 +1,12 @@
-"""Synthetic Boolean classification sets with the paper's geometry.
+"""Synthetic datasets with the paper's geometry.
 
-MNIST-like (784 Boolean features, 10 classes) and KWS6-like (1600
-features, 6 classes).  Each class is a union of sparse bit motifs; a
-datapoint activates a random subset of its class's motifs plus background
-noise and bit flips.  Pure numpy, the same generator as the JAX package's
-so both packages see identical data from one seed.
+MNIST-like (784 Boolean features, 10 classes), FMNIST- and KMNIST-like
+(the same geometry, harder noise) and KWS6-like (1600 features, 6
+classes).  Each class is a union of sparse bit motifs; a datapoint
+activates a random subset of its class's motifs plus background noise and
+bit flips.  LM tokens come from a deterministic order-2 Markov chain.
+Pure numpy, the same generators as the JAX package's, so both packages
+see identical data from one seed.
 """
 from __future__ import annotations
 
@@ -28,6 +30,11 @@ class BoolTaskSpec:
 
 
 MNIST_LIKE = BoolTaskSpec("mnist-like", 784, 10)
+FMNIST_LIKE = BoolTaskSpec("fmnist-like", 784, 10, motif_bits=8,
+                           background_p=0.08, flip_p=0.05, seed=2345)
+KMNIST_LIKE = BoolTaskSpec("kmnist-like", 784, 10, motifs_per_class=8,
+                           active_motifs=2, background_p=0.06, flip_p=0.06,
+                           seed=3456)
 KWS6_LIKE = BoolTaskSpec("kws6-like", 1600, 6, motifs_per_class=10,
                          motif_bits=14, active_motifs=4, background_p=0.05,
                          flip_p=0.03, seed=4567)
@@ -59,3 +66,18 @@ def make_bool_dataset(spec: BoolTaskSpec, n: int, seed: int = 0
     flip = rng.random((n, spec.features)) < spec.flip_p
     x = np.where(flip, 1 - x, x).astype(np.int8)
     return x, y
+
+
+def make_lm_tokens(vocab: int, batch: int, seq: int, seed: int = 0
+                   ) -> np.ndarray:
+    """Order-2 Markov token stream over at most 512 symbols, int32
+    [batch, seq] (learnable: a sparse deterministic transition table)."""
+    rng = np.random.default_rng(seed)
+    a = min(vocab, 512)
+    nxt = rng.integers(0, a, (a, a, 4))
+    toks = np.zeros((batch, seq), np.int32)
+    toks[:, :2] = rng.integers(0, a, (batch, 2))
+    choose = rng.integers(0, 4, (batch, seq))
+    for t in range(2, seq):
+        toks[:, t] = nxt[toks[:, t - 2], toks[:, t - 1], choose[:, t]]
+    return toks

@@ -9,6 +9,8 @@ is held against the JAX single-device replay of ``tests/
 test_distributed.py`` (each shard's stream and deltas, summed, applied),
 ``pod_train_step`` on a (data=2, model=2) mesh against the JAX
 ``pod_train_step`` on the same mesh of 4 host devices in one subprocess.
+The same ranks run ``runtime.compression``'s ``compressed_psum`` and
+``exact_int8_psum``, held against JAX's under ``jax.vmap`` over 4 shards.
 """
 import os
 import pickle
@@ -91,12 +93,39 @@ def _pod_cases(out):
                 _state_np(new), {k_: int(v) for k_, v in st.items()})
 
 
+def _compression_inputs(rank):
+    """Rank ``rank``'s inputs of the compressed reductions: a float
+    tensor, an error-feedback residual and int deltas in [-30, 30]."""
+    rng = np.random.default_rng(100 + rank)
+    x = (rng.standard_normal((5, 3)) * (rank + 1)).astype(np.float32)
+    err = (rng.standard_normal((5, 3)) * 0.01).astype(np.float32)
+    return x, err, rng.integers(-30, 31, (4, 6)).astype(np.int32)
+
+
+def _compression_cases(out):
+    """compressed_psum with and without error feedback, over the data
+    axis and over (data, model) in turn, and exact_int8_psum."""
+    from repro_torch.runtime import compressed_psum, exact_int8_psum
+    mesh = make_host_mesh(1, device_type="cpu")          # (4, 1)
+    data, model = mesh.get_group("data"), mesh.get_group("model")
+    x, err, d = (torch.from_numpy(a) for a in _compression_inputs(
+        torch.distributed.get_rank()))
+    for name, groups, e in (("plain", data, None), ("error", data, err),
+                            ("axes", (data, model), err)):
+        total, resid = compressed_psum(x, groups, e)
+        out["compress"][name] = (total.numpy(), resid.numpy(),
+                                 str(total.dtype))
+    got = exact_int8_psum(d, data)
+    out["compress"]["int8"] = (got.numpy(), str(got.dtype))
+
+
 def _rank_main(rank, world, init_file, out_dir):
     import torch.distributed as dist
     init_gloo(rank, world, init_file)
-    out = {"dp": {}, "pod": {}}
+    out = {"dp": {}, "pod": {}, "compress": {}}
     _dp_cases(out)
     _pod_cases(out)
+    _compression_cases(out)
     dist.destroy_process_group()
     with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
@@ -221,6 +250,50 @@ def test_pod_train_step_compaction_equals_dense(ranks):
     for name in ("compact_k", "compact_frac"):
         got = ranks[0]["pod"][("counter", name)][0]
         _assert_state(got, dense["ta"], dense["weights"], name)
+
+
+# ---------------------------------------------------------------------------
+# (h) the compressed reductions equal JAX's under vmap over 4 shards
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", ["plain", "error", "axes"])
+def test_compressed_psum_equals_jax_vmap(ranks, name):
+    """Each rank's sum and residual equal JAX's ``compressed_psum`` under
+    ``jax.vmap(..., axis_name="i")`` over the 4 ranks' inputs (within
+    1e-6; the shared scale is the ranks' maximum)."""
+    import jax
+    import jax.numpy as jnp
+    from repro.runtime import compressed_psum as jpsum
+    xs, errs, _ = (np.stack(a) for a in zip(*(
+        _compression_inputs(r) for r in range(WORLD))))
+    if name == "plain":
+        total, resid = jax.vmap(lambda x: jpsum(x, "i"), axis_name="i")(
+            jnp.asarray(xs))
+    else:
+        total, resid = jax.vmap(lambda x, e: jpsum(x, "i", e),
+                                axis_name="i")(jnp.asarray(xs),
+                                               jnp.asarray(errs))
+    for r, out in enumerate(ranks):
+        got_t, got_r, dtype = out["compress"][name]
+        assert dtype == "torch.float32"
+        np.testing.assert_allclose(got_t, np.asarray(total[r]), rtol=1e-6,
+                                   atol=0, err_msg=f"rank {r} total")
+        np.testing.assert_allclose(got_r, np.asarray(resid[r]), rtol=1e-6,
+                                   atol=1e-7, err_msg=f"rank {r} residual")
+
+
+def test_exact_int8_psum_equals_jax_vmap(ranks):
+    import jax
+    import jax.numpy as jnp
+    from repro.runtime import exact_int8_psum as jexact
+    ds = np.stack([_compression_inputs(r)[2] for r in range(WORLD)])
+    want = jax.vmap(lambda d: jexact(d, "i"), axis_name="i")(jnp.asarray(ds))
+    for r, out in enumerate(ranks):
+        got, dtype = out["compress"]["int8"]
+        assert dtype == "torch.int32"
+        np.testing.assert_array_equal(got, np.asarray(want[r]))
+    np.testing.assert_array_equal(ranks[0]["compress"]["int8"][0],
+                                  ds.sum(0))
 
 
 # ---------------------------------------------------------------------------
