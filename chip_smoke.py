@@ -208,7 +208,11 @@ The dispatcher's plan cache and the analysis layer:
      into a temporary cache at the roster's width (L=3200, R=4224, H=16)
      and the training width (L=1664, R=2048, H=16): eval buckets 1-64,
      train buckets 1, 4, 8 and 32 and ``ta`` at 32, each candidate's ms
-     beside the seed model's pick and seconds; the file reloaded in a
+     by path and launch geometry (three geometries a packed eval leg,
+     the fused leg's cluster sizes at R=4224; each checked by the launch
+     checker first) beside the seed model's pick and seconds, the path
+     the fastest at its own geometry, and ``planned_tiles`` equal to the
+     plan's ``tiles``; the file reloaded in a
      cleared state gives the same plans; engines under ``off``, ``seed``
      and ``measure`` answer and train bit for bit the same at B = 1, 8
      and 32; (c) the trace audit on the card (default and forced
@@ -222,12 +226,16 @@ Pods over ``torch.distributed``:
      process, the others spawned (none on a one-card machine), all
      running ``pods_work``: the legacy training core at the MNIST
      CoTM's widths with the kernels (``dp_train_step`` over the data
-     axis, 8 rows a rank, and a sequential step of 2 rows, counter
-     streams, each against rank 0's CPU replay); ``ShardedTM`` over a
+     axis, 8 rows a rank, its first call timed apart from the median of
+     three more, and a sequential step of 2 rows, counter streams, each
+     against rank 0's CPU replay); ``ShardedTM`` over a
      ``clauses`` mesh (the training model, lfsr): two inferences and 4
      train steps equal the engine's own ``infer`` and ``train_step`` (at
      one card the unfused sharded front half against ``fused_step``),
-     and an inference on a forced ``mxu`` engine; ``pod_stack`` of the
+     and an inference on a forced ``mxu`` engine; each stage a CUDA graph
+     captured over NCCL and replayed, equal to an eager twin
+     (``eager_engine``) bit for bit, launch counts included, with the
+     host ms of both and each graph's capture ms and pool bytes; ``pod_stack`` of the
      serving roster (K=4) over a ``tenants`` mesh: 3 flushes and 2
      train steps equal ``api.stack``'s bank; ``api.serve(mesh=)``
      drains phase 13's 87 requests with answers equal to phase 13's.
@@ -266,6 +274,15 @@ The legacy variants and the substrate:
      clause kernel at B=1, R=128, W=49, the dense one at B=64, C=128,
      L=1568, and ``threefry_bits`` at a datapoint's TA draw (401,408
      words).
+
+The ``examples/`` mirrors:
+ 21. "examples": the five ``examples/*_torch.py`` scripts' ``main`` on the
+     card at their defaults, the JAX scripts' sizes (their assertions
+     hold; launch counts from 0 just before, read just after), then at
+     the CPU tests' small sizes on the card and on the CPU, whose
+     returned numbers must be equal; the kernels line gains the
+     quickstart's ``fused_step`` and ``ta_update_sparse`` rows (MNIST
+     geometry, 256 clauses, batch 32).
 
 Bounds: bytes over 3.35 TB/s; integer operations over 64 per clock per
 SM (the CUDA guide's rate for 32-bit integer add, logic, shift, compare
@@ -1832,11 +1849,40 @@ def tuned_phase(torch, np, api, ops, tm_paper, x_tr, y_tr, card: str,
                     plans[stage, b, shape] = plan
                     sp = autotune.seed_plan(stage, b, shape)
                     row = {"width": width, "stage": stage, "bucket": b,
-                           "candidates_ms": {k: v / 1e3 for k, v in
-                                             plan["candidates_us"].items()},
+                           "candidates_ms": {
+                               path: {g: us / 1e3 for g, us in by.items()}
+                               for path, by in
+                               plan["candidates_us"].items()},
+                           "rejected": plan["rejected"],
                            "measured": plan["path"],
                            "seed": None if sp is None else sp["path"],
-                           "tiles": plan["tiles"]}
+                           "tiles": plan["tiles"],
+                           "planned_tiles": autotune.planned_tiles(
+                               stage, b, shape, mode="measure",
+                               cache=cache, device="cuda")}
+                    check(row["planned_tiles"] == plan["tiles"],
+                          f"planned_tiles {stage}/{b}/{shape}")
+                    # the path is the fastest at its own geometry (the
+                    # one the engine launches); ``tiles`` its best swept
+                    own_us = {p: by[autotune.geometry_key(
+                        autotune.geometries(stage, p, b, shape, hw.sms)[0])]
+                        for p, by in plan["candidates_us"].items()}
+                    row["own_geometry_ms"] = {p: v / 1e3
+                                              for p, v in own_us.items()}
+                    check(plan["path"] == min(own_us, key=own_us.get)
+                          and plan["us"] == own_us[plan["path"]],
+                          f"measured path {stage}/{b}/{shape}: {own_us}")
+                    # the sweep: three geometries a packed eval leg, the
+                    # fused cluster sizes at R=4224
+                    n_geo = {k: len(v) for k, v in
+                             plan["candidates_us"].items()}
+                    if stage == "eval":
+                        check(n_geo["packed_vpu"] == 3
+                              and n_geo["mxu_popcount"] == 3,
+                              f"eval sweep {b}/{shape}: {n_geo}")
+                    if stage == "train" and b > 4 and R == 4224:
+                        check(n_geo["fused"] == 3,
+                              f"fused sweep {b}/{shape}: {n_geo}")
                     if stage == "eval":
                         c = tm_perf.packed_eval_costs(b, L, R)
                         row["seed_model_s"] = {"packed_vpu": c["vpu_s"],
@@ -1921,6 +1967,7 @@ def tuned_phase(torch, np, api, ops, tm_paper, x_tr, y_tr, card: str,
 POD_STEPS = 4                # ShardedTM train steps of the lfsr model
 POD_FLUSHES = 3              # PodBank flushes of the serving roster
 POD_TRAINS = 2               # PodBank train steps (the first captures)
+DP_TIMED = 3                 # dp_train_step calls timed after the first
 
 
 def pods_work(rank: int, world: int, init_file: str, inp: dict) -> dict:
@@ -1980,6 +2027,28 @@ def _pods_body(np, torch, api, convert, PRNG, ops, pod, make_clause_mesh,
     for lits, lab in batches:
         p_, r_, st = eng.train_step(p_, r_, lits, lab)
         ref_steps.append((p_, r_, st))
+    # the eager twin: ShardedTM on an engine with its graphs off, the
+    # chain of launches each replay stands for, with its launches a call
+    cmesh = make_clause_mesh()
+    tstm = pod.ShardedTM(eager_engine(api.compile(api.tile_for(tspec))),
+                         cmesh)
+    tp = tstm.shard(p0)
+    twin = {"infer_ms": [], "step_ms": [], "infer_launches": [],
+            "step_launches": [], "steps": []}
+    for _ in range(2):
+        c0, t = ops.launch_counts(), time.perf_counter()
+        twin_sums, twin_cl = tstm.infer(tp, batches[0][0])
+        sync()
+        twin["infer_ms"].append((time.perf_counter() - t) * 1e3)
+        twin["infer_launches"].append(launch_delta(ops, c0))
+    tr = r0
+    for lits, lab in batches:
+        c0, t = ops.launch_counts(), time.perf_counter()
+        tp, tr, tst = tstm.train_step(tp, tr, lits, lab)
+        sync()
+        twin["step_ms"].append((time.perf_counter() - t) * 1e3)
+        twin["step_launches"].append(launch_delta(ops, c0))
+        twin["steps"].append((tstm.gather(tp), tr, tst))
     specs = {n: api.TMSpec.from_dict(d) for n, d in inp["specs"].items()}
     names = list(specs)
     gpu = api.compile(api.tile_for(*specs.values()))
@@ -2031,34 +2100,52 @@ def _pods_body(np, torch, api, convert, PRNG, ops, pod, make_clause_mesh,
     t_phase = time.perf_counter()
     lstate = init_state(lcfg, threefry.key(inp["seed"]))
     llit, llab = to_literals(lx).cuda(), torch.from_numpy(ly).cuda()
-    t = time.perf_counter()
-    dp_state, _ = dp_train_step(lcfg, lstate, llit, llab,
-                                make_host_mesh(1), seed=inp["seed"],
-                                chunk=4, compact_frac=0.25)
-    sync()
-    legacy_ms = {"dp_train_step": (time.perf_counter() - t) * 1e3}
+    # the mesh is made before the clock starts; the first call (the
+    # group's first collectives) is timed apart from the median of three
+    # more from the same state (the step is pure: each returns the same)
+    hmesh = make_host_mesh(1)
+    dp_ms, dp_states = [], []
+    for _ in range(1 + DP_TIMED):
+        t = time.perf_counter()
+        dp_state, _ = dp_train_step(lcfg, lstate, llit, llab, hmesh,
+                                    seed=inp["seed"], chunk=4,
+                                    compact_frac=0.25)
+        sync()
+        dp_ms.append((time.perf_counter() - t) * 1e3)
+        dp_states.append(dp_state)
+    check(all(torch.equal(d.ta, dp_states[0].ta)
+              and torch.equal(d.weights, dp_states[0].weights)
+              for d in dp_states),
+          "dp_train_step from one state differs between calls")
+    legacy_ms = {"dp_train_step_first": dp_ms[0],
+                 "dp_train_step_median": float(np.median(dp_ms[1:])),
+                 "dp_train_step": dp_ms}
     t = time.perf_counter()
     seq_state, seq_prng, _ = feedback.train_step(
         lcfg, lstate, PRNG.create(lcfg, inp["seed"]), (llit[:2], llab[:2]),
         mode="sequential")
     sync()
     legacy_ms["sequential"] = (time.perf_counter() - t) * 1e3
-    cmesh = make_clause_mesh()
     stm = pod.ShardedTM(eng, cmesh)
+    check(stm.capture, "the clauses axis of an NCCL group does not capture")
     p = stm.shard(p0)
-    infer_ms = []
-    for _ in range(2):          # the first sets up the communicator
-        t = time.perf_counter()
+    infer_ms, infer_launches = [], []
+    for _ in range(2):          # the first warms up and captures
+        c0, t = ops.launch_counts(), time.perf_counter()
         sums, cl = stm.infer(p, batches[0][0])
         sync()
         infer_ms.append((time.perf_counter() - t) * 1e3)
-    r, got_steps, step_ms = r0, [], []
-    for lits, lab in batches:
-        t = time.perf_counter()
+        infer_launches.append(launch_delta(ops, c0))
+    r, got_steps, step_ms, step_launches = r0, [], [], []
+    for lits, lab in batches:   # the first warms up and captures
+        c0, t = ops.launch_counts(), time.perf_counter()
         p, r, st = stm.train_step(p, r, lits, lab)
         sync()
         step_ms.append((time.perf_counter() - t) * 1e3)
+        step_launches.append(launch_delta(ops, c0))
         got_steps.append((stm.gather(p), r, st))
+    sharded_graphs = [g for g in eng.graph_report()
+                      if g["stage"].endswith("_sharded")]
     # the forced dense clause kernel in the sharded inference
     eng_mxu = api.compile(api.tile_for(tspec), kernel_path="mxu")
     stm_mxu = pod.ShardedTM(eng_mxu, cmesh)
@@ -2125,6 +2212,25 @@ def _pods_body(np, torch, api, convert, PRNG, ops, pod, make_clause_mesh,
     check(torch.equal(sums, ref_sums) and torch.equal(cl, ref_cl)
           and torch.equal(sums_mxu, ref_sums) and torch.equal(cl_mxu, ref_cl),
           "ShardedTM.infer differs from the engine's infer")
+    # the replays against the eager twin, bit for bit, launches included
+    check(torch.equal(sums, twin_sums) and torch.equal(cl, twin_cl),
+          "the replayed ShardedTM.infer differs from its eager twin")
+    for i, ((gp, gr, gst), (wp, wr, wst)) in enumerate(zip(
+            got_steps, twin["steps"])):
+        check(same_state(torch, gp, wp) and same_state(torch, gr, wr)
+              and all(torch.equal(gst[k], wst[k]) for k in wst),
+              f"the replayed ShardedTM step {i} differs from its eager twin")
+    check(infer_launches == twin["infer_launches"]
+          and step_launches == twin["step_launches"],
+          f"replayed launches {infer_launches} {step_launches} differ from "
+          f"the eager twin's {twin['infer_launches']} "
+          f"{twin['step_launches']}")
+    check(sorted((g["stage"], g["captured"]) for g in sharded_graphs)
+          == [("infer_sharded", True), ("train_sharded", True)]
+          and all(g["replays"] == (2 if g["stage"] == "infer_sharded"
+                                   else len(batches))
+                  for g in sharded_graphs),
+          f"ShardedTM's graphs: {sharded_graphs}")
     if rank == 0:
         for what, got, want in (("dp_train_step", dp_state, ref_dp),
                                 ("sequential train_step", seq_state,
@@ -2156,6 +2262,13 @@ def _pods_body(np, torch, api, convert, PRNG, ops, pod, make_clause_mesh,
         "world": world, "clause_shards": stm.shards,
         "r_loc": eng.R // stm.shards,
         "sharded_infer_ms": infer_ms, "sharded_step_ms": step_ms,
+        "sharded_twin": {"infer_ms": twin["infer_ms"],
+                         "step_ms": twin["step_ms"],
+                         "infer_launches": twin["infer_launches"][-1],
+                         "step_launches": twin["step_launches"][-1],
+                         "checks": "replays equal the eager twin bit for "
+                                   "bit, launch counts included"},
+        "sharded_graphs": sharded_graphs,
         "compression": {"shape": list(cx.shape), "ms_three_calls": comp_ms,
                         "checks": "compressed_psum (plain, error "
                         "feedback) rtol 1e-6, exact_int8_psum exact"},
@@ -2172,6 +2285,13 @@ def _pods_body(np, torch, api, convert, PRNG, ops, pod, make_clause_mesh,
                   "pod_devices": st["server"]["pod_devices"],
                   "stacked_launches": st["server"]["stacked_launches"]}})
     return out
+
+
+def launch_delta(ops, before: dict) -> dict:
+    """The launches counted since ``before`` (``ops.launch_counts()``)."""
+    now = ops.launch_counts()
+    return {k: v - before.get(k, 0) for k, v in now.items()
+            if v != before.get(k, 0)}
 
 
 def compression_inputs(np, rank: int):
@@ -2589,6 +2709,115 @@ def legacy_phase(torch, np, ops, datasets, card: str) -> dict:
         "head_test_acc": secs["TMHead test_acc"],
         "feedback_fit_first_epoch": {"sequential": seq, "batched": bat}}
     return report, counts, caps
+
+
+# Phase 21: the examples/ mirrors, each a main(argv) -> dict
+MIRRORS = ("quickstart_torch", "tm_head_torch", "serve_stream_torch",
+           "train_while_serve_torch", "dtm_reconfigure_torch")
+# the tests' small sizes (tests/test_torch_examples.py), run on the card
+# and on the CPU; serve_stream streams a fixed count, not for a time
+MIRROR_SMALL = {
+    "quickstart_torch": ["--n", "96", "--train", "64", "--features", "64",
+                         "--clauses", "16", "--epochs", "2", "--batch", "16"],
+    "tm_head_torch": ["--n", "96", "--calib", "32", "--train", "64",
+                      "--clauses", "16", "--epochs", "2", "--batch", "16"],
+    "serve_stream_torch": ["--requests", "16", "--scale", "4"],
+    "train_while_serve_torch": ["--steps", "3", "--scale", "2"],
+    "dtm_reconfigure_torch": ["--n", "0.125", "--scale", "4", "--features",
+                              "64", "--epochs", "1", "--batch", "16"],
+}
+
+
+def mirror(name: str):
+    """``examples/<name>.py`` as a module (the examples are scripts)."""
+    import importlib.util
+    path = pathlib.Path(__file__).resolve().parent / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"{name}_mirror", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def mirror_numbers(name: str, out: dict) -> dict:
+    """What two runs of a mirror at one size must return alike: all but
+    the device and the timing-dependent scheduler stats, and of
+    ``dtm_reconfigure``'s cache report the paths (its graph counts are 1
+    on the card, 0 on the CPU)."""
+    nums = {k: v for k, v in out.items() if k not in ("device", "stats")}
+    if name == "dtm_reconfigure_torch":
+        nums["cache"] = out["cache"]["path_per_stage"]
+    return nums
+
+
+def examples_phase(torch, np, ops, card: str):
+    """Phase 21: the five ``examples/*_torch.py`` mirrors on the card at
+    their default sizes (the JAX scripts' sizes, where their assertions
+    hold; launch counts from 0 just before, read just after, the
+    quickstart's ``fused_step`` and ``ta_update_sparse`` arguments
+    captured from its epoch graph's warm-up), then at the tests' small
+    sizes on the card and on the CPU, whose returned numbers must be
+    equal.  Returns the ``examples`` report, the counts and the captured
+    arguments."""
+    mods = {n: mirror(n) for n in MIRRORS}
+    report, host_s = {"card": card}, {}
+    ops.reset_launch_counts()
+    t_phase = time.perf_counter()
+    full = {}
+    for name in MIRRORS:
+        t = time.perf_counter()
+        if name == "quickstart_torch":
+            with Capture(ops, "fused_step") as cap_f, \
+                    Capture(ops, "ta_update_sparse") as cap_s:
+                full[name] = mods[name].main([])
+            cap_f.freeze()
+            cap_s.freeze()
+        else:
+            full[name] = mods[name].main([])
+        torch.cuda.synchronize()
+        host_s[name] = time.perf_counter() - t
+    phase_s = time.perf_counter() - t_phase
+    counts = ops.launch_counts()
+    check(all(counts[k] > 0 for k in (
+        "packed_clause_eval", "packed_clause_tile", "class_sum", "fused_step",
+        "ta_update_sparse")), f"the mirrors launched {counts}")
+    check(all(out["device"].startswith("cuda") for out in full.values()),
+          "a mirror ran off the card by default")
+    cache = full["dtm_reconfigure_torch"]["cache"]
+    check(cache["infer"] == cache["fit_epoch"] == cache["fit_epoch_conv"]
+          == 1 and all(v <= 1 for v in cache.values() if isinstance(v, int)),
+          f"dtm_reconfigure's graphs: {cache}")
+    small, small_s = {}, {}
+    for name in MIRRORS:
+        got = {}
+        for dev in ("cuda", "cpu"):
+            t = time.perf_counter()
+            got[dev] = mods[name].main(MIRROR_SMALL[name]
+                                       + ["--device", dev])
+            small_s[f"{name} {dev}"] = time.perf_counter() - t
+        check(mirror_numbers(name, got["cuda"])
+              == mirror_numbers(name, got["cpu"]),
+              f"{name} at the small size: the card's numbers differ from "
+              "the CPU's")
+        small[name] = mirror_numbers(name, got["cuda"])
+    report.update({
+        "phase_s": phase_s, "host_s": host_s, "small_s": small_s,
+        "launches": counts,
+        "default": {
+            "quickstart_accuracy": full["quickstart_torch"]["accuracy"],
+            "quickstart_history": full["quickstart_torch"]["history"],
+            "tm_head_accuracy": full["tm_head_torch"]["accuracy"],
+            "serve_stream": {k: full["serve_stream_torch"]["stats"][k]
+                             for k in ("completed", "submitted", "launches",
+                                       "promotions", "demotions")},
+            "train_while_serve": full["train_while_serve_torch"]["stats"],
+            "dtm_reconfigure_scores": full["dtm_reconfigure_torch"][
+                "scores"],
+            "dtm_reconfigure_cache": cache},
+        "small_equal": "card == CPU for every mirror's returned numbers",
+        "small": {k: v for k, v in small.items()
+                  if k != "serve_stream_torch"}})
+    return report, counts, {"fused_step": cap_f.args,
+                            "ta_update_sparse": cap_s.args}
 
 
 def main(argv=None) -> int:
@@ -3391,6 +3620,9 @@ def main(argv=None) -> int:
     legacy_report, counts20, caps20 = legacy_phase(torch, np, ops, datasets,
                                                    card)
 
+    # ---- 21. the examples/ mirrors: defaults on the card, card vs CPU -------
+    examples_report, counts21, caps21 = examples_phase(torch, np, ops, card)
+
     # ---- 6. timing -------------------------------------------------------------
     cold = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
     it = ITERS
@@ -3990,6 +4222,42 @@ def main(argv=None) -> int:
         *tf_cost(lsize), f"legacy feedback_fit ta_rand K=1 size={lsize} "
         "rand_bits=16 split=True", plain_graph=False, rate=issue_rate)
 
+    # phase 21's training kernels at the quickstart mirror's shapes (the
+    # MNIST geometry, 256 clauses, batch 32), their arguments from its
+    # epoch graph's warm-up; launches are phase 21's, counted from 0 just
+    # before it
+    f21_a, f21_kw = caps21["fused_step"]
+    front21, err_f21 = compare_all(fused_step, fused_step_plain, f21_a,
+                                   f21_kw)
+    hK, hB, hW = f21_a[0].shape
+    hR, hH = f21_a[1].shape[1], f21_a[2].shape[1]
+    row("fused_step", cu + "fused_step.cu",
+        "src/repro/kernels/fused_step.py:150", counts21["fused_step"],
+        err_f21, lambda: fused_step(*f21_a, **f21_kw),
+        lambda: fused_step_plain(*f21_a, **f21_kw), None,
+        4 * (hK * hB * hW + hK * hR * hW + hK * hH * hR + 2 * hK * hB
+             + 2 * hK * hB * hR + hK * hR + hK * hH + 2 * hK
+             + 3 * hK * hB * hR + hK * hB * hH),
+        hK * hB * hR * hW + hK * hB * hR + int(front21[0].sum()) * hH
+        + 2 * 3 * hK * hB * hR,
+        f"examples quickstart K={hK} B={hB} R={hR} W={hW} H={hH}",
+        bare=prepare_fused_step(*f21_a, **f21_kw)[0])
+    s21_a, s21_kw = copies(caps21["ta_update_sparse"][0]), \
+        caps21["ta_update_sparse"][1]
+    _, err_sp21 = compare_all(ta_update_sparse, ta_update_sparse_plain,
+                              s21_a, s21_kw)
+    k_, c_, l_ = s21_a[0].shape
+    nb, no = ta_cost(s21_a, s21_kw, sparse=True)
+    row("ta_update_sparse", cu + "ta_update.cu",
+        "src/repro/kernels/ta_update.py:238", counts21["ta_update_sparse"],
+        err_sp21, lambda: ta_update_sparse(*s21_a, **s21_kw),
+        lambda: ta_update_sparse_plain(*s21_a, **s21_kw), None, nb, no,
+        f"examples quickstart K={k_} 2B={s21_a[1].shape[1]} C={c_} L={l_} "
+        f"active_groups={int(s21_a[8].sum())}/{-(-c_ // 128)} "
+        f"prng={s21_kw['prng']} inplace={s21_kw.get('inplace', False)}",
+        plain_graph=False,
+        bare=prepare_ta_update_sparse(*s21_a, **s21_kw)[0])
+
     def ms_of(name, shape):
         """``ms`` of the kernels-line row ``name`` whose shape starts
         with ``shape``."""
@@ -4114,6 +4382,7 @@ def main(argv=None) -> int:
     print(json.dumps({"tuned": tuned_report}))
     print(json.dumps({"pods": pods_report}))
     print(json.dumps({"legacy": legacy_report}))
+    print(json.dumps({"examples": examples_report}))
     print(json.dumps({"kernels": rows_out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,7 +5,7 @@ Usage:
   python -m repro_torch.analysis lint --rules     print the rule table
   python -m repro_torch.analysis kernels [--device N]
                                                   CUDA launch checker
-  python -m repro_torch.analysis audit [--device cuda] [--update] ...
+  python -m repro_torch.analysis audit [--device cpu] [--update] ...
                                                   trace audit vs the golden
 
 Exit code 1 on any finding, violation or divergence.

@@ -138,19 +138,21 @@ def _strided(n: int, writers: int) -> List[List[int]]:
 # plan builders: one per kernel wrapper                                       #
 # --------------------------------------------------------------------------- #
 
-def plan_edge(K, B, R, W, sms) -> LaunchPlan:
+def plan_edge(K, B, R, W, sms, geometry=None) -> LaunchPlan:
     from repro_torch.kernels.packed_clause import edge_geometry
-    lanes, rpw, warps, (blocks, groups) = edge_geometry(B, R, W, sms)
+    lanes, rpw, warps, (blocks, groups) = edge_geometry(
+        B, R, W, sms, **(geometry or {}))
     return LaunchPlan(
-        "packed_clause_eval", f"K{K} B{B} R{R} W{W} lanes{lanes}",
+        "packed_clause_eval",
+        f"K{K} B{B} R{R} W{W} lanes{lanes} warps{warps}",
         (blocks, groups, K), 32 * warps,
         covers=(Cover("R", R, _blocks_of(R, rpw * warps)[:blocks]),
                 Cover("B", B, _blocks_of(B, EDGE_ROWS)[:groups])))
 
 
-def plan_tile(K, B, R, W, sms, hw=H100) -> LaunchPlan:
+def plan_tile(K, B, R, W, sms, hw=H100, geometry=None) -> LaunchPlan:
     from repro_torch.kernels.packed_clause import MMA_ROWS, TILE_B, tile_warps
-    warps = tile_warps(K, B, R, sms)
+    warps = (geometry or {}).get("warps") or tile_warps(K, B, R, sms)
     rows = MMA_ROWS * warps
     smem = 4 * TILE_RING_STAGES * (rows + TILE_B) * TILE_ROW_WORDS
     return LaunchPlan(
@@ -186,10 +188,10 @@ def fused_smem(H: int, W: int, bulk: bool) -> int:
     return 4 * words
 
 
-def plan_fused(K, B, R, W, H) -> LaunchPlan:
+def plan_fused(K, B, R, W, H, geometry=None) -> LaunchPlan:
     from repro_torch.kernels.fused_step import (ROWS, SMEM_LIMIT, TILE,
                                                 fused_bulk, fused_split)
-    cs = fused_split(R)
+    cs = (geometry or {}).get("cluster") or fused_split(R)
     bulk = fused_bulk(W, R, True, fused_smem(H, W, True))
     tiles = _strided(_cdiv(R, TILE), cs)
     spans = tuple((t * TILE, min(R, (t + 1) * TILE))

@@ -101,23 +101,26 @@ def _check_caches(caches: Dict[str, int], where: str,
                           "alive (> 1: something recaptured)")
 
 
-def run_audit(device="cpu", kernel_path: Optional[str] = None,
+def run_audit(device=None, kernel_path: Optional[str] = None,
               skip: bool = True, ta_prng: str = "inkernel",
               autotune: str = "seed", autotune_cache=None,
               update: bool = False,
               baseline: Optional[pathlib.Path] = None,
               epochs: int = EPOCHS) -> AuditReport:
-    """Run the audit on ``device`` with the engine arguments given; raises
+    """Run the audit on ``device`` (the card unless the caller asks for the
+    CPU; raises without one) with the engine arguments given; raises
     :class:`AuditError` on any violation.  ``update=True`` rewrites this
     leg's entry in the golden instead of diffing against it."""
     import torch
 
     from repro_torch import api
     from repro_torch.core import threefry
+    from repro_torch.core.device import resolve_device
     from repro_torch.core.dtm import _sync_guard
     from repro_torch.launch.scheduler import SchedulerConfig
     from repro_torch.launch.serve_tm import demo_batch, demo_specs
 
+    device = resolve_device(device)
     knobs = dict(device=device, kernel_path=kernel_path, skip=skip,
                  ta_prng=ta_prng, autotune=autotune,
                  autotune_cache=autotune_cache)
@@ -254,8 +257,9 @@ def main(argv: Sequence[str]) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.analysis audit",
         description=__doc__.splitlines()[0])
-    ap.add_argument("--device", default="cpu",
-                    help="cpu (the plain versions) or cuda (the card)")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the card, the default) or cpu (the plain "
+                    "versions)")
     ap.add_argument("--kernel-path", default=None)
     ap.add_argument("--skip", type=int, choices=(0, 1), default=1)
     ap.add_argument("--ta-prng", default="inkernel")

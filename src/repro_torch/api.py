@@ -420,8 +420,8 @@ class TM:
 
     def _infer(self, x):
         """(sums, clauses) of a batch: one replay of the engine's
-        inference graph at this batch shape on the card (``score``'s
-        tail batch gets its own)."""
+        inference graph at this batch shape on the card (``score`` pads
+        its tail batch to its batch size, so it reuses that graph)."""
         lits = self.engine.encode(self.spec, x)
         return self.engine.served_infer(self.spec, self.program, lits)
 

@@ -78,7 +78,8 @@ runs them on every rank of a ``clauses`` mesh axis) are the same bodies
 on one rank's window of clause rows (:class:`Shard`), with the class
 sums, a regression program's vote count and the Alg-6 stat inputs
 reduced or gathered over the axis's process group; they record
-``<stage>_shard`` = ``"<axis>:<shards>"`` and run eager.
+``<stage>_shard`` = ``"<axis>:<shards>"``.  ``ShardedTM`` replays each
+as a graph (:data:`SHARD_STAGES`) over an NCCL group on the card.
 """
 from __future__ import annotations
 
@@ -111,6 +112,10 @@ GRAPH_STAGES = ("infer", "train", "infer_conv", "train_conv", "fit_epoch",
                 "fit_epoch_conv", "infer_bank", "infer_conv_bank",
                 "infer_bank_list", "infer_conv_bank_list",
                 "predict_bank_list", "train_bank")
+# The clause-sharded stages (launch/pod.py ShardedTM; JAX jits them there,
+# not in its engine, so ``cache_report`` leaves them out).
+SHARD_STAGES = ("infer_sharded", "train_sharded", "infer_conv_sharded",
+                "train_conv_sharded")
 
 @dataclasses.dataclass
 class DTMProgram:
@@ -190,8 +195,9 @@ class Shard:
 
 
 def _one(prog: DTMProgram) -> DTMProgram:
-    """One program in bank form (a leading K = 1 axis on every leaf)."""
-    return prog.map(lambda t: t.unsqueeze(0))
+    """One program in bank form (a leading K = 1 axis on every leaf; a
+    leaf the stage does not read may be ``None``)."""
+    return prog.map(lambda t: None if t is None else t.unsqueeze(0))
 
 
 def _sig(tensors) -> tuple:
@@ -265,7 +271,7 @@ class DTMEngine:
         self.W = tile.packed_words()
         self._stage_paths: dict = {}
         self._graphs: dict = {}      # session step graphs, by stage and shape
-        self._captured: dict = {}    # stage -> the captured graphs alive
+        self._captured: dict = {}    # stage -> the graphs alive
 
     @property
     def graphed(self) -> bool:
@@ -275,11 +281,15 @@ class DTMEngine:
         same bodies eagerly."""
         return self.device.type == "cuda" and self.kernel_path != kops.PATH_REF
 
-    def step_graph(self, stage: str, body, state, const=None) -> StepGraph:
+    def step_graph(self, stage: str, body, state, const=None,
+                   capture: bool = True) -> StepGraph:
         """A :class:`~repro_torch.core.graph.StepGraph` of this engine:
-        captured on the card (:attr:`graphed`), counted by
+        captured on the card (:attr:`graphed`) unless the caller says
+        ``capture=False`` (a body whose collectives cannot be captured),
+        listed by :meth:`graph_report` and, once captured, counted by
         :meth:`cache_report` under ``stage`` while it lives."""
-        return StepGraph(stage, body, state, const, capture=self.graphed,
+        return StepGraph(stage, body, state, const,
+                         capture=self.graphed and capture,
                          registry=self._captured)
 
     # ------------------------------------------------------------------ #
@@ -908,15 +918,16 @@ class DTMEngine:
     #      window;
     #   3. the TA update keys its in-kernel streams at the GLOBAL rows
     #      through ``row0``: no TA traffic between ranks.
-    # The collectives are eager (a stage of this kind is not captured).
+    # ``ShardedTM`` runs each body as a step graph: captured with its
+    # collectives over an NCCL group, eager over gloo (not capturable).
 
     def _shard_window(self, prog: DTMProgram, group,
                       axis: str = "clauses") -> Shard:
         """This rank's window of a program's clause rows (one program or
         a bank): ``row0`` from the rank's position in ``group``."""
         shards, row0, r_loc = row_window(self.R, group, axis)
-        if prog.ta.shape[-2] != r_loc:
-            raise ValueError(f"a window of {prog.ta.shape[-2]} rows is not "
+        if prog.inc.shape[-2] != r_loc:
+            raise ValueError(f"a window of {prog.inc.shape[-2]} rows is not "
                              f"1/{shards} of the engine's R={self.R}")
         return Shard(group, axis, shards, row0, r_loc)
 
@@ -1269,17 +1280,24 @@ class DTMEngine:
         owns them: the engine's (sessions, served steps, single-program
         inference) as long as the engine, a bank's (flushes, bank train
         steps) as long as the bank."""
-        report = {s: len(self._captured.get(s, ())) for s in GRAPH_STAGES}
+        report = {s: sum(g.captured for g in self._captured.get(s, ()))
+                  for s in GRAPH_STAGES}
         report["path_per_stage"] = dict(self._stage_paths)
         return report
 
     def graph_report(self) -> list:
-        """One record per captured graph alive: stage, warm-up and
-        capture ms, the bytes its capture reserved, replays."""
-        return [{"stage": g.stage, "warmup_ms": g.warmup_ms,
-                 "capture_ms": g.capture_ms, "pool_bytes": g.pool_bytes,
-                 "replays": g.replays}
-                for s in GRAPH_STAGES for g in self._captured.get(s, ())]
+        """One record per graph alive of the engine's stages and the
+        clause-sharded ones (:data:`SHARD_STAGES`): stage, whether it is
+        captured, warm-up and capture ms, the bytes its capture reserved,
+        replays.  Without capture (the CPU, ``ref``) the engine's own
+        stages run their bodies eagerly and are not listed; a sharded
+        stage's body is listed, ``captured`` False."""
+        return [{"stage": g.stage, "captured": g.captured,
+                 "warmup_ms": g.warmup_ms, "capture_ms": g.capture_ms,
+                 "pool_bytes": g.pool_bytes, "replays": g.replays}
+                for s in GRAPH_STAGES + SHARD_STAGES
+                for g in self._captured.get(s, ())
+                if g.captured or s in SHARD_STAGES]
 
 
 @contextlib.contextmanager

@@ -19,10 +19,20 @@ def _host(a) -> np.ndarray:
 
 def batched_predict(predict_fn: Callable, x, batch: int = 256) -> np.ndarray:
     """Run ``predict_fn`` over ``x`` in batches of ``batch`` rows and
-    concatenate the results as numpy."""
+    concatenate the results as numpy.  The last batch is padded up to
+    ``batch`` rows (its last row repeated) and the padding stripped, as
+    the JAX package does, so the engine's inference sees one batch shape
+    (one graph)."""
     x = np.asarray(x)
-    return np.concatenate([_host(predict_fn(x[i:i + batch]))
-                           for i in range(0, x.shape[0], batch)])
+    outs = []
+    for i in range(0, x.shape[0], batch):
+        xb = x[i:i + batch]
+        pad = batch - xb.shape[0]
+        if pad:
+            xb = np.concatenate([xb, np.repeat(xb[-1:], pad, axis=0)])
+        out = _host(predict_fn(xb))
+        outs.append(out[:batch - pad] if pad else out)
+    return np.concatenate(outs)
 
 
 def accuracy(predict_fn: Callable, x, y, batch: int = 256) -> float:

@@ -19,7 +19,8 @@ selected rows, update, scatter-add; clause-indexed streams keep it exact)
 and the group statistics.  The DTM engine (:mod:`repro_torch.core.dtm`)
 is the hot path; this core draws its TA random numbers up front per
 datapoint, as the JAX core does, so its runs reproduce the JAX package's.
-JAX's ``lax.scan`` loops are plain loops here.
+JAX's ``lax.scan`` loops are plain loops here; its ``vmap`` over a chunk
+of datapoints is one batched expression (:func:`_datapoint_deltas`).
 """
 from __future__ import annotations
 
@@ -86,12 +87,14 @@ def round_deltas(cfg: TMConfig, include: torch.Tensor,
                  y_c: int, sel_rand: torch.Tensor, ta_rand: torch.Tensor
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
                             torch.Tensor]:
-    """Deltas of one (datapoint, round): include [c, 2f] bool, literals
-    [2f], clause_out [c], CoTM weight_row [c], the chosen class's sum,
-    ``y_c`` (1 target, 0 negated), sel_rand [c], ta_rand [c, 2f] ->
-    (ta_delta [c, 2f] int32 in {-1, 0, 1}, w_delta [c] int32 or None,
-    selected [c] int32)."""
-    selected = select_clauses(cfg, csum, y_c, sel_rand)
+    """Deltas of one feedback round, over any leading batch axes ``...``
+    (none for one datapoint; JAX's ``vmap`` of the one-datapoint round):
+    include [..., c, 2f] bool (or [c, 2f], shared), literals [..., 2f],
+    clause_out [..., c], CoTM weight_row [..., c], the chosen class's sum
+    csum [...], ``y_c`` (1 target, 0 negated), sel_rand [..., c],
+    ta_rand [..., c, 2f] -> (ta_delta [..., c, 2f] int32 in {-1, 0, 1},
+    w_delta [..., c] int32 or None, selected [..., c] int32)."""
+    selected = select_clauses(cfg, csum[..., None], y_c, sel_rand)
     if cfg.tm_type == COALESCED:
         sign_pos = weight_row >= 0
     else:
@@ -102,24 +105,25 @@ def round_deltas(cfg: TMConfig, include: torch.Tensor,
     type1 = (selected == 1) & is_t1
     type2 = (selected == 1) & ~is_t1
 
-    cl = clause_out.bool()
-    lit = literals.bool()
+    cl = clause_out.bool()[..., :, None]                       # [..., c, 1]
+    lit = literals.bool()[..., None, :]                        # [..., 1, 2f]
     # Type I: stochastic with sensitivity s
     p_ta = int(round((1 << cfg.rand_bits) / cfg.s))
     low = ta_rand < p_ta
-    cl_and_lit = cl[:, None] & lit[None, :]
+    cl_and_lit = cl & lit
     inc1 = cl_and_lit if cfg.boost_true_positive else cl_and_lit & ~low
     dec1 = ~cl_and_lit & low
     d_t1 = inc1.to(torch.int32) - dec1.to(torch.int32)   # disjoint
     # Type II: deterministic include of the 0-literals of firing clauses
-    d_t2 = (cl[:, None] & ~lit[None, :] & ~include).to(torch.int32)
-    ta_delta = (type1[:, None].to(torch.int32) * d_t1
-                + type2[:, None].to(torch.int32) * d_t2)
+    d_t2 = (cl & ~lit & ~include).to(torch.int32)
+    ta_delta = (type1[..., :, None].to(torch.int32) * d_t1
+                + type2[..., :, None].to(torch.int32) * d_t2)
 
     w_delta = None
     if cfg.tm_type == COALESCED:
         # Alg 4: selected and firing -> the weight moves to the round's sign
-        w_delta = selected * cl.to(torch.int32) * (1 if y_c == 1 else -1)
+        w_delta = (selected * clause_out.bool().to(torch.int32)
+                   * (1 if y_c == 1 else -1))
     return ta_delta, w_delta, selected
 
 
@@ -186,9 +190,13 @@ def _group_stats(selected_rows: torch.Tensor
 
 def _datapoint_deltas(cfg: TMConfig, include, weights, literals, clause_out,
                       sums, label, c_rand, sel_rand2, ta_rand2):
-    """Both rounds of one datapoint; clause_out CoTM [c], Vanilla [h*c]
-    (row-major class blocks).  Returns (ta_delta [rows, 2f], w_delta
-    [h, c] or None, selected_rows [rows])."""
+    """Both rounds of n datapoints at once (JAX ``vmap``s its one-datapoint
+    function over a chunk): literals [n, 2f], clause_out CoTM [n, c],
+    Vanilla [n, h*c] (row-major class blocks), sums [n, h], label [n],
+    c_rand [n], sel_rand2 [n, 2, c], ta_rand2 [n, 2, c, 2f].  Returns the
+    deltas summed over the n datapoints: (ta_delta [rows, 2f], w_delta
+    [h, c] or None, selected_rows [rows]).  Each is a sum of independent
+    int32 terms, so it equals JAX's per-datapoint sum exactly."""
     h, c = cfg.classes, cfg.clauses
     dev = include.device
     neg = negated_class(h, label, c_rand)
@@ -199,22 +207,25 @@ def _datapoint_deltas(cfg: TMConfig, include, weights, literals, clause_out,
                else torch.zeros((h, c), dtype=torch.int32, device=dev))
     selected_rows = torch.zeros(rows, dtype=torch.int32, device=dev)
     for r, (cls, y_c) in enumerate(((label, 1), (neg, 0))):
-        cls = cls.reshape(1).to(torch.int64)
-        csum = sums.index_select(0, cls)[0]
+        cls = cls.to(torch.int64)                                  # [n]
+        csum = sums.gather(1, cls[:, None])[:, 0]                  # [n]
         if cfg.tm_type == COALESCED:
-            blk = torch.arange(rows, device=dev)
-            w_row = weights.index_select(0, cls)[0]
+            d_ta, d_w, sel = round_deltas(
+                cfg, include, literals, clause_out,
+                weights.index_select(0, cls), csum, y_c,
+                sel_rand2[:, r], ta_rand2[:, r])
+            ta_delta += d_ta.sum(dim=0, dtype=torch.int32)
+            selected_rows += sel.sum(dim=0, dtype=torch.int32)
+            w_delta.index_add_(0, cls, d_w)
         else:
-            blk = cls * c + torch.arange(c, device=dev)
-            w_row = None
-        d_ta, d_w, sel = round_deltas(
-            cfg, include.index_select(0, blk), literals,
-            clause_out.index_select(0, blk), w_row, csum, y_c,
-            sel_rand2[r], ta_rand2[r])
-        ta_delta.index_add_(0, blk, d_ta)
-        selected_rows.index_add_(0, blk, sel)
-        if w_delta is not None:
-            w_delta.index_add_(0, cls, d_w[None])
+            # each datapoint's class block: rows cls·c + [0, c)
+            blk = cls[:, None] * c + torch.arange(c, device=dev)   # [n, c]
+            d_ta, _, sel = round_deltas(
+                cfg, include[blk], literals, clause_out.gather(1, blk),
+                None, csum, y_c, sel_rand2[:, r], ta_rand2[:, r])
+            ta_delta.index_add_(0, blk.reshape(-1),
+                                d_ta.reshape(-1, cfg.literals))
+            selected_rows.index_add_(0, blk.reshape(-1), sel.reshape(-1))
     return ta_delta, w_delta, selected_rows
 
 
@@ -269,17 +280,16 @@ def batched_deltas(cfg: TMConfig, state: TMState, prng: PRNG,
              torch.zeros((cfg.classes, cfg.clauses), dtype=torch.int32,
                          device=dev))
     acc_sel = torch.zeros(rows, dtype=torch.int32, device=dev)
-    for c0 in range(0, B, chunk):
+    for c0 in range(0, B, chunk):          # JAX's lax.scan over chunks
         prng, c_rand, sel_rand, ta_rand = _draw_round_rands(cfg, prng, chunk)
-        for i in range(chunk):
-            b = c0 + i
-            d_ta, d_w, sel = _datapoint_deltas(
-                cfg, include, state.weights, literals[b], clause_out[b],
-                sums[b], labels[b], c_rand[i], sel_rand[i], ta_rand[i])
-            acc_ta += d_ta
-            if acc_w is not None:
-                acc_w += d_w
-            acc_sel += sel
+        b = slice(c0, c0 + chunk)
+        d_ta, d_w, sel = _datapoint_deltas(
+            cfg, include, state.weights, literals[b], clause_out[b],
+            sums[b], labels[b], c_rand, sel_rand, ta_rand)
+        acc_ta += d_ta
+        if acc_w is not None:
+            acc_w += d_w
+        acc_sel += sel
     return prng, acc_ta, acc_w, acc_sel, correct
 
 
@@ -316,8 +326,8 @@ def _train_sequential(cfg, state, prng, literals, labels):
         ncorr = ncorr + (torch.argmax(sums) == lab).to(torch.int32)
         prng, c_rand, sel_rand, ta_rand = _draw_round_rands(cfg, prng, 1)
         d_ta, d_w, sel = _datapoint_deltas(
-            cfg, include, state.weights, lit, clause_out, sums, lab,
-            c_rand[0], sel_rand[0], ta_rand[0])
+            cfg, include, state.weights, lit[None], clause_out[None],
+            sums[None], lab[None], c_rand, sel_rand, ta_rand)
         new_w = (state.weights if cfg.tm_type == VANILLA
                  else apply_w_delta(cfg, state.weights, d_w))
         state = TMState(apply_ta_delta(cfg, state.ta, d_ta), new_w)

@@ -54,7 +54,8 @@ class StepGraph:
 
     ``stage`` names the engine stage the graph stands for (the JAX
     ``cache_report`` key); ``registry`` (stage -> weak set) lets the
-    engine count the graphs alive for a stage.  ``warmup_ms``,
+    engine list the graphs alive for a stage (``captured``: the ones
+    whose CUDA graph exists).  ``warmup_ms``,
     ``capture_ms`` (capture and instantiation, after the allocator's
     cache is emptied as ``torch.cuda.graph`` empties it) and
     ``pool_bytes`` (the device memory the capture reserved: its private
@@ -76,13 +77,19 @@ class StepGraph:
         self.replays = 0
         self.capture_ms = self.warmup_ms = None
         self.pool_bytes = None
-        self._registry = registry
         # per role: weak references to the caller's objects the buffers
         # were last loaded from or handed out as (:meth:`holds`)
         self._marks: Dict[str, tuple] = {}
         # held by a caller across loading the buffers, running and
         # reading them out: the buffers are shared by every caller
         self.lock = threading.Lock()
+        if registry is not None:
+            registry.setdefault(stage, weakref.WeakSet()).add(self)
+
+    @property
+    def captured(self) -> bool:
+        """Whether the CUDA graph of this body exists (captured)."""
+        return self.graph is not None
 
     def _capture(self) -> None:
         saved = kops.launch_counts()
@@ -121,8 +128,6 @@ class StepGraph:
         self.warmup_ms = (t1 - t0) * 1e3
         self.capture_ms = (time.perf_counter() - t2) * 1e3
         self.pool_bytes = torch.cuda.memory_reserved() - reserved
-        if self._registry is not None:
-            self._registry.setdefault(self.stage, weakref.WeakSet()).add(self)
 
     def prepare(self) -> None:
         """Capture now (if this graph captures and has not yet): the

@@ -37,6 +37,20 @@ class KernelBuildError(RuntimeError):
     """nvcc is missing, or a kernel source failed to compile or load."""
 
 
+def geometry_override(override: Optional[dict], keys, kernel: str) -> dict:
+    """The autotuner's launch-geometry override for ``kernel`` (``None`` or
+    a dict of some of ``keys``) as ints; raises for a key the kernel does
+    not take.  The kernel checks its own limits;
+    ``analysis/kernel_check.py`` checks a geometry's plan before
+    ``measure`` times it."""
+    g = {k: int(v) for k, v in (override or {}).items()}
+    extra = set(g) - set(keys)
+    if extra:
+        raise ValueError(f"{kernel} takes the geometry keys {sorted(keys)}; "
+                         f"got {sorted(extra)}")
+    return g
+
+
 def find_nvcc(nvcc: Optional[str] = None) -> str:
     """The nvcc to use: ``nvcc`` if given, else the one on PATH, else the
     CUDA toolkit's default location.  Raises if none exists."""

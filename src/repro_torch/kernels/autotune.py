@@ -30,9 +30,24 @@ home the plans stay in memory.  Keys are the JAX package's
 (``stage/b<bucket>/L..xR..xH..``, next-power-of-2 batch buckets).
 
 A plan is ``{"path", "tiles", "source"}``, and a measured one also holds
-``us`` (the winner's median µs) and ``candidates_us``.  ``tiles`` records
-the launch geometry the chosen wrapper computes for the bucket (the JAX
-package's Pallas tile sets have no counterpart here).
+``us`` (the path's median µs at its own geometry), ``candidates_us`` (µs
+by path, then by launch geometry, :func:`geometry_key`) and ``rejected``
+(the candidates :mod:`repro_torch.analysis.kernel_check` refused, with
+why; they are not timed).  ``tiles`` is the launch geometry of the plan's
+path: the one its wrapper computes for the bucket under ``seed``, the
+fastest one timed under ``measure``; :func:`planned_tiles` returns it.
+
+``measure`` sweeps launch geometries as the JAX package sweeps its Pallas
+tile sets (``EVAL_TILES``): the edge, tile and fused wrappers take a
+``geometry`` override, and :func:`geometries` gives each eval stage's
+packed leg three (the wrapper's own and two around it: ``warps`` of the
+tile kernel, ``lanes`` and ``warps`` of the edge kernel) and the fused
+train leg the cluster sizes that even out its clause tiles where the
+wrapper's leaves a block two (R = 4224); every other leg runs its own
+geometry.  As in the JAX package, the engine's launches do not read
+``tiles``: they launch with the wrapper's own geometry.  So the path is
+chosen by each path's time at its own geometry, and the sweep's best
+geometry of that path is only recorded, as ``tiles``.
 
 Plans are resolved before a CUDA graph's warm-up (the engine's
 ``resolve_plans``); a lookup that would time while the current stream is
@@ -180,9 +195,23 @@ def planned_path(stage: str, batch, shape, lanes: int = 1,
     return None if plan is None else plan["path"]
 
 
-def tiles(path: str, batch, shape, sms: int = 0) -> dict:
-    """The launch geometry the wrapper of ``path`` computes for one program
-    at the bucket of ``batch`` on ``sms`` SMs (default: the H100's)."""
+def planned_tiles(stage: str, batch, shape, lanes: int = 1,
+                  mode: str = "seed", cache=None, device=None
+                  ) -> Optional[dict]:
+    """The plan's launch geometry (``tiles``), or None where there is no
+    plan (``off``; the ``ta`` stage under ``seed``), as the JAX package's
+    ``planned_tiles``."""
+    plan = lookup(stage, batch, shape, lanes, mode, cache, device)
+    return None if plan is None else plan.get("tiles")
+
+
+def tiles(path: str, batch, shape, sms: int = 0,
+          geometry: Optional[dict] = None) -> dict:
+    """The launch geometry of ``path``'s wrapper for one program at the
+    bucket of ``batch`` on ``sms`` SMs (default: the H100's): the one it
+    computes, or with ``geometry``'s keys put in (what the wrapper
+    launches when given that override; only the edge, tile and fused
+    wrappers take one)."""
     from repro_torch.launch.mesh import H100
     from . import ops
     from .clause_eval import clause_split
@@ -193,20 +222,103 @@ def tiles(path: str, batch, shape, sms: int = 0) -> dict:
     B = max(_bucket(batch), 1)
     W = -(-L // 32)
     sms = sms or H100.sms
+    g = dict(geometry or {})
     if path == ops.PATH_PACKED:
-        lanes, rows, warps, grid = edge_geometry(B, R, W, sms)
+        lanes, rows, warps, grid = edge_geometry(B, R, W, sms, **g)
         return {"lanes": lanes, "rows_per_warp": rows, "warps": warps,
                 "grid": list(grid)}
     if path == ops.PATH_PACKED_MXU:
-        return {"warps": tile_warps(1, B, R, sms)}
+        return {"warps": g.get("warps") or tile_warps(1, B, R, sms)}
+    if path == ops.PATH_FUSED:
+        return {"cluster": g.get("cluster") or fused_split(R)}
+    if g:
+        raise ValueError(f"path {path!r} takes no geometry override")
     if path == ops.PATH_MXU:
         splits, cps = clause_split(1, B, R, L, sms)
         return {"splits": splits, "chunks_per_split": cps}
-    if path == ops.PATH_FUSED:
-        return {"cluster": fused_split(R)}
     if path in (ops.TA_DENSE, ops.TA_COMPACT):
         return {"blocks": sparse_blocks(-(-R // ops.GROUP), R, W, sms)}
     raise ValueError(f"no tiles for path {path!r}")
+
+
+def geometry_key(geometry: dict) -> str:
+    """A geometry override as a ``candidates_us`` key: ``k=v`` pairs in
+    key order, joined by commas; ``own`` for no override."""
+    return ",".join(f"{k}={v}" for k, v in sorted(geometry.items())) \
+        or "own"
+
+
+def geometries(stage: str, path: str, batch, shape, sms: int = 0) -> list:
+    """The launch geometries ``measure`` times for ``path`` in ``stage``:
+    the wrapper's own first (the override that names it), then, for the
+    eval stage's packed legs, two around it (the tile kernel: the other
+    two of 1, 2 and 4 warps; the edge kernel: twice the lanes a row, or
+    half at 32, and half the warps, or 2 at 1), and for the fused train
+    leg the cluster sizes ceil(tiles / 2) and ceil(tiles / 3) where the
+    wrapper's cluster leaves a block more than one clause tile.  Every
+    other leg: its own only, the empty override (the dense clause and TA
+    wrappers take none)."""
+    from . import ops
+    from .fused_step import MAX_CLUSTER, TILE
+    own_tiles = tiles(path, batch, shape, sms)
+    if path == ops.PATH_PACKED:
+        lanes, warps = own_tiles["lanes"], own_tiles["warps"]
+        own = {"lanes": lanes, "warps": warps}
+        if stage != "eval":
+            return [own]
+        return [own,
+                {"lanes": lanes * 2 if lanes < 32 else lanes // 2,
+                 "warps": warps},
+                {"lanes": lanes, "warps": warps // 2 if warps > 1 else 2}]
+    if path == ops.PATH_PACKED_MXU:
+        w0 = own_tiles["warps"]
+        rest = [w for w in (1, 2, 4) if w != w0]
+        out = [{"warps": w0}]
+        return out + ([{"warps": w} for w in rest] if stage == "eval"
+                      else [])
+    if path == ops.PATH_FUSED:
+        cs = own_tiles["cluster"]
+        n_tiles = -(-shape[1] // TILE)
+        out = [{"cluster": cs}]
+        if n_tiles > cs:
+            for m in (2, 3):
+                alt = -(-n_tiles // m)
+                if alt != cs and 1 <= alt <= MAX_CLUSTER and \
+                        {"cluster": alt} not in out:
+                    out.append({"cluster": alt})
+        return out
+    return [{}]
+
+
+def launch_plans(stage: str, path: str, batch, shape, geometry: dict,
+                 sms: int = 0) -> list:
+    """The :mod:`repro_torch.analysis.kernel_check` plans of the launches
+    a candidate makes (the kernel whose geometry it sets, and any other
+    kernel of its leg at its own geometry), for one program."""
+    from repro_torch.analysis import kernel_check as kc
+    from repro_torch.launch.mesh import H100
+    from . import ops
+    L, R, H = shape
+    B = max(_bucket(batch), 1)
+    W = -(-L // 32)
+    sms = sms or H100.sms
+    if stage == "ta":
+        kernel = ("ta_update_sparse" if path == ops.TA_COMPACT
+                  else "ta_update")
+        return [kc.plan_ta(kernel, 1, 2 * B, L, R, sms)]
+    if path == ops.PATH_PACKED:
+        plans = [kc.plan_edge(1, B, R, W, sms, geometry)]
+    elif path == ops.PATH_PACKED_MXU:
+        plans = [kc.plan_tile(1, B, R, W, sms, geometry=geometry)]
+    elif path == ops.PATH_MXU:
+        plans = [kc.plan_clause_eval(1, B, L, R, sms)]
+    elif path == ops.PATH_FUSED:
+        return [kc.plan_fused(1, B, R, W, H, geometry)]
+    else:
+        raise ValueError(f"no launch plans for path {path!r}")
+    if stage == "train":        # the separate front half's class sums
+        plans.append(kc.plan_class_sum(1, B, R, H, sms))
+    return plans
 
 
 # ---------------------------------------------------------------------------
@@ -271,10 +383,12 @@ def _time_us(fn: Callable[[], object], device: torch.device) -> float:
     return float(np.median(ts))
 
 
-def candidates(stage: str, batch, shape, device) -> Dict[str, Callable]:
-    """The thunks a ``measure`` plan times for ``stage``: each runs one
-    candidate's ops wrappers on synthetic inputs at the padded shape and
-    the bucket's batch, on ``device``."""
+def candidates(stage: str, batch, shape, device, sms: int = 0) -> list:
+    """What a ``measure`` plan times for ``stage``: ``(path, geometry,
+    thunk)`` for each path and each of its :func:`geometries`, where the
+    thunk runs the candidate's ops wrappers, with that geometry, on
+    synthetic inputs at the padded shape and the bucket's batch, on
+    ``device``."""
     from repro_torch.core.booleanize import pack_literals
     from . import ops, ref
     L, R, H = shape
@@ -290,25 +404,25 @@ def candidates(stage: str, batch, shape, device) -> Dict[str, Callable]:
     plits = pack_literals(lits.to(torch.int32))
     pinc = pack_literals(inc.to(torch.int32))
     if stage == "eval":
-        return {
-            ops.PATH_PACKED: lambda: ops.packed_clause_eval(
-                plits, pinc, eval_mode=True, n_bits=L),
-            ops.PATH_PACKED_MXU: lambda: ops.packed_clause_tile(
-                plits, pinc, eval_mode=True, n_bits=L),
-            ops.PATH_MXU: lambda: ops.clause_eval(lits, inc,
-                                                  eval_mode=True)}
-    if stage == "train":
+        legs = {
+            ops.PATH_PACKED: lambda g: ops.packed_clause_eval(
+                plits, pinc, eval_mode=True, n_bits=L, geometry=g),
+            ops.PATH_PACKED_MXU: lambda g: ops.packed_clause_tile(
+                plits, pinc, eval_mode=True, n_bits=L, geometry=g),
+            ops.PATH_MXU: lambda g: ops.clause_eval(lits, inc,
+                                                    eval_mode=True)}
+    elif stage == "train":
         lab = t(rng.integers(0, H, (1, B)))
         rest = (t(rng.integers(-4, 5, (1, H, R))), lab, (lab + 1) % H,
                 t(rng.integers(0, 1 << 16, (1, 2, B, R))),
                 t(np.ones((1, R))), t(np.ones((1, H))), t([32]), t([0]))
-        return {
-            ops.PATH_PACKED: lambda: ops.packed_step_op(
+        legs = {
+            ops.PATH_PACKED: lambda g: ops.packed_step_op(
                 plits, pinc, *rest, n_bits=L),
-            ops.PATH_FUSED: lambda: ops.fused_step_op(
-                plits, pinc, *rest, n_bits=L),
-            ops.PATH_MXU: lambda: ops.unfused_step_op(lits, inc, *rest)}
-    if stage == "ta":
+            ops.PATH_FUSED: lambda g: ops.fused_step_op(
+                plits, pinc, *rest, n_bits=L, geometry=g),
+            ops.PATH_MXU: lambda g: ops.unfused_step_op(lits, inc, *rest)}
+    elif stage == "ta":
         ta = t(rng.integers(0, 256, (1, R, L)), torch.uint8)
         lit2 = torch.cat([plits, plits], dim=1)
         cl = t(rng.integers(0, 2, (1, 2 * B, R)))
@@ -318,29 +432,59 @@ def candidates(stage: str, batch, shape, device) -> Dict[str, Callable]:
         ta_inc = ref.pack_include(ta, t([256]))
         kw = dict(seed=t([1]), p_ta=t([1 << 13]), boost=t([0], torch.bool),
                   n_states=t([256]))
-        return {
-            ops.TA_COMPACT: lambda: ops.ta_update_compact_op(
+        legs = {
+            ops.TA_COMPACT: lambda g: ops.ta_update_compact_op(
                 ta, lit2, cl, t1, t2, l_mask, ta_inc, **kw),
-            ops.TA_DENSE: lambda: ops.ta_update_op(
+            ops.TA_DENSE: lambda g: ops.ta_update_op(
                 ta, lit2, cl, t1, t2, l_mask, **kw)}
-    raise ValueError(f"unknown autotune stage {stage!r}; use {STAGES}")
+    else:
+        raise ValueError(f"unknown autotune stage {stage!r}; use {STAGES}")
+    return [(path, g, (lambda fn=fn, g=g: fn(g)))
+            for path, fn in legs.items()
+            for g in geometries(stage, path, batch, shape, sms)]
 
 
 def measure_plan(stage: str, batch, shape, device) -> dict:
-    """Time every candidate of ``stage`` on ``device`` and return the
-    fastest as a plan.  A candidate that raises propagates.  The timing
-    launches are not counted in ``ops.launch_counts()``."""
+    """Check every candidate ``(path, geometry)`` of ``stage`` with
+    :func:`repro_torch.analysis.kernel_check.check_plan`, time the ones
+    that pass on ``device`` and return a plan: the path fastest at its
+    own geometry (the one the engine launches, as launches do not read
+    ``tiles``) with that time as ``us``, the path's fastest timed
+    geometry as ``tiles``, each candidate's µs by path and geometry, and
+    the refused candidates with their violations.  A candidate that
+    raises propagates.  The timing launches are not counted in
+    ``ops.launch_counts()``."""
+    from repro_torch.analysis.kernel_check import check_plan
     from . import ops
     dev = torch.device(device)
-    saved = ops.launch_counts()
-    try:
-        times = {path: _time_us(fn, dev) for path, fn in
-                 candidates(stage, batch, shape, dev).items()}
-    finally:
-        ops.set_launch_counts(saved)
-    best = min(times, key=times.get)
     sms = (torch.cuda.get_device_properties(dev).multi_processor_count
            if dev.type == "cuda" else 0)
-    return {"path": best, "tiles": tiles(best, batch, shape, sms),
-            "us": times[best], "candidates_us": times,
+    times: Dict[str, Dict[str, float]] = {}
+    rejected: Dict[str, Dict[str, str]] = {}
+    own: Dict[str, str] = {}            # path -> its own geometry's key
+    timed = {}                          # (path, key) -> geometry
+    saved = ops.launch_counts()
+    try:
+        for path, geom, fn in candidates(stage, batch, shape, dev, sms):
+            key = geometry_key(geom)
+            own.setdefault(path, key)   # geometries() puts it first
+            bad = [v.render() for lp in launch_plans(stage, path, batch,
+                                                      shape, geom, sms)
+                   for v in check_plan(lp)]
+            if bad:
+                rejected.setdefault(path, {})[key] = "; ".join(bad)
+                continue
+            times.setdefault(path, {})[key] = _time_us(fn, dev)
+            timed[path, key] = geom
+    finally:
+        ops.set_launch_counts(saved)
+    runs = {p: times[p][k] for p, k in own.items() if (p, k) in timed}
+    if not runs:
+        raise RuntimeError(f"autotune: the launch checker refused every "
+                           f"{stage} path's own geometry: {rejected}")
+    path = min(runs, key=runs.get)
+    best = min(times[path], key=times[path].get)
+    return {"path": path,
+            "tiles": tiles(path, batch, shape, sms, timed[path, best]),
+            "us": runs[path], "candidates_us": times, "rejected": rejected,
             "source": "measure"}

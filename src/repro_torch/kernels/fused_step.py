@@ -101,10 +101,11 @@ def _int32(t: torch.Tensor) -> torch.Tensor:
 
 def prepare_fused_step(lit, inc, weights, labels, neg, rand, cl_mask,
                        h_mask, T, w_frozen, rand_bits: int = 16,
-                       n_bits=None):
+                       n_bits=None, geometry=None):
     """(launch or None, (clause, sums, sel_lab, sel_neg)) of
     :func:`fused_step` on CUDA operands; the outputs hold the result once
-    ``launch()`` has run.  Raises for a shape the kernel does not take."""
+    ``launch()`` has run.  Raises for a shape the kernel does not take.
+    ``geometry`` ({"cluster"}) replaces :func:`fused_split`'s choice."""
     args = (lit, inc, weights, labels, neg, rand, cl_mask, h_mask, T,
             w_frozen)
     K, B, R, W, H, n_bits = _check(*args, rand_bits, n_bits)
@@ -129,9 +130,11 @@ def prepare_fused_step(lit, inc, weights, labels, neg, rand, cl_mask,
     bulk = fused_bulk(W, R, aligned, smem_fn(H, W, 1))
     if smem_fn(H, W, int(bulk)) > SMEM_LIMIT:
         raise ValueError(f"H={H} classes overflow the kernel's shared memory")
+    cluster = _build.geometry_override(geometry, ("cluster",),
+                                       "fused_step").get("cluster") \
+        or fused_split(R)
     cargs = ([t.data_ptr() for t in ops_] + [t.data_ptr() for t in outs]
-             + [K, B, R, W, H, n_bits, int(rand_bits), fused_split(R),
-                int(bulk)])
+             + [K, B, R, W, H, n_bits, int(rand_bits), cluster, int(bulk)])
 
     def launch():
         status = fn(*cargs, torch.cuda.current_stream(dev).cuda_stream)
@@ -144,17 +147,18 @@ def prepare_fused_step(lit, inc, weights, labels, neg, rand, cl_mask,
 def fused_step(lit: torch.Tensor, inc: torch.Tensor, weights: torch.Tensor,
                labels: torch.Tensor, neg: torch.Tensor, rand: torch.Tensor,
                cl_mask: torch.Tensor, h_mask: torch.Tensor, T: torch.Tensor,
-               w_frozen: torch.Tensor, rand_bits: int = 16, n_bits=None):
+               w_frozen: torch.Tensor, rand_bits: int = 16, n_bits=None,
+               geometry=None):
     """Training-step front half of K programs in one launch (module
     docstring).  Returns (clause, sums, sel_lab, sel_neg), all int32.
-    Labels must lie in [0, H)."""
+    Labels must lie in [0, H).  ``geometry``: :func:`prepare_fused_step`."""
     args = (lit, inc, weights, labels, neg, rand, cl_mask, h_mask, T,
             w_frozen)
     if _route(*args) == "cpu":
         _check(*args, rand_bits, n_bits)
         return fused_step_plain(*args, rand_bits=rand_bits, n_bits=n_bits)
     launch, outs = prepare_fused_step(*args, rand_bits=rand_bits,
-                                      n_bits=n_bits)
+                                      n_bits=n_bits, geometry=geometry)
     if launch is not None:
         with torch.cuda.device(lit.device):
             launch()

@@ -231,14 +231,19 @@ def round_select_op(sums, cls, y_c: int, rand, weights, cl_mask, T,
 
 def fused_step_op(packed_literals, packed_include, weights, labels,
                   neg_labels, rand, cl_mask, h_mask, T, w_frozen,
-                  rand_bits: int = 16, n_bits: Optional[int] = None):
+                  rand_bits: int = 16, n_bits: Optional[int] = None,
+                  geometry: Optional[dict] = None):
     """Training-step front half in ONE launch: packed literals
     [(K,) B, W], include [(K,) R, W], weights [(K,) H, R], labels and
     negated labels [(K,) B], random words [(K,) 2, B, R], masks, T and
-    w_frozen -> (clause, sums, sel_lab, sel_neg), all int32."""
+    w_frozen -> (clause, sums, sel_lab, sel_neg), all int32.
+    ``geometry`` ({"cluster"}) replaces the kernel's own cluster size
+    (the engine passes none: the wrapper's call is then the one without
+    it)."""
+    kw = {} if geometry is None else {"geometry": geometry}
     return _front(fused_step, packed_literals, packed_include, weights,
                   labels, neg_labels, rand, cl_mask, h_mask, T, w_frozen,
-                  rand_bits=rand_bits, n_bits=n_bits)
+                  rand_bits=rand_bits, n_bits=n_bits, **kw)
 
 
 def _select_stages(cl, weights, labels, neg, rand, cl_mask, h_mask, T,

@@ -31,6 +31,7 @@ reaches the plain version.  ``<wrapper>.launches`` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -90,7 +91,8 @@ def tile_warps(K: int, B: int, R: int, sms: int) -> int:
     return 1
 
 
-def edge_geometry(B: int, R: int, W: int, sms: int):
+def edge_geometry(B: int, R: int, W: int, sms: int,
+                  lanes: Optional[int] = None, warps: Optional[int] = None):
     """Launch of the edge kernel: ``(lanes, rows_per_warp, warps, grid)``.
 
     ``lanes`` (a power of two) read one clause row: the fewest that leave
@@ -99,16 +101,19 @@ def edge_geometry(B: int, R: int, W: int, sms: int):
     ``32 // lanes`` rows.  ``warps`` a block: the most, up to
     ``EDGE_MAX_WARPS``, that still give ``sms`` blocks over the groups of
     ``EDGE_ROWS`` batch rows, so a launch spreads over every SM in one
-    wave.  ``grid`` = (clause blocks, batch groups).  Pure: the CPU tests
-    check it."""
+    wave.  ``grid`` = (clause blocks, batch groups).  ``lanes`` and
+    ``warps``, when given, replace the computed ones (the autotuner's
+    candidates); the grid follows them.  Pure: the CPU tests check it."""
     chunks = -(-W // 4)
-    lanes = 1
-    while lanes < 32 and -(-chunks // lanes) > EDGE_CHUNKS:
-        lanes *= 2
+    if lanes is None:
+        lanes = 1
+        while lanes < 32 and -(-chunks // lanes) > EDGE_CHUNKS:
+            lanes *= 2
     rows_per_warp = 32 // lanes
     groups = -(-B // EDGE_ROWS)
-    warps = next((w for w in (EDGE_MAX_WARPS, 2)
-                  if groups * -(-R // (rows_per_warp * w)) >= sms), 1)
+    if warps is None:
+        warps = next((w for w in (EDGE_MAX_WARPS, 2)
+                      if groups * -(-R // (rows_per_warp * w)) >= sms), 1)
     return (lanes, rows_per_warp, warps,
             (-(-R // (rows_per_warp * warps)), groups))
 
@@ -145,15 +150,18 @@ def _route(lit: torch.Tensor, inc: torch.Tensor) -> str:
 
 def packed_clause_eval(lit: torch.Tensor, inc: torch.Tensor,
                        eval_mode: bool = False,
-                       n_bits: int | None = None) -> torch.Tensor:
+                       n_bits: int | None = None,
+                       geometry: Optional[dict] = None) -> torch.Tensor:
     """Edge-batch clause evaluation: lit [K, B, W], inc [K, R, W] ->
     clause [K, B, R] int32.  ``n_bits`` (default 32*W) masks include bits
-    past the real literal count."""
+    past the real literal count.  ``geometry`` ({"lanes", "warps"}, each
+    optional) replaces :func:`edge_geometry`'s choice."""
     _, B, R, W, _ = _operands(lit, inc, n_bits)
     if _route(lit, inc) == "cpu":
         return packed_clause_eval_plain(lit, inc, eval_mode, n_bits)
     lanes, _, warps, (blocks, groups) = edge_geometry(
-        B, R, W, sm_count(lit.device.index or 0))
+        B, R, W, sm_count(lit.device.index or 0), **_build.geometry_override(
+            geometry, ("lanes", "warps"), "packed_clause_eval"))
     if groups > 65535:
         raise ValueError(f"B={B} batch rows exceed the grid's y limit")
     return _launch(packed_clause_eval, "dtm_packed_clause_edge", lit, inc,
@@ -162,15 +170,19 @@ def packed_clause_eval(lit: torch.Tensor, inc: torch.Tensor,
 
 def packed_clause_tile(lit: torch.Tensor, inc: torch.Tensor,
                        eval_mode: bool = False,
-                       n_bits: int | None = None) -> torch.Tensor:
+                       n_bits: int | None = None,
+                       geometry: Optional[dict] = None) -> torch.Tensor:
     """Throughput-batch clause evaluation, same contract as
-    :func:`packed_clause_eval`."""
+    :func:`packed_clause_eval`.  ``geometry`` ({"warps"}) replaces
+    :func:`tile_warps`'s choice."""
     K, B, R, _, _ = _operands(lit, inc, n_bits)
     if _route(lit, inc) == "cpu":
         return packed_clause_tile_plain(lit, inc, eval_mode, n_bits)
     if -(-B // TILE_B) > 65535:
         raise ValueError(f"B={B} batch rows exceed the grid's y limit")
-    warps = tile_warps(K, B, R, sm_count(lit.device.index or 0))
+    warps = _build.geometry_override(geometry, ("warps",),
+                                     "packed_clause_tile").get("warps") \
+        or tile_warps(K, B, R, sm_count(lit.device.index or 0))
     return _launch(packed_clause_tile, "dtm_packed_clause_tile", lit, inc,
                    eval_mode, n_bits, (warps,))
 

@@ -124,7 +124,12 @@ class HardwareModel:
     program that fits L2 is served from it across steps, so one that
     does not is clause-sharded until its window does.  That threshold is
     a premise, not a measurement: no run has yet timed clause sharding
-    over NCCL against one card reading the program from HBM."""
+    over NCCL against one card reading the program from HBM.
+
+    ``nvlink_links`` and ``nvlink_link_bw`` (NVLink 4: 18 links at 25 GB/s
+    each way, 900 GB/s both ways) are the data sheet's, like ``l2_bytes``:
+    one card cannot measure an interconnect, so :meth:`collective_bw` is a
+    premise of the shard cost model (``tm_perf.clause_shard_step_s``)."""
 
     name: str = "NVIDIA H100 80GB HBM3"
     hbm_bw: float = 3.35e12
@@ -142,6 +147,13 @@ class HardwareModel:
     max_cluster_nonportable: int = 16
     max_grid_yz: int = 65535
     max_grid_x: int = 2 ** 31 - 1
+    nvlink_links: int = 18
+    nvlink_link_bw: float = 25e9           # B/s per link, each way
+
+    def collective_bw(self) -> float:
+        """The card's NVLink rate available to a collective, each way:
+        links × rate (450 GB/s on the H100 SXM)."""
+        return self.nvlink_link_bw * self.nvlink_links
 
     def int32_ops_per_s(self) -> float:
         """32-bit integer instructions a second over the whole card."""

@@ -26,7 +26,10 @@ shardings, both through the engine's own stage bodies:
   (with the Alg-6 stat gathers) cross.  Results equal the single-device
   engine's bit for bit (the invariants over
   :meth:`repro_torch.core.dtm.DTMEngine._shard_window`, whose window is
-  :func:`repro_torch.core.collectives.row_window`'s).  It runs eager.
+  :func:`repro_torch.core.collectives.row_window`'s).  Each stage is a
+  step graph (the JAX package jits its ``shard_map`` bodies): one replay
+  on the card over an NCCL group, collectives included; gloo collectives
+  cannot be captured, so over gloo the same body runs eagerly.
 
 Run it on the CPU with ``gloo`` ranks (the tests start them:
 ``torch.multiprocessing`` and a ``file://`` init), on the cards with
@@ -43,7 +46,10 @@ import torch.distributed as dist
 from repro_torch import api
 from repro_torch.api import ProgramBank
 from repro_torch.core.collectives import broadcast, gather_dim, row_window
-from repro_torch.core.dtm import FIELDS, DTMEngine, DTMProgram
+from repro_torch.core.dtm import (FIELDS, INFER_LEAVES, STAT_KEYS,
+                                  DTMEngine, DTMProgram, _sig, _prng_sig,
+                                  prng_like, store_step)
+from repro_torch.core.graph import StepGraph
 from repro_torch.core.prng import PRNG
 from .mesh import mesh_axis_size
 
@@ -100,7 +106,14 @@ class ShardedTM:
     labels and the PRNG replicated, the program as :meth:`shard` lays it
     out.  :meth:`infer` returns the class sums and the clause matrix
     ``[B, R]`` in global row order (gathered); :meth:`train_step` the
-    rank's window of the new program, the PRNG and the global stats."""
+    rank's window of the new program, the PRNG and the global stats.
+
+    Each stage runs as one step graph a stage and shape (stages
+    ``infer_sharded``, ``train_sharded`` and their ``_conv`` forms,
+    listed by ``engine.graph_report()``), held here: captured on the card
+    when the axis's group is NCCL (every rank warms up and captures at
+    the same call), run eagerly over gloo.  A capture that fails raises;
+    nothing runs the eager chain in its place."""
 
     def __init__(self, engine: DTMEngine, mesh, axis: str = "clauses",
                  conv: bool = False):
@@ -110,6 +123,8 @@ class ShardedTM:
         self.conv = conv
         self.group = mesh.get_group(axis)
         self.shards = row_window(engine.R, self.group, axis)[0]
+        self.capture = dist.get_backend(self.group) == "nccl"
+        self._graphs: Dict[tuple, StepGraph] = {}
 
     def shard(self, prog: DTMProgram) -> DTMProgram:
         return shard_program(prog, self.mesh, self.axis)
@@ -117,24 +132,114 @@ class ShardedTM:
     def gather(self, prog: DTMProgram) -> DTMProgram:
         return gather_program(prog, self.mesh, self.axis)
 
+    def _graph(self, stage: str, key: tuple, make) -> StepGraph:
+        key = (stage, *key)
+        graph = self._graphs.get(key)
+        if graph is None:
+            body, state, const = make()
+            graph = self.engine.step_graph(stage, body, state, const,
+                                           capture=self.capture)
+            self._graphs[key] = graph
+        return graph
+
+    def _infer_graph(self, prog: DTMProgram, plits: torch.Tensor
+                     ) -> StepGraph:
+        eng, group, axis = self.engine, self.group, self.axis
+        stage = "infer_conv_sharded" if self.conv else "infer_sharded"
+        impl = (eng._infer_conv_sharded_impl if self.conv
+                else eng._infer_sharded_impl)
+
+        def make():
+            # read-only: the window's INFER_LEAVES (never the TA states)
+            # and the literals; state: the answers
+            const = {f: getattr(prog, f).clone(
+                memory_format=torch.contiguous_format) for f in INFER_LEAVES}
+            const["plits"] = plits.clone(memory_format=torch.contiguous_format)
+            B, dev = plits.shape[0], eng.device
+            state = {"sums": torch.zeros((B, eng.H), dtype=torch.int32,
+                                         device=dev),
+                     "cl": torch.zeros((B, eng.R), dtype=torch.int32,
+                                       device=dev)}
+
+            def body(b):
+                p = DTMProgram(**{f: b[f] if f in INFER_LEAVES else None
+                                  for f in FIELDS})
+                sums, cl = impl(p, b["plits"], group, axis=axis)
+                b["sums"].copy_(sums)
+                b["cl"].copy_(gather_dim(cl, group, 1))
+            return body, state, const
+
+        B = plits.shape[0]
+        eng.resolve_plans(B * plits.shape[1] if self.conv else B)
+        return self._graph(stage, (_sig(getattr(prog, f) for f in
+                                        INFER_LEAVES), _sig((plits,))), make)
+
     def infer(self, prog: DTMProgram, plits: torch.Tensor):
         """(sums [B, H], clause [B, R]): the contract of ``engine.infer``
-        (``infer_conv`` for a conv machine)."""
-        eng = self.engine
-        body = (eng._infer_conv_sharded_impl if self.conv
-                else eng._infer_sharded_impl)
-        sums, cl = body(prog, plits, self.group, axis=self.axis)
-        return sums, gather_dim(cl, self.group, 1)
+        (``infer_conv`` for a conv machine), as copies."""
+        graph = self._infer_graph(prog, plits)
+        leaves = tuple(getattr(prog, f) for f in INFER_LEAVES)
+        with graph.lock:
+            if not graph.holds("prog", prog, *leaves):
+                for f, t in zip(INFER_LEAVES, leaves):
+                    graph.const[f].copy_(t)
+                graph.mark("prog", prog, *leaves)
+            graph.const["plits"].copy_(plits)
+            graph.run()
+            return graph.state["sums"].clone(), graph.state["cl"].clone()
+
+    def _train_graph(self, prog: DTMProgram, prng: PRNG,
+                     plits: torch.Tensor, labels: torch.Tensor
+                     ) -> StepGraph:
+        eng, group, axis = self.engine, self.group, self.axis
+        stage = "train_conv_sharded" if self.conv else "train_sharded"
+        impl = (eng._train_conv_sharded_impl if self.conv
+                else eng._train_sharded_impl)
+
+        def make():
+            def own(t):
+                return t.clone(memory_format=torch.contiguous_format)
+            state = {f: own(getattr(prog, f)) for f in FIELDS}
+            prng_buf = prng.map(own)
+            n_r = len(prng_buf.leaves())
+            state.update({f"prng{i}": t
+                          for i, t in enumerate(prng_buf.leaves())})
+            state["stats"] = torch.zeros(len(STAT_KEYS), dtype=torch.int32,
+                                         device=eng.device)
+            const = {"plits": own(plits),
+                     "labels": own(labels).to(torch.int32)}
+
+            def body(b):
+                p = DTMProgram(*(b[f] for f in FIELDS))
+                r = prng_like(prng_buf, [b[f"prng{i}"] for i in range(n_r)])
+                new, new_r, stats = impl(p, r, b["plits"], b["labels"],
+                                         group, axis=axis)
+                b["stats"].copy_(store_step(b, new, new_r, stats))
+            return body, state, const
+
+        B = plits.shape[0]
+        if self.conv:
+            eng.resolve_plans(B * plits.shape[1])
+        else:
+            eng.resolve_plans(B, training=True)
+        return self._graph(stage, (_sig(prog.leaves()), _prng_sig(prng),
+                                   _sig((plits, labels))), make)
 
     def train_step(self, prog: DTMProgram, prng: PRNG, plits: torch.Tensor,
                    labels: torch.Tensor):
         """The contract of ``engine.train_step`` / ``train_conv`` on the
-        rank's window: (window of the new program, PRNG, stats)."""
+        rank's window: (window of the new program, PRNG, stats: int32 0-d
+        tensors keyed by ``STAT_KEYS``), all copies."""
+        graph = self._train_graph(prog, prng, plits, labels)
         eng = self.engine
-        body = (eng._train_conv_sharded_impl if self.conv
-                else eng._train_sharded_impl)
-        return body(prog, prng, plits, labels.to(torch.int32), self.group,
-                    axis=self.axis)
+        with graph.lock:
+            eng._load_state(graph, prog, prng)
+            graph.const["plits"].copy_(plits)
+            graph.const["labels"].copy_(labels)
+            graph.run()
+            new, new_prng = eng._unload_state(graph, prog, prng)
+            row = graph.state["stats"].clone()
+        return new, new_prng, {k: row[i] for i, k in enumerate(STAT_KEYS)}
 
 
 # ---------------------------------------------------------------------------

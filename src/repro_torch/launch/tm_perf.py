@@ -69,6 +69,25 @@ def train_front_costs(B: int, L: int, C: int, H: int,
             "fused_roofline_s": roofline_s(ops, fused_bytes, hw, rate)}
 
 
+def clause_shard_step_s(B: int, L: int, C: int, H: int, shards: int,
+                        hw: HardwareModel = H100) -> dict:
+    """Roofline estimate of one clause-sharded train step (``ShardedTM``):
+    each shard runs the :func:`train_front_costs` fused datapath on its
+    C/shards row window, then the [B, H] int32 class sums cross NVLink
+    once (a ring all-reduce moves ``2·(s-1)/s`` of the buffer a card).
+    JAX's formula, on the card's rates."""
+    local = train_front_costs(B, L, max(C // shards, 1), H, hw)
+    psum_bytes = (0 if shards <= 1
+                  else 2 * (shards - 1) / shards * B * H * 4)
+    ici_s = psum_bytes / hw.collective_bw()
+    return {
+        "local_s": local["fused_roofline_s"],
+        "psum_bytes": psum_bytes,
+        "ici_s": ici_s,
+        "step_s": local["fused_roofline_s"] + ici_s,
+    }
+
+
 def program_bytes(L: int, C: int, H: int, ta_bits: int = 8,
                   P: int = 1) -> int:
     """Bytes of one padded program of the port (``DTMProgram.nbytes``):

@@ -145,7 +145,8 @@ def test_kernels_cli_exits_zero():
 
 @pytest.mark.parametrize("leg", sorted(CPU_LEGS))
 def test_cpu_audit_matches_the_ports_golden(leg, tmp_path):
-    report = trace_audit.run_audit(autotune_cache=tmp_path / "plans.json",
+    report = trace_audit.run_audit(device="cpu",
+                                   autotune_cache=tmp_path / "plans.json",
                                    **CPU_LEGS[leg])
     assert report.leg == leg
     assert all(v <= 1 for v in report.session_caches.values())
@@ -167,9 +168,31 @@ def test_golden_legs_equal_jax_under_the_rename():
     assert off["session_paths"]["train"] == "fused"
 
 
+def test_audit_runs_on_the_card_unless_asked_for_the_cpu(tmp_path):
+    """Like every entry point, the audit resolves its device through
+    ``core.device.resolve_device``: without a device it asks for CUDA, and
+    raises when there is no card (no fallback to the CPU)."""
+    import inspect
+    import torch
+    assert inspect.signature(trace_audit.run_audit).parameters[
+        "device"].default is None
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default runs there")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        trace_audit.run_audit(baseline=tmp_path / "g.json")
+    r = subprocess.run([sys.executable, "-m", "repro_torch.analysis",
+                        "audit", "--baseline", str(tmp_path / "g.json")],
+                       capture_output=True, text=True, cwd=REPO,
+                       env={"PYTHONPATH": str(REPO / "src")})
+    assert r.returncode != 0
+    assert "CUDA is not available" in r.stderr
+    assert not (tmp_path / "g.json").exists()
+
+
 def test_audit_golden_roundtrip_and_divergence(tmp_path):
     baseline = tmp_path / "golden.json"
-    report = trace_audit.run_audit(update=True, baseline=baseline,
+    report = trace_audit.run_audit(device="cpu", update=True,
+                                   baseline=baseline,
                                    autotune_cache=tmp_path / "p.json")
     trace_audit.compare_to_golden(report, baseline)
     golden = json.loads(baseline.read_text())

@@ -32,6 +32,35 @@ SHAPES = ((256, 128, 4), (1664, 2048, 16), (3200, 4224, 16))   # L, R, H
 TINY = (64, 32, 4)
 
 
+# the override keys of each path's geometry (``tat.geometries``); the
+# dense clause and TA wrappers take none
+GEOM_KEYS = {"packed_vpu": ("lanes", "warps"), "mxu_popcount": ("warps",),
+             "mxu": (), "fused": ("cluster",), "dense": (), "compact": ()}
+# seed plans as recorded before the launch-geometry sweep: it leaves them
+SEED_BEFORE_SWEEP = {
+    ("eval", 1, SHAPES[2]): ("packed_vpu", {"lanes": 8, "rows_per_warp": 4,
+                                            "warps": 4, "grid": [264, 1]}),
+    ("eval", 8, SHAPES[2]): ("packed_vpu", {"lanes": 8, "rows_per_warp": 4,
+                                            "warps": 4, "grid": [264, 2]}),
+    ("eval", 32, SHAPES[2]): ("mxu_popcount", {"warps": 1}),
+    ("eval", 256, SHAPES[2]): ("mxu_popcount", {"warps": 4}),
+    ("train", 8, SHAPES[2]): ("fused", {"cluster": 16}),
+    ("eval", 1, SHAPES[1]): ("packed_vpu", {"lanes": 4, "rows_per_warp": 8,
+                                            "warps": 1, "grid": [256, 1]}),
+    ("eval", 32, SHAPES[1]): ("packed_vpu", {"lanes": 4, "rows_per_warp": 8,
+                                             "warps": 4, "grid": [64, 8]}),
+    ("eval", 256, SHAPES[1]): ("mxu_popcount", {"warps": 2}),
+    ("train", 1, SHAPES[1]): ("packed_vpu", {"lanes": 4, "rows_per_warp": 8,
+                                             "warps": 1, "grid": [256, 1]}),
+    ("train", 32, SHAPES[1]): ("fused", {"cluster": 8}),
+}
+
+
+def _override(tiles, path):
+    """A plan's ``tiles`` as the geometry override that launches them."""
+    return {k: tiles[k] for k in GEOM_KEYS[path]}
+
+
 @pytest.fixture(autouse=True)
 def _fresh_plans():
     tat.clear_cache()
@@ -135,8 +164,16 @@ def test_measure_persists_reloads_and_outranks_seed(tmp_path, stage):
             "train": {"packed_vpu", "fused", "mxu"},
             "ta": {"compact", "dense"}}[stage]
     assert set(plan["candidates_us"]) == want
-    assert plan["path"] == min(plan["candidates_us"],
-                               key=plan["candidates_us"].get)
+    # the path by its own geometry's time (the one the engine launches),
+    # ``tiles`` the path's fastest timed geometry
+    own = {path: by_geom[tat.geometry_key(tat.geometries(
+        stage, path, b3, TINY)[0])]
+        for path, by_geom in plan["candidates_us"].items()}
+    path = min(own, key=own.get)
+    assert plan["path"] == path and plan["us"] == own[path]
+    by_geom = plan["candidates_us"][path]
+    assert tat.geometry_key(_override(plan["tiles"], path)) == min(
+        by_geom, key=by_geom.get)
     assert set(tops.launch_counts().values()) == {0}
     on_disk = json.loads(cache.read_text())
     assert on_disk[tat.plan_key(stage, b3, TINY)] == plan
@@ -309,3 +346,144 @@ def test_engine_resolves_plans_ahead_of_its_graphs(tmp_path):
                           tat.plan_key("ta", None, shape),
                           tat.plan_key("eval", 8, shape)}
     assert all(p["source"] == "measure" for p in plans.values())
+
+
+# ---------------------------------------------------------------------------
+# measure's launch-geometry sweep and planned_tiles
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("batch", (1, 8, 32, 256))
+def test_sweep_gives_three_checked_geometries_a_packed_eval_leg(shape,
+                                                                batch):
+    """As JAX's ``EVAL_TILES``: three geometries for each packed eval leg
+    (the wrapper's own first), one for the dense leg; every candidate's
+    launches pass the launch checker."""
+    from repro_torch.analysis.kernel_check import check_plan
+    for path in ("packed_vpu", "mxu_popcount", "mxu"):
+        geoms = tat.geometries("eval", path, batch, shape)
+        assert len(geoms) == (1 if path == "mxu" else 3)
+        assert len({tat.geometry_key(g) for g in geoms}) == len(geoms)
+        own = tat.tiles(path, batch, shape)
+        assert geoms[0] == _override(own, path)
+        assert tat.tiles(path, batch, shape, geometry=geoms[0]) == own
+        for g in geoms:
+            assert set(g) == set(GEOM_KEYS[path])
+            for lp in tat.launch_plans("eval", path, batch, shape, g):
+                assert check_plan(lp) == [], (path, g, lp.desc)
+
+
+def test_sweep_evens_out_fused_tiles_at_r4224_only():
+    """The fused leg adds cluster sizes where the wrapper's leaves a block
+    two of its 17 clause tiles (R = 4224); at R = 2048 (8 tiles, 8
+    blocks) it keeps its own.  The other train and TA legs keep theirs."""
+    from repro_torch.analysis.kernel_check import balance, check_plan
+    roster, train = SHAPES[2], SHAPES[1]
+    assert tat.geometries("train", "fused", 32, roster) == [
+        {"cluster": 16}, {"cluster": 9}, {"cluster": 6}]
+    assert tat.geometries("train", "fused", 32, train) == [{"cluster": 8}]
+    for g in tat.geometries("train", "fused", 32, roster):
+        (lp,) = tat.launch_plans("train", "fused", 32, roster, g)
+        assert check_plan(lp) == []
+        # each block's share of the 17 tiles: max 2, 2, 3
+        assert max(lp.work) == {16: 2, 9: 2, 6: 3}[g["cluster"]]
+    (own,) = tat.launch_plans("train", "fused", 32, roster, {"cluster": 16})
+    (nine,) = tat.launch_plans("train", "fused", 32, roster, {"cluster": 9})
+    assert balance(own) is not None and balance(nine) is None
+    for path in ("packed_vpu", "mxu"):
+        assert len(tat.geometries("train", path, 32, roster)) == 1
+    for path in ("dense", "compact"):
+        assert len(tat.geometries("ta", path, None, roster)) == 1
+
+
+def test_candidates_carry_path_and_geometry():
+    cands = tat.candidates("eval", 8, TINY, "cpu")
+    assert [(p, tat.geometry_key(g)) for p, g, _ in cands] == [
+        (p, tat.geometry_key(g)) for p in ("packed_vpu", "mxu_popcount",
+                                           "mxu")
+        for g in tat.geometries("eval", p, 8, TINY)]
+    outs = [fn() for _, _, fn in cands]
+    for o in outs[1:]:                        # every geometry, one answer
+        assert torch.equal(o.reshape(outs[0].shape), outs[0])
+
+
+def test_a_refused_geometry_is_not_timed_and_the_plan_says_why(
+        tmp_path, monkeypatch):
+    real = tat.geometries
+
+    def with_bad(stage, path, batch, shape, sms=0):
+        out = real(stage, path, batch, shape, sms)
+        if path == "mxu_popcount":
+            out = out + [{"warps": 64}]       # 2048 threads a block
+        return out
+    monkeypatch.setattr(tat, "geometries", with_bad)
+    plan = tat.lookup("eval", 8, TINY, mode="measure",
+                      cache=tmp_path / "c.json", device="cpu")
+    assert "warps=64" in plan["rejected"]["mxu_popcount"]
+    assert "threads" in plan["rejected"]["mxu_popcount"]["warps=64"]
+    assert "warps=64" not in plan["candidates_us"]["mxu_popcount"]
+    assert len(plan["candidates_us"]["mxu_popcount"]) == 3
+
+
+def test_a_swept_geometry_sets_tiles_but_not_the_path(tmp_path,
+                                                      monkeypatch):
+    """The engine launches each wrapper's own geometry, so the path is
+    the one fastest there: a tile geometry faster than every edge one
+    does not flip the plan to the tile kernel; the edge kernel's fastest
+    geometry becomes ``tiles`` and its own geometry's time ``us``."""
+    pv = tat.geometries("eval", "packed_vpu", 8, TINY)
+    mp = tat.geometries("eval", "mxu_popcount", 8, TINY)
+    us = {("packed_vpu", 0): 10.0, ("packed_vpu", 1): 8.0,
+          ("packed_vpu", 2): 12.0, ("mxu_popcount", 0): 20.0,
+          ("mxu_popcount", 1): 5.0, ("mxu_popcount", 2): 25.0,
+          ("mxu", 0): 30.0}
+    geoms = {"packed_vpu": pv, "mxu_popcount": mp, "mxu": [{}]}
+    monkeypatch.setattr(tat, "candidates", lambda *a, **k: [
+        (p, g, (lambda p=p, i=i: (p, i)))
+        for p in geoms for i, g in enumerate(geoms[p])])
+    monkeypatch.setattr(tat, "_time_us", lambda fn, dev: us[fn()])
+    plan = tat.lookup("eval", 8, TINY, mode="measure",
+                      cache=tmp_path / "c.json", device="cpu")
+    assert plan["path"] == "packed_vpu" and plan["us"] == 10.0
+    assert plan["tiles"] == tat.tiles("packed_vpu", 8, TINY, geometry=pv[1])
+    assert plan["tiles"] != tat.tiles("packed_vpu", 8, TINY)
+    assert plan["candidates_us"]["mxu_popcount"][
+        tat.geometry_key(mp[1])] == 5.0
+    assert plan["candidates_us"]["mxu"] == {"own": 30.0}
+
+
+@pytest.mark.parametrize("key", sorted(SEED_BEFORE_SWEEP, key=str))
+def test_seed_plans_and_tiles_are_unchanged(key):
+    stage, batch, shape = key
+    path, tiles = SEED_BEFORE_SWEEP[key]
+    plan = tat.seed_plan(stage, batch, shape)
+    assert plan == {"path": path, "tiles": tiles, "source": "seed"}
+    assert tat.planned_tiles(stage, batch, shape, device="cpu") == tiles
+    assert tat.lookup(stage, batch, shape, mode="off", device="cpu") is None
+
+
+def test_planned_tiles_returns_the_plans_and_none_where_jax_does(
+        tmp_path, jax_off, monkeypatch):
+    # off: no plan in either package
+    for stage in tat.STAGES:
+        assert jat.planned_tiles(stage, 8, TINY) is None
+        assert tat.planned_tiles(stage, 8, TINY, mode="off",
+                                 device="cpu") is None
+    # seed: the TA stage has no plan in either package
+    monkeypatch.setenv("REPRO_AUTOTUNE", "seed")
+    monkeypatch.setattr(jat, "_disk_plans", lambda: {})
+    assert jat.planned_tiles("ta", None, TINY) is None
+    assert tat.planned_tiles("ta", None, TINY, device="cpu") is None
+    assert jat.planned_tiles("eval", 8, TINY) is not None
+    assert tat.planned_tiles("eval", 8, TINY, device="cpu") == \
+        tat.seed_plan("eval", 8, TINY)["tiles"]
+    # measure: the fastest candidate's geometry
+    cache = tmp_path / "c.json"
+    for stage, b in (("eval", 8), ("train", 8), ("ta", None)):
+        plan = tat.lookup(stage, b, TINY, mode="measure", cache=cache,
+                          device="cpu")
+        got = tat.planned_tiles(stage, b, TINY, mode="measure", cache=cache,
+                                device="cpu")
+        assert got == plan["tiles"] == tat.tiles(
+            plan["path"], b, TINY, geometry=_override(plan["tiles"],
+                                                      plan["path"]))

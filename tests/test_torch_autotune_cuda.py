@@ -59,7 +59,13 @@ def test_measure_times_every_candidate_and_reloads(card, tmp_path, stage):
                            device="cuda")
     assert set(ops.launch_counts().values()) == {0}
     assert plan["source"] == "measure" and plan["us"] > 0
-    assert all(v > 0 for v in plan["candidates_us"].values())
+    assert all(us > 0 for by_geom in plan["candidates_us"].values()
+               for us in by_geom.values())
+    # the path fastest at its own geometry, the one the engine launches
+    assert plan["us"] == min(
+        by_geom[autotune.geometry_key(autotune.geometries(
+            stage, path, b, SHAPE)[0])]
+        for path, by_geom in plan["candidates_us"].items())
     assert json.loads(cache.read_text())[autotune.plan_key(
         stage, b, SHAPE)] == plan
     autotune.clear_cache()

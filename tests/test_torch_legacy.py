@@ -311,6 +311,51 @@ def test_feedback_fit_equals_jax(mode, backend, compute):
     assert th == jh
 
 
+BD_B = 8
+
+
+@pytest.mark.parametrize("chunk", [1, 4, BD_B])
+@pytest.mark.parametrize("tm_type,backend", [("coalesced", "threefry"),
+                                             ("coalesced", "lfsr"),
+                                             ("vanilla", "counter")])
+def test_batched_deltas_equal_jax(tm_type, backend, chunk):
+    """``feedback.batched_deltas`` (a chunk of datapoints as one batched
+    expression, JAX's ``vmap``) equals JAX's at every chunk size: the
+    PRNG state, ``d_ta``, ``d_w``, ``d_sel`` and ``correct``."""
+    import jax
+    import jax.numpy as jnp
+    from repro.core import TMConfig as JConfig
+    from repro.core import feedback as jfb
+    from repro.core import init_state as jinit, to_literals as jlits
+    from repro.core.prng import PRNG as JPRNG
+    from repro_torch.core import feedback
+    kw = dict(tm_type=tm_type, features=10, clauses=8, classes=3, T=8,
+              s=3.0, prng_backend=backend,
+              boost_true_positive=backend != "lfsr")
+    jc = JConfig(**kw)
+    rng = np.random.default_rng(7)
+    x = (rng.random((BD_B, 10)) < 0.4).astype(np.int8)
+    y = rng.integers(0, 3, BD_B).astype(np.int32)
+    js = jinit(jc, jax.random.PRNGKey(4))
+    jp = JPRNG.create(jc, 6)
+    ts = convert.state_from_numpy(_state_np(js), device="cpu")
+    tp = convert.prng_from_numpy(jax_prng_numpy(jp), device="cpu")
+    jp2, jta, jw, jsel, jcorr = jfb.batched_deltas(
+        jc, js, jp, jlits(jnp.asarray(x)), jnp.asarray(y), chunk)
+    tp2, tta, tw, tsel, tcorr = feedback.batched_deltas(
+        TMConfig(**kw), ts, tp, to_literals(x), torch.from_numpy(y), chunk)
+    _assert_prng(tp2, jp2, f"chunk {chunk}")
+    np.testing.assert_array_equal(tta.numpy(), np.asarray(jta))
+    assert tta.dtype == torch.int32
+    if jw is None:
+        assert tw is None
+    else:
+        np.testing.assert_array_equal(tw.numpy(), np.asarray(jw))
+    np.testing.assert_array_equal(tsel.numpy(), np.asarray(jsel))
+    assert int(tcorr) == int(jcorr)
+    assert np.abs(np.asarray(jta)).sum() > 0          # feedback happened
+
+
 # ---------------------------------------------------------------------------
 # small functions
 # ---------------------------------------------------------------------------

@@ -128,6 +128,10 @@ def _sharded_case(engine, specs, out):
         sums, cl = stm.infer(p, lits)
         rec["sums"], rec["cl"] = sums.numpy(), cl.numpy()
         rec["paths"] = dict(engine.cache_report()["path_per_stage"])
+        rec["graphs"] = [(g["stage"], g["captured"], g["replays"])
+                         for g in engine.graph_report()]
+        rec["cache"] = {k: v for k, v in engine.cache_report().items()
+                        if k != "path_per_stage"}
         out["sharded"][kind] = rec
 
 
@@ -415,6 +419,23 @@ def test_clause_sharded_equals_jax_single_device(ranks, jax_side, kind):
         np.testing.assert_array_equal(rec["cl"], np.asarray(cl))
         stage = "train_conv_sharded" if conv else "train_sharded"
         assert rec["paths"][stage + "_shard"] == f"clauses:{WORLD}"
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_clause_sharded_stages_run_as_step_graphs(ranks, kind):
+    """``ShardedTM`` runs each stage through one step graph a stage and
+    shape: ``graph_report()`` lists the kind's infer and train stage with
+    one graph each, not captured over gloo (its collectives cannot be),
+    so the CPU runs the body the card replays; ``cache_report`` keeps
+    JAX's engine stages only, all at 0 here."""
+    conv = kind == "conv"
+    suffix = "_conv_sharded" if conv else "_sharded"
+    for out in ranks:
+        rec = out["sharded"][kind]
+        assert sorted(rec["graphs"]) == sorted(
+            [("infer" + suffix, False, 0), ("train" + suffix, False, 0)])
+        assert not any("sharded" in k for k in rec["cache"])
+        assert all(v == 0 for v in rec["cache"].values())
 
 
 # ---------------------------------------------------------------------------

@@ -81,3 +81,27 @@ def test_hardware_model_limits():
             hw.max_grid_yz) == (1024, 227 * 1024, 8, 16, 65535)
     assert hw.sms == 132 and hw.b1_mma_per_s == 1.5e11
     assert isinstance(TileConfig().padded_dims(), tuple)
+
+
+@pytest.mark.parametrize("shards", (1, 2, 4))
+@pytest.mark.parametrize("L,C,H", SHAPES)
+def test_clause_shard_step_is_jaxs_formula_on_the_cards_rates(
+        L, C, H, shards, monkeypatch):
+    """JAX's ``clause_shard_step_s`` with its v5e collective rate swapped
+    for the H100's NVLink rate and its ``train_front_costs`` for the
+    port's gives the port's numbers, key for key."""
+    assert mesh.H100.collective_bw() == 18 * 25e9
+    monkeypatch.setattr(jperf, "train_front_costs",
+                        lambda B, L, C, H: tm_perf.train_front_costs(
+                            B, L, C, H))
+    monkeypatch.setattr(jperf, "V5E", mesh.H100)   # for its collective_bw
+    for B in (1, 32, 1024):
+        mine = tm_perf.clause_shard_step_s(B, L, C, H, shards)
+        theirs = jperf.clause_shard_step_s(B, L, C, H, shards)
+        assert set(mine) == set(theirs) == {"local_s", "psum_bytes",
+                                            "ici_s", "step_s"}
+        assert mine == theirs
+        if shards == 1:
+            assert mine["ici_s"] == 0 and mine["psum_bytes"] == 0
+        else:
+            assert mine["psum_bytes"] == 2 * (shards - 1) / shards * B * H * 4
