@@ -1,0 +1,111 @@
+"""Seeded inputs of the benchmark: data sets, request pools and programs.
+
+Frozen copies, so that a later change to the program cannot move the
+yardstick:
+
+* :func:`motifs` and :func:`make_bool_dataset` are
+  ``src/repro_torch/data/datasets.py`` of commit 14675cf (the synthetic
+  MNIST- and KWS-6-shaped sets), with the per-row loop cut down to the
+  one call per row that consumes the generator (``Generator.choice``,
+  which draws a data-dependent number of words, so it cannot be batched
+  without changing the stream).  The motif union and everything else is
+  vectorised.  The output equals the original's for every seed
+  (``portbench/tests/test_portbench_harness.py``).
+* :func:`firing_program` is ``chip_smoke.py`` ``motif_program`` of the same
+  commit, vectorised: each clause row includes ``n_inc`` x-literals of one
+  motif of its class, so clauses fire on the class's data.  Its weights
+  span the configuration's whole weight range, so a lower weight
+  precision changes the answers.
+
+A task (the ``data`` entries of a configuration file) is a dict with the
+fields of the original ``BoolTaskSpec``.  Everything here is numpy on the
+host; the sets are uploaded by the program's own encoders.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from portbench.tm_reference import rows_of
+
+CHUNK = 8192      # rows a step of the vectorised motif union
+
+
+def motifs(task: dict) -> np.ndarray:
+    """The class motifs, int8 [classes, motifs_per_class, features] {0,1}."""
+    rng = np.random.default_rng(task["seed"])
+    m = np.zeros((task["classes"], task["motifs_per_class"],
+                  task["features"]), np.int8)
+    for c in range(task["classes"]):
+        for k in range(task["motifs_per_class"]):
+            idx = rng.choice(task["features"], task["motif_bits"],
+                             replace=False)
+            m[c, k, idx] = 1
+    return m
+
+
+def make_bool_dataset(task: dict, n: int, seed: int = 0):
+    """Returns (x [n, features] int8 {0,1}, y [n] int32), the rows the
+    original generator gives for ``(task, n, seed)``."""
+    mot = motifs(task)
+    rng = np.random.default_rng(np.random.SeedSequence([task["seed"], seed]))
+    y = rng.integers(0, task["classes"], n).astype(np.int32)
+    x = (rng.random((n, task["features"])) < task["background_p"]).astype(
+        np.int8)
+    choice, k_all, k = rng.choice, task["motifs_per_class"], \
+        task["active_motifs"]
+    ks = np.empty((n, k), np.intp)
+    for i in range(n):
+        ks[i] = choice(k_all, k, replace=False)
+    for a in range(0, n, CHUNK):
+        b = min(a + CHUNK, n)
+        x[a:b] |= mot[y[a:b, None], ks[a:b]].max(axis=1)
+    flip = rng.random((n, task["features"])) < task["flip_p"]
+    return np.where(flip, 1 - x, x).astype(np.int8), y
+
+
+def initial_program(model: dict, rng: np.random.Generator):
+    """A program to train from, drawn as the paper's initial state: TA
+    states J-1 or J with probability 1/2 each, CoTM weights ±1.
+    Returns (ta int32 [rows, 2f], weights int32 [classes, clauses] or
+    None)."""
+    j = 1 << (model["ta_bits"] - 1)
+    rows, lits = rows_of(model), 2 * model["features"]
+    ta = (j - 1 + rng.integers(0, 2, (rows, lits))).astype(np.int32)
+    weights = None
+    if model["kind"] == "coalesced":
+        weights = (1 - 2 * rng.integers(0, 2, (model["classes"],
+                                               model["clauses"]))
+                   ).astype(np.int32)
+    return ta, weights
+
+
+def firing_program(model: dict, task: dict, rng: np.random.Generator,
+                   n_inc: int = 3):
+    """A served program: every clause row includes ``n_inc`` x-literals of
+    one motif of its class (Vanilla rows of negative polarity: of the next
+    class), its other TA states below J; CoTM weights of magnitude
+    1..clip, positive for the row's class and negative for the others.
+    Returns (ta int32 [rows, 2f], weights int32 [classes, clauses] or
+    None)."""
+    j = 1 << (model["ta_bits"] - 1)
+    rows, lits = rows_of(model), 2 * model["features"]
+    h, c = model["classes"], model["clauses"]
+    mot = motifs(task)
+    bits = np.argsort(-mot, axis=-1, kind="stable")[..., :task["motif_bits"]]
+    ta = rng.integers(0, j, (rows, lits)).astype(np.int32)
+    r = np.arange(rows)
+    if model["kind"] == "vanilla":
+        cls = (r // c + (r % c) % 2) % h
+    else:
+        cls = r % h
+    picks = rng.integers(0, task["motifs_per_class"], rows)
+    order = np.argsort(rng.random((rows, task["motif_bits"])), axis=1)
+    on = bits[cls, picks][r[:, None], order[:, :n_inc]]
+    ta[r[:, None], on] = rng.integers(j, 2 * j, (rows, n_inc))
+    weights = None
+    if model["kind"] == "coalesced":
+        clip = (1 << (model["weight_bits"] - 1)) - 1
+        weights = -rng.integers(1, clip + 1, (h, c))
+        weights[cls, r] = rng.integers(1, clip + 1, rows)
+        weights = weights.astype(np.int32)
+    return ta, weights
