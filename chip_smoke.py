@@ -1138,8 +1138,7 @@ def threefry_phase(torch, np, api, ops, tm_paper, eng, eng_cpu, x_tr, y_tr,
         "classes, T=500, s=10, ta_bits 8), prng_backend threefry",
         "engine": {"L": eng.L, "R": eng.R, "H": eng.H, "W": eng.W},
         "kernel_cases": len(cases), "fit_s": fit_s,
-        "epoch_s": tm.epoch_seconds,
-        "steps_per_s": [(len(x_tr) // 32) / e for e in tm.epoch_seconds],
+        "steps_per_s": steps / fit_s,
         "train_acc": [h["train_acc"] for h in hist],
         "step_ms_median": float(np.median(step_s) * 1e3),
         "step_ms": [s_ * 1e3 for s_ in step_s], "step_profile": prof,
@@ -1316,8 +1315,10 @@ def graphs_phase(torch, np, api, ops, fits, edge, flat, conv_flat,
         idx0 = np.random.default_rng(seed).permutation(len(x))[:n].reshape(
             steps, B)
         ops.reset_launch_counts()
+        t = time.perf_counter()
         p1, r1, st1 = impl(p0, r0, lits, lab, idx0, sync_guard=True)
         torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t) * 1e3
         counts = ops.launch_counts()
         graph = next(g_ for g_ in e._graphs.values()
                      if g_.stage.startswith("fit_epoch")
@@ -1338,11 +1339,9 @@ def graphs_phase(torch, np, api, ops, fits, edge, flat, conv_flat,
         ev[1].record()
         torch.cuda.synchronize()
         dev_ms = ev[0].elapsed_time(ev[1])
-        host_ms = tm.epoch_seconds[-1] * 1e3
         report["fits"][name] = {
             "steps_per_epoch": steps, "fit_s": fit_s,
-            "epoch_s": tm.epoch_seconds,
-            "steps_per_s": [steps / s_ for s_ in tm.epoch_seconds],
+            "steps_per_s": 2 * steps / fit_s,
             "host_ms_per_replayed_step": host_ms / steps,
             "eager_ms_per_step": eager_s * 1e3 / (2 * steps),
             "epoch_device_ms": dev_ms,
@@ -4314,12 +4313,7 @@ def main(argv=None) -> int:
         "engine": {"L": eng.L, "R": eng.R, "H": eng.H, "W": eng.W},
         "rows": {"train": N_TRAIN, "test": N_TEST}, "batch": 32,
         "epochs": len(hist), "fit_s": {"compact": fit_s, "dense": fit_d_s},
-        "epoch_s": {"compact": tm_a.epoch_seconds,
-                    "dense": tm_b.epoch_seconds},
-        "steps_per_s": {"compact": [(N_TRAIN // 32) / e
-                                    for e in tm_a.epoch_seconds],
-                        "dense": [(N_TRAIN // 32) / e
-                                  for e in tm_b.epoch_seconds]},
+        "steps_per_s": {"compact": steps / fit_s, "dense": steps / fit_d_s},
         "step_ms_median": float(np.median(step_s) * 1e3),
         "edge_step_ms_median": float(np.median(edge_train_s) * 1e3),
         "skip_frac": tm_a.skip_frac,
@@ -4357,8 +4351,7 @@ def main(argv=None) -> int:
         "engine": {"L": eng_cv.L, "R": eng_cv.R, "H": eng_cv.H,
                    "W": eng_cv.W, "P": eng_cv.P},
         "rows": {"train": N_CONV, "test": N_CONV_TEST}, "batch": 32,
-        "fit_s": fit_c_s, "epoch_s": tm_c.epoch_seconds,
-        "steps_per_s": [(N_CONV // 32) / e for e in tm_c.epoch_seconds],
+        "fit_s": fit_c_s, "steps_per_s": 2 * (N_CONV // 32) / fit_c_s,
         "step_ms_median": float(np.median(conv_step_s) * 1e3),
         "step_ms": [s_ * 1e3 for s_ in conv_step_s],
         "step_peak_bytes": conv_step_peak,

@@ -35,6 +35,7 @@ from repro_torch.core.dtm import (FIELDS, STAT_KEYS, Device, DTMEngine,
 from repro_torch.core import threefry
 from repro_torch.core.prng import PRNG
 from repro_torch.core.evaluate import accuracy, batched_predict
+from repro_torch.runtime.spans import span
 from repro_torch.core.types import (COALESCED, PRNG_BACKENDS, TMConfig,
                                     TileConfig, VANILLA)
 
@@ -352,7 +353,6 @@ class TM:
         # lifetime Alg-6 accounting, kept on the device until skip_frac
         self._skip_active = 0
         self._skip_total = 0
-        self.epoch_seconds: List[float] = []   # of the last fit
 
     def _extra_metrics(self) -> Optional[Callable]:
         if self.spec.kind != "regression":
@@ -365,16 +365,17 @@ class TM:
         """One engine train step on a batch (``TMSession.step``: one
         replay of the step graph at this batch shape on the card);
         returns the stats (0-d int32 tensors on the engine device)."""
-        if self._stream is None:
-            self._stream = self.engine.bind(self.program, spec=self.spec,
-                                            prng=self.prng)
-        self._stream.program, self._stream.prng = self.program, self.prng
-        stats = self._stream.step(x, y)
-        self.program, self.prng = self._stream.state()
-        self.steps += 1
-        self._skip_active = self._skip_active + stats["active_groups"]
-        self._skip_total = self._skip_total + stats["total_groups"]
-        return stats
+        with span("tm.partial_fit"):
+            if self._stream is None:
+                self._stream = self.engine.bind(self.program, spec=self.spec,
+                                                prng=self.prng)
+            self._stream.program, self._stream.prng = self.program, self.prng
+            stats = self._stream.step(x, y)
+            self.program, self.prng = self._stream.state()
+            self.steps += 1
+            self._skip_active = self._skip_active + stats["active_groups"]
+            self._skip_total = self._skip_total + stats["total_groups"]
+            return stats
 
     def fit(self, x, y, epochs: int = 1, batch: int = 32,
             log_every: int = 0, x_test=None, y_test=None,
@@ -385,28 +386,29 @@ class TM:
         replay of the epoch graph's step a batch); returns the
         per-epoch records.  ``sync_guard`` raises on a host-device
         synchronisation inside an epoch's steps."""
-        session = self.engine.bind(self.program, x, y, spec=self.spec,
-                                   prng=self.prng)
+        with span("tm.fit"):
+            session = self.engine.bind(self.program, x, y, spec=self.spec,
+                                       prng=self.prng)
 
-        def _score(xt, yt):
-            self.program, self.prng = session.state()
-            return self.score(xt, yt)
+            def _score(xt, yt):
+                self.program, self.prng = session.state()
+                return self.score(xt, yt)
 
-        steps_before = session.steps
-        try:
-            history = session.fit_epochs(
-                epochs, batch=batch, rng=rng, log_every=log_every,
-                score_fn=(None if x_test is None else _score),
-                x_test=x_test, y_test=y_test,
-                extra_metrics=self._extra_metrics(), sync_guard=sync_guard)
-        finally:
-            self.program, self.prng = session.unbind()
-            self.steps += session.steps - steps_before
-            self.epoch_seconds = list(session.epoch_s)
-        for rec in history:
-            self._skip_active = self._skip_active + rec["active_groups"]
-            self._skip_total = self._skip_total + rec["total_groups"]
-        return history
+            steps_before = session.steps
+            try:
+                history = session.fit_epochs(
+                    epochs, batch=batch, rng=rng, log_every=log_every,
+                    score_fn=(None if x_test is None else _score),
+                    x_test=x_test, y_test=y_test,
+                    extra_metrics=self._extra_metrics(),
+                    sync_guard=sync_guard)
+            finally:
+                self.program, self.prng = session.unbind()
+                self.steps += session.steps - steps_before
+            for rec in history:
+                self._skip_active = self._skip_active + rec["active_groups"]
+                self._skip_total = self._skip_total + rec["total_groups"]
+            return history
 
     @property
     def skip_frac(self) -> Optional[float]:

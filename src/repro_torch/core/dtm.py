@@ -86,7 +86,6 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
-import time
 from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -94,6 +93,7 @@ import torch
 
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import M32, NEG_INF_SUM, pack_include
+from repro_torch.runtime.spans import span
 from .booleanize import pack_literals, unpack_literals, words_from_u32
 from .device import Device, resolve_device
 from .evaluate import epoch_record
@@ -1059,6 +1059,17 @@ class DTMEngine:
         graph = self._graphs.get(key)
         if graph is not None:
             return graph
+        with span("engine.graph_build"):
+            return self._build_train_graph(key, stage, conv, prog, prng,
+                                           lits, labels, plan_shape)
+
+    def _build_train_graph(self, key, stage: str, conv: bool,
+                           prog: DTMProgram, prng: PRNG, lits: torch.Tensor,
+                           labels: torch.Tensor,
+                           plan_shape: Optional[Tuple[int, int]]
+                           ) -> StepGraph:
+        """:meth:`_train_graph`'s cache miss: a new graph under ``key``."""
+        epoch = plan_shape is not None
         step = (self.train_conv if conv
                 else functools.partial(self.train_step, donate=True))
         dev = self.device
@@ -1145,36 +1156,43 @@ class DTMEngine:
         taken under it."""
         graph = self._train_graph(conv, prog, prng, lits, labels)
         with graph.lock:
-            self._load_state(graph, prog, prng)
-            graph.const["lits"].copy_(lits)
-            graph.const["labels"].copy_(labels)
+            with span("step.load"):
+                self._load_state(graph, prog, prng)
+                graph.const["lits"].copy_(lits)
+                graph.const["labels"].copy_(labels)
             graph.run()
-            new, new_prng = self._unload_state(graph, prog, prng)
-            row = graph.state["stats"].clone()
+            with span("step.unload"):
+                new, new_prng = self._unload_state(graph, prog, prng)
+                row = graph.state["stats"].clone()
         return new, new_prng, {k: row[i] for i, k in enumerate(STAT_KEYS)}
 
     def _epoch(self, conv: bool, prog: DTMProgram, prng: PRNG,
                lits: torch.Tensor, labels: torch.Tensor, idx,
                sync_guard: bool = False):
-        idx = torch.as_tensor(np.asarray(idx), dtype=torch.int64)
+        idx = np.asarray(idx)
         steps = idx.shape[0]
         graph = self._train_graph(conv, prog, prng, lits, labels,
                                   tuple(idx.shape))
-        if self.device.type == "cuda":
-            idx = idx.pin_memory()
         with graph.lock:
-            self._load_state(graph, prog, prng)
-            if not graph.holds("data", lits, labels):
-                graph.const["data"].copy_(lits)
-                graph.const["labels"].copy_(labels)
-                graph.mark("data", lits, labels)
-            graph.const["plan"].copy_(idx, non_blocking=True)
+            with span("epoch.plan"):
+                plan = torch.as_tensor(idx, dtype=torch.int64)
+                if self.device.type == "cuda":
+                    plan = plan.pin_memory()
+                graph.const["plan"].copy_(plan, non_blocking=True)
+            with span("step.load"):
+                self._load_state(graph, prog, prng)
+                if not graph.holds("data", lits, labels):
+                    graph.const["data"].copy_(lits)
+                    graph.const["labels"].copy_(labels)
+                    graph.mark("data", lits, labels)
             graph.state["step"].zero_()
             graph.prepare()
             with _sync_guard(self.device, sync_guard):
                 graph.run(steps)
-            new, new_prng = self._unload_state(graph, prog, prng)
-            return new, new_prng, graph.state["stats"].clone()
+            with span("step.unload"):
+                new, new_prng = self._unload_state(graph, prog, prng)
+                stats = graph.state["stats"].clone()
+            return new, new_prng, stats
 
     def _fit_epoch_impl(self, prog: DTMProgram, prng: PRNG,
                         lits: torch.Tensor, labels: torch.Tensor, idx,
@@ -1216,6 +1234,13 @@ class DTMEngine:
         graph = self._graphs.get(key)
         if graph is not None:
             return graph
+        with span("engine.graph_build"):
+            return self._build_infer_graph(key, stage, conv, prog, lits)
+
+    def _build_infer_graph(self, key, stage: str, conv: bool,
+                           prog: DTMProgram, lits: torch.Tensor
+                           ) -> StepGraph:
+        """:meth:`_infer_graph`'s cache miss: a new graph under ``key``."""
         dev, B = self.device, lits.shape[0]
         const = {f: getattr(prog, f).clone(
             memory_format=torch.contiguous_format) for f in INFER_LEAVES}
@@ -1344,7 +1369,6 @@ class TMSession:
         self.steps = 0          # train batches consumed
         self.dispatches = 0     # host-device round trips (the JAX probe)
         self.replays = 0        # CUDA graph launches
-        self.epoch_s: list = []  # host seconds per fit_epochs epoch
         self._lits: Optional[torch.Tensor] = None   # staged [N, (P,) W]
         self._labels: Optional[torch.Tensor] = None  # staged [N]
         self.n = 0
@@ -1365,14 +1389,16 @@ class TMSession:
 
     def stage(self, x, y) -> "TMSession":
         """Encode the whole dataset once and keep it on the device."""
-        self._lits = self._encode(x)
-        self._labels = self._encode_labels(y)
+        with span("session.encode"):
+            self._lits = self._encode(x)
+            self._labels = self._encode_labels(y)
         self.n = int(self._lits.shape[0])
         return self
 
     def step(self, x, y) -> Dict[str, torch.Tensor]:
         """One engine train step on a fresh (unstaged) batch."""
-        lits, lab = self._encode(x), self._encode_labels(y)
+        with span("session.encode"):
+            lits, lab = self._encode(x), self._encode_labels(y)
         self.program, self.prng, stats = self.engine._session_step(
             self.conv, self.program, self.prng, lits, lab)
         self.steps += 1
@@ -1392,8 +1418,7 @@ class TMSession:
         :func:`repro_torch.core.evaluate.epoch_record`.  ``sync_guard``
         makes any host-device synchronisation between an epoch's plan
         upload and its stats fetch raise (CUDA only; the first epoch
-        captures its graph before the guarded steps).  ``epoch_s`` gets
-        each epoch's host seconds, from the upload to the fetch."""
+        captures its graph before the guarded steps)."""
         if self._lits is None:
             raise RuntimeError("bind data first: engine.bind(p, x, y)")
         rng = rng or np.random.default_rng(0)
@@ -1405,20 +1430,21 @@ class TMSession:
                else self.engine._fit_epoch_impl)
         history = []
         for ep in range(epochs):
-            idx = rng.permutation(self.n)[:n].reshape(steps, batch)
-            t0 = time.perf_counter()
-            self.program, self.prng, step_stats = fit(
-                self.program, self.prng, self._lits, self._labels, idx,
-                sync_guard=sync_guard)
-            self.dispatches += 1
-            self.replays += steps if self.engine.graphed else 0
-            self.steps += steps
-            # exact integer epoch totals from the per-step stats
-            per_step = step_stats.cpu().numpy()  # dtmlint: disable=DTM003 (the epoch's one fetch)
-            self.epoch_s.append(time.perf_counter() - t0)
-            agg = {k: int(per_step[:, i].sum(dtype=np.int64))
-                   for i, k in enumerate(STAT_KEYS)}
-            rec = epoch_record(ep, agg, n, extra_metrics)
+            with span("session.epoch"):
+                with span("epoch.plan"):
+                    idx = rng.permutation(self.n)[:n].reshape(steps, batch)
+                self.program, self.prng, step_stats = fit(
+                    self.program, self.prng, self._lits, self._labels, idx,
+                    sync_guard=sync_guard)
+                self.dispatches += 1
+                self.replays += steps if self.engine.graphed else 0
+                self.steps += steps
+                # exact integer epoch totals from the per-step stats
+                with span("epoch.fetch"):
+                    per_step = step_stats.cpu().numpy()  # dtmlint: disable=DTM003 (the epoch's one fetch)
+                agg = {k: int(per_step[:, i].sum(dtype=np.int64))
+                       for i, k in enumerate(STAT_KEYS)}
+                rec = epoch_record(ep, agg, n, extra_metrics)
             if score_fn is not None and x_test is not None:
                 rec["test_acc"] = score_fn(x_test, y_test)
             history.append(rec)

@@ -44,6 +44,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from repro_torch.kernels import ops as kops
+from repro_torch.runtime.spans import span
 
 Buffers = Dict[str, torch.Tensor]
 
@@ -92,6 +93,10 @@ class StepGraph:
         return self.graph is not None
 
     def _capture(self) -> None:
+        with span("graph.capture"):
+            self._capture_now()
+
+    def _capture_now(self) -> None:
         saved = kops.launch_counts()
         t0 = time.perf_counter()
         clones = {k: v.clone() for k, v in self.state.items()}
@@ -154,12 +159,13 @@ class StepGraph:
         so they no longer hold what role ``state`` was marked with (even
         when it raises part way)."""
         self._marks.pop("state", None)
-        if not self.capture:
+        with span("graph.run"):
+            if not self.capture:
+                for _ in range(times):
+                    self.body(self.bufs)
+                return
+            self.prepare()
             for _ in range(times):
-                self.body(self.bufs)
-            return
-        self.prepare()
-        for _ in range(times):
-            self.graph.replay()
-        self.replays += times
-        kops.add_launches(self.launches, times)
+                self.graph.replay()
+            self.replays += times
+            kops.add_launches(self.launches, times)
