@@ -67,7 +67,10 @@ held-out rows):
  10. the training kernels against their plain versions at the path's
      shapes (fused_step K=1 B=32, also as ``kernel_ms``, its bare launch
      from ``prepare_fused_step``, and under torch.profiler: one kernel a
-     call, in the profiled step and alone; ta_update and ta_update_streamed K=1
+     call, in the profiled step and alone; the step glue's step_prologue
+     and step_epilogue at the fit's step (K=1 B=32, the epilogue in place
+     as the donated step runs it), both also checked at the edge step
+     (B=1) and the bank step (K=2); ta_update and ta_update_streamed K=1
      and K=2 with 2B=64; ta_update_sparse at the fit's second step;
      clause_eval K=1 B=32; packed_clause_eval at the edge step's B=1,
      R=2048, W=52), timed as in phase 6, the TA rows also as
@@ -147,7 +150,7 @@ Threefry and the plain datapath:
      of phase 7's model from its starting program and PRNG against the
      default engine's, and one K=2 bank step against phase 9's; the
      counts over the phase show no launch of the nine clause and TA
-     kernels and the lfsr draws' launches.
+     kernels or the two step-glue kernels, and the lfsr draws' launches.
 
 CUDA graphs (every phase above runs its fits, ``partial_fit`` steps and
 bank flushes as graph replays: an epoch of ``TMSession.fit_epochs`` is
@@ -405,13 +408,16 @@ class Capture:
     the wrapper itself still runs and counts its launches.  Calls made
     while a CUDA graph is being captured are not recorded: their
     arguments are a graph's buffers, whose contents are not computed
-    then (a capture runs no kernel)."""
+    then (a capture runs no kernel).  ``clone``: record copies of the
+    tensor arguments, made before the call (a wrapper that writes one of
+    them in place leaves the record as it was called)."""
 
-    def __init__(self, module, name: str):
+    def __init__(self, module, name: str, clone: bool = False):
         import torch
         self.torch = torch
         self.module, self.name = module, name
         self.fn = getattr(module, name)
+        self.clone = clone
         self.args = None
         self.by_shape = {}
 
@@ -419,9 +425,11 @@ class Capture:
         def record(*a, **kw):
             if self.torch.cuda.is_current_stream_capturing():
                 return self.fn(*a, **kw)
-            self.args = (a, kw)
+            kept = (tuple(t.clone() if hasattr(t, "clone") else t
+                          for t in a) if self.clone else a)
+            self.args = (kept, kw)
             key = tuple(tuple(t.shape) for t in a if hasattr(t, "shape"))
-            self.by_shape.setdefault(key, (a, kw))
+            self.by_shape.setdefault(key, (kept, kw))
             return self.fn(*a, **kw)
         setattr(self.module, self.name, record)
         return self
@@ -1059,6 +1067,8 @@ def threefry_phase(torch, np, api, ops, tm_paper, eng, eng_cpu, x_tr, y_tr,
     steps = 2 * (len(x_tr) // 32)
     check(counts_fit["fused_step"] == steps
           and counts_fit["ta_update_sparse"] == steps
+          and counts_fit["step_prologue"] == steps
+          and counts_fit["step_epilogue"] == steps
           and counts_fit["threefry_bits"] == 3 * steps
           and counts_fit["lfsr_bits"] == 0,
           f"the threefry fit launched {counts_fit}")
@@ -1212,10 +1222,11 @@ def ref_phase(torch, np, api, ops, tile, server, reqs, want_answers, eng,
           and same_state(torch, rbank.prngs, bank_prngs)
           and all(torch.equal(rst[k], bst[k]) for k in STAT_KEYS),
           "the ref bank step differs from the default engine's")
-    nine = ("packed_clause_eval", "packed_clause_tile", "class_sum",
-            "fused_step", "ta_update", "ta_update_sparse", "clause_eval",
-            "tm_infer", "ta_update_streamed")
-    check(all(counts[k] == 0 for k in nine)
+    kernels = ("packed_clause_eval", "packed_clause_tile", "class_sum",
+               "fused_step", "ta_update", "ta_update_sparse", "clause_eval",
+               "tm_infer", "ta_update_streamed", "step_prologue",
+               "step_epilogue")
+    check(all(counts[k] == 0 for k in kernels)
           and counts["lfsr_bits"] == 3 * n_steps,
           f"the ref phase launched {counts}")
     paths = {**ref_serve.cache_report()["path_per_stage"],
@@ -2851,6 +2862,9 @@ def main(argv=None) -> int:
     from repro_torch.kernels.threefry import threefry_bits, threefry_bits_plain
     from repro_torch.kernels.fused_step import (
         fused_bulk, fused_step, fused_step_plain, prepare_fused_step)
+    from repro_torch.kernels.step_glue import (
+        prepare_step_epilogue, prepare_step_prologue, step_epilogue,
+        step_epilogue_plain, step_prologue, step_prologue_plain)
     from repro_torch.kernels.ta_update import (
         prepare_ta_update, prepare_ta_update_sparse,
         prepare_ta_update_streamed, stream_rands, ta_update, ta_update_plain,
@@ -3078,11 +3092,15 @@ def main(argv=None) -> int:
     steps = 2 * (N_TRAIN // 32)
     check(counts_fit["fused_step"] == steps
           and counts_fit["ta_update_sparse"] == steps
-          and counts_fit["ta_update"] == 0,
+          and counts_fit["ta_update"] == 0
+          and counts_fit["step_prologue"] == steps
+          and counts_fit["step_epilogue"] == steps,
           f"the compacted fit launched {counts_fit}")
     check(counts_dense["fused_step"] == steps
           and counts_dense["ta_update"] == steps
-          and counts_dense["ta_update_sparse"] == 0,
+          and counts_dense["ta_update_sparse"] == 0
+          and counts_dense["step_prologue"] == steps
+          and counts_dense["step_epilogue"] == steps,
           f"the dense fit launched {counts_dense}")
     check(hist == hist_d, "compacted and dense fits give other histories")
     check(same_state(torch, tm_a.program, tm_b.program)
@@ -3102,7 +3120,9 @@ def main(argv=None) -> int:
     for s_ in range(2):
         xb, lab = x_tr[plan[s_]], spec.encode_labels(y_tr[plan[s_]])
         with Capture(ops, "fused_step") as cap_front, \
-                Capture(ops, "ta_update_sparse") as cap_sparse:
+                Capture(ops, "ta_update_sparse") as cap_sparse, \
+                Capture(ops, "step_prologue") as cap_pro, \
+                Capture(ops, "step_epilogue", clone=True) as cap_epi:
             pg, rg, sg = eng.train_step(pg, rg, eng.encode(spec, xb),
                                         lab.cuda(), donate=True)
         t = time.perf_counter()
@@ -3182,13 +3202,17 @@ def main(argv=None) -> int:
               f"edge step {i} on the card differs from the CPU engine")
     counts_edge_train = ops.launch_counts()
     # the last step again, eager on the card, for phase 10's kernel check
-    with Capture(ops, "packed_clause_eval") as cap_edge_train:
+    with Capture(ops, "packed_clause_eval") as cap_edge_train, \
+            Capture(ops, "step_prologue") as cap_pro_edge, \
+            Capture(ops, "step_epilogue", clone=True) as cap_epi_edge:
         eng.train_step(last[0].to("cuda"), last[1].to("cuda"),
                        eng.encode(spec_c, last[2]),
                        spec_c.encode_labels(last[3]).cuda())
     check(counts_edge_train["packed_clause_eval"] == EDGE_STEPS
           and counts_edge_train["class_sum"] == EDGE_STEPS
           and counts_edge_train["ta_update_sparse"] == EDGE_STEPS
+          and counts_edge_train["step_prologue"] == EDGE_STEPS
+          and counts_edge_train["step_epilogue"] == EDGE_STEPS
           and counts_edge_train["fused_step"] == 0,
           f"edge training launched {counts_edge_train}")
 
@@ -3207,14 +3231,18 @@ def main(argv=None) -> int:
     # the bank step replays a graph: the dense TA check takes its
     # arguments from an eager train_bank on the same state (not counted)
     b_lab = torch.as_tensor(b_y, dtype=torch.int32, device="cuda")
-    with Capture(ops, "ta_update") as cap_bank:
+    with Capture(ops, "ta_update") as cap_bank, \
+            Capture(ops, "step_prologue") as cap_pro_bank, \
+            Capture(ops, "step_epilogue", clone=True) as cap_epi_bank:
         eng.train_bank(bank.progs, bank.prngs, b_lits, b_lab)
     cap_bank.freeze()                # the bank's step below is in place
     ops.reset_launch_counts()
     bst = bank.train(b_lits, b_y)
     counts_bank = ops.launch_counts()
     check(counts_bank["fused_step"] == 1 and counts_bank["ta_update"] == 1
-          and counts_bank["ta_update_sparse"] == 0,
+          and counts_bank["ta_update_sparse"] == 0
+          and counts_bank["step_prologue"] == 1
+          and counts_bank["step_epilogue"] == 1,
           f"the bank step launched {counts_bank}")
     t = time.perf_counter()
     cst = cpu_bank.train(b_lits.cpu(), b_y)
@@ -3259,6 +3287,39 @@ def main(argv=None) -> int:
 
     f_a, f_kw = cap_front.args
     front, err_front = compare_all(fused_step, fused_step_plain, f_a, f_kw)
+
+    def plain_kw(kw):
+        """A glue wrapper's keywords as its plain version takes them."""
+        return {k: v for k, v in kw.items() if k in ("y", "rand_bits")}
+
+    # the step's glue at the fit's step (K=1 B=32, the epilogue in place),
+    # the edge step (B=1) and the bank step (K=2): each wrapper against its
+    # plain version on copies of the captured arguments
+    err_pro = err_epi = 0
+    for cap_p, cap_e in ((cap_pro, cap_epi), (cap_pro_edge, cap_epi_edge),
+                         (cap_pro_bank, cap_epi_bank)):
+        for kernel, plain, (a, kw) in ((step_prologue, step_prologue_plain,
+                                        cap_p.args),
+                                       (step_epilogue, step_epilogue_plain,
+                                        cap_e.args)):
+            check(all(t.is_cuda for t in a if isinstance(t, torch.Tensor)),
+                  f"the captured {kernel.__name__} call is not on the card")
+            got = kernel(*copies(a), **kw)
+            want = plain(*copies(a), **plain_kw(kw))
+            torch.cuda.synchronize()
+            err = 0
+            for g, w in zip(got, want):
+                check(g.dtype == w.dtype and torch.equal(g, w),
+                      f"{kernel.__name__} differs from its plain version at "
+                      f"{tuple(a[0].shape)}")
+                err = max(err, int((g.to(torch.int64) - w.to(torch.int64))
+                                   .abs().max()) if g.numel() else 0)
+            if kernel is step_prologue:
+                err_pro = max(err_pro, err)
+            else:
+                err_epi = max(err_epi, err)
+    check(cap_epi.args[1].get("inplace") is True,
+          "the fit's epilogue did not run in place")
     s_a, s_kw = cap_sparse.args       # the fit's second step (eager)
     check(s_kw.get("inplace") is True,
           "the fit's compacted update did not run in place")
@@ -3780,6 +3841,37 @@ def main(argv=None) -> int:
         + 2 * 3 * fK * fB * fR,
         f"K={fK} B={fB} R={fR} W={fW} H={fH}",
         bare=prepare_fused_step(*f_a, **f_kw)[0])
+    # the step's glue at the fit's step: bytes of the operands read and the
+    # outputs written (the prologue's selection words: 8 read, 4 written;
+    # the epilogue's: cl, both selections, the weights, cl_mask, the sums
+    # and the literals read; cl2, t1, t2, lit2 and the weights written); one
+    # operation an output word
+    p_a, p_kw = copies(cap_pro.args[0]), cap_pro.args[1]
+    pK, pB = p_a[1].shape
+    pR, pH = p_a[3].shape[-1], p_a[4].shape[1]
+    row("step_prologue", cu + "step_glue.cu",
+        "src/repro/core/dtm.py:528",
+        counts_fit["step_prologue"] + counts_dense["step_prologue"]
+        + counts_edge_train["step_prologue"] + counts_bank["step_prologue"],
+        err_pro, lambda: step_prologue(*p_a, **p_kw),
+        lambda: step_prologue_plain(*p_a, **p_kw), None,
+        12 * 2 * pK * pB * pR + 8 * 3 * pK * pB + 4 * pK * pH + 24 * pK,
+        2 * pK * pB * pR + 3 * pK * pB, f"K={pK} B={pB} R={pR} H={pH}",
+        bare=prepare_step_prologue(*p_a, **p_kw)[0])
+    e_a, e_kw = copies(cap_epi.args[0]), cap_epi.args[1]
+    eK, eB, eW = e_a[0].shape
+    eR, eH = e_a[1].shape[2], e_a[9].shape[1]
+    row("step_epilogue", cu + "step_glue.cu",
+        "src/repro/core/dtm.py:528",
+        counts_fit["step_epilogue"] + counts_dense["step_epilogue"]
+        + counts_edge_train["step_epilogue"] + counts_bank["step_epilogue"],
+        err_epi, lambda: step_epilogue(*e_a, **e_kw),
+        lambda: step_epilogue_plain(*e_a, **plain_kw(e_kw)), None,
+        4 * (3 * eK * eB * eR + 2 * eK * eH * eR + eK * eR + eK * eB * eH
+             + 3 * eK * eB * eW + 6 * eK * eB * eR),
+        6 * eK * eB * eR + eK * eH * eR,
+        f"K={eK} B={eB} R={eR} W={eW} H={eH} inplace={e_kw.get('inplace')}",
+        bare=prepare_step_epilogue(*e_a, **e_kw)[0])
 
     def ta_cost(a, kw_, sparse: bool, streamed: bool = False,
                 earlier: bool = False):

@@ -22,9 +22,13 @@ batch <= 4, the edge clause and class-sum kernels), then the TA update
 over both rounds with in-kernel random streams: the Alg-6 compacted
 update over the clause groups that got feedback (``skip=True``, the
 default) or the dense update (``skip=False``, and always for banks).  The
-update emits the new include bitplane, and the weight nudges are exact
-integer scatter-adds.  Steps return new programs; the inputs are left as
-they were.  No step reads the device from the host.
+update emits the new include bitplane.  The integer glue around the
+front half (classes and TA seed before it; the Type I/II split, the 2B
+operands, the Alg-6 group list, the exact Alg-4 weight nudges and the
+stats after it) is two kernels on the card
+(:mod:`repro_torch.kernels.step_glue`), their plain versions elsewhere.
+Steps return new programs; the inputs are left as they were.  No step
+reads the device from the host.
 
 A forced ``kernel_path="mxu"`` runs the dense clause kernel on int8
 literals and include unpacked on the device (``clause_eval``; in training
@@ -215,19 +219,33 @@ def prng_like(prng: PRNG, leaves) -> PRNG:
     return prng.map(lambda _: next(it))
 
 
-def store_step(bufs, new: DTMProgram, new_prng: PRNG, stats
+class StepStats(dict):
+    """A train step's stats: int32 tensors keyed by :data:`STAT_KEYS`,
+    each a view of one row ``row`` [len(STAT_KEYS)] (a bank's:
+    [len(STAT_KEYS), K]), which a step graph stores whole."""
+
+    def __init__(self, row: torch.Tensor):
+        super().__init__((k, row[i]) for i, k in enumerate(STAT_KEYS))
+        self.row = row
+
+    def program(self, k: int) -> "StepStats":
+        """Program ``k``'s stats of a bank's."""
+        return StepStats(self.row[:, k])
+
+
+def store_step(bufs, new: DTMProgram, new_prng: PRNG, stats: StepStats
                ) -> torch.Tensor:
     """A train step body's end: the trained leaves and the PRNG state
     (``prng<i>``) copied into the graph's buffers, skipping a leaf the
-    step wrote in place already (the donated TA).  Returns the stats as
-    one ``[len(STAT_KEYS), ...]`` row."""
+    step wrote in place already (the donated TA, include bitplane and
+    weights).  Returns the stats as one ``[len(STAT_KEYS), ...]`` row."""
     for f in TRAINED:
         t = getattr(new, f)
         if t.data_ptr() != bufs[f].data_ptr():
             bufs[f].copy_(t)
     for i, t in enumerate(new_prng.leaves()):
         bufs[f"prng{i}"].copy_(t)
-    return torch.stack([stats[k] for k in STAT_KEYS])
+    return stats.row
 
 
 class DTMEngine:
@@ -605,7 +623,7 @@ class DTMEngine:
                                 training=True, lanes=plits.shape[0],
                                 **self._plan())
         self._stage_paths[stage] = path
-        rest = (progs.weights, cls_lab, neg, sel_rand.to(torch.int32),
+        rest = (progs.weights, cls_lab, neg, sel_rand,
                 progs.cl_mask, progs.h_mask, progs.T,
                 progs.w_frozen.to(torch.int32))
         if path == kops.PATH_REF:
@@ -629,78 +647,54 @@ class DTMEngine:
                     shard: Optional[Shard] = None):
         """One batched train step of K programs (bank form: every program
         leaf and PRNG state leaf has a leading K axis; ``plits`` [K, B, W],
-        ``labels`` [K, B] int32).  Returns (programs, PRNGs, stats [K]).
-        ``donate``: the compacted TA update writes into ``progs.ta`` and
-        ``progs.inc`` in place.  ``shard``: the programs hold the rank's
-        clause-row window (:meth:`_train_sharded_impl`)."""
-        K, B = plits.shape[:2]
+        ``labels`` [K, B] int32).  Returns (programs, PRNGs,
+        :class:`StepStats` [.., K]).  ``donate``: the compacted TA update
+        writes into ``progs.ta`` and ``progs.inc`` in place, and the
+        epilogue kernel into ``progs.weights``.  ``shard``: the programs
+        hold the rank's clause-row window (:meth:`_train_sharded_impl`).
+
+        The glue around the front half is two kernels on the card
+        (:mod:`repro_torch.kernels.step_glue`: ``step_prologue`` before
+        it, ``step_epilogue`` after it); the clause-sharded step, whose
+        collectives sit between those stages, and the forced ``ref`` path
+        run their plain versions."""
+        B = plits.shape[1]
         rb = self.rand_bits
-        n_cls = progs.h_mask.sum(dim=-1)                               # [K]
-        reg = progs.regression                                         # [K]
+        plain = shard is not None or self.kernel_path == kops.PATH_REF
 
         # the draws, in the JAX engine's order: one stream position per
         # datapoint, both selection rounds, then the TA-update seed
         prngs, c_rand = prngs.bits((B,))
         prngs, sel_rand = prngs.bits((2, B, self.R))
         prngs, seed_bits = prngs.bits((2,))
-        ta_seed = ((seed_bits[:, 0] << rb) | seed_bits[:, 1]) & M32
+        labels, cls_lab, neg, ta_seed, sel_rand = kops.step_prologue_op(
+            labels, c_rand, seed_bits, sel_rand, progs.h_mask,
+            progs.regression, rand_bits=rb, plain=plain)
         if shard is not None:        # full-width draws, the window's rows
             sel_rand = sel_rand[..., shard.row0:shard.row0 + shard.r_loc]
-
-        # regression programs carry a vote target in `labels`; the class
-        # machinery runs on a pinned in-range label
-        labels = labels.to(torch.int32)
-        cls_lab = torch.where(reg[:, None], torch.zeros_like(labels), labels)
-        rn = (c_rand % torch.clamp(n_cls - 1, min=1)[:, None]).to(torch.int32)
-        neg = torch.where(rn < cls_lab, rn, rn + 1)                    # [K, B]
 
         if shard is None:
             cl, sums_m, sel_lab, sel_neg = self._train_front(
                 progs, plits, cls_lab, neg, sel_rand, stage)
+            collectives = {}
         else:
             cl, sums_m, sel_lab, sel_neg = self._train_front_sharded(
                 progs, plits, cls_lab, neg, sel_rand, stage, shard)
-        hits = (torch.argmax(sums_m, dim=-1) == labels).sum(
-            dim=-1, dtype=torch.int32)
-        correct = torch.where(reg, torch.zeros_like(hits), hits)
-
-        # Regression TM: clipped vote count against the target; the error
-        # picks Type I (under) or Type II (over) through the same compare
-        T = progs.T[:, None]
-        votes = cl.sum(dim=-1, dtype=torch.int32)
-        if shard is not None:        # the global vote count
-            votes = all_sum(votes, shard.group)
-        votes = torch.minimum(votes.clamp(min=0), T)
-        err = labels - votes                                           # [K, B]
-        sel_reg = ((sel_rand[:, 0].to(torch.int32) * (2 * T)[..., None])
-                   < (err.abs()[..., None] << rb))
-        sel_reg = sel_reg.to(torch.int32) * progs.cl_mask[:, None, :]
-        abs_err = err.abs().sum(dim=-1, dtype=torch.int32)
-
-        # Type I / II split per round by the sign of the class's weight
-        # row (regression: by the sign of the error)
-        def rows_of(cls):
-            idx = cls.long()[..., None].expand(K, B, cl.shape[-1])
-            return torch.gather(progs.weights, 1, idx)
-        w_lab, w_neg = rows_of(cls_lab), rows_of(neg)
-        regb = reg[:, None, None]
-        zero = torch.zeros_like(sel_lab)
-        t1_lab = torch.where(regb, sel_reg * (err > 0)[..., None],
-                             sel_lab * (w_lab >= 0))
-        t2_lab = torch.where(regb, sel_reg * (err < 0)[..., None],
-                             sel_lab * (w_lab < 0))
-        t1_neg = torch.where(regb, zero, sel_neg * (w_neg < 0))
-        t2_neg = torch.where(regb, zero, sel_neg * (w_neg >= 0))
-        sel_lab = torch.where(regb, sel_reg, sel_lab)
-        sel_neg = torch.where(regb, zero, sel_neg)
+            # the global vote count, and the group accounting on all R
+            # rows (a window can be smaller than a group)
+            collectives = dict(
+                vote_sum=lambda v: all_sum(v, shard.group),
+                gather=lambda t: gather_dim(t, shard.group, 1))
+        lit2, cl2, t1, t2, tile_idx, count, new_w, stats = \
+            kops.step_epilogue_op(
+                plits, cl, sums_m, sel_lab, sel_neg, sel_rand, labels,
+                cls_lab, neg, progs.weights, progs.cl_mask, progs.w_frozen,
+                progs.w_clip, progs.T, progs.regression, y=self.tile.y,
+                rand_bits=rb, inplace=donate, plain=plain, **collectives)
 
         # TA update over both rounds joined into one 2B batch (target
         # rows, then negated rows), streams made in the kernel (or, for
         # the streamed baseline, made first and read by the kernel)
-        lit2 = torch.cat([plits, plits], dim=1)
-        cl2 = torch.cat([cl, cl], dim=1)
-        t1 = torch.cat([t1_lab, t1_neg], dim=1)
-        t2 = torch.cat([t2_lab, t2_neg], dim=1)
         ta_path = self._ta_path(lanes)
         family = "lfsr" if prngs.backend == "lfsr" else "counter"
         self._stage_paths[stage + "_ta"] = ta_path
@@ -714,18 +708,15 @@ class DTMEngine:
         if ta_path == kops.TA_COMPACT:
             new_ta, new_inc = kops.ta_update_compact_op(
                 progs.ta, lit2, cl2, t1, t2, progs.l_mask, progs.inc,
-                inplace=donate, **kw)
+                inplace=donate, groups=(tile_idx, count), **kw)
         else:
             new_ta, new_inc = kops.ta_update_op(
                 progs.ta, lit2, cl2, t1, t2, progs.l_mask,
                 stream=self.ta_prng == kops.TA_PRNG_STREAM, **kw)
 
-        new_w, stats = self._weights_and_stats(
-            progs, cl, sel_lab, sel_neg, cls_lab, neg, correct, abs_err,
-            shard)
         new = dataclasses.replace(progs, ta=new_ta.to(progs.ta.dtype),
                                   weights=new_w, inc=new_inc)
-        return new, prngs, stats
+        return new, prngs, StepStats(stats)
 
     def _train_front_sharded(self, progs: DTMProgram, plits: torch.Tensor,
                              cls_lab: torch.Tensor, neg: torch.Tensor,
@@ -747,38 +738,6 @@ class DTMEngine:
             progs.T, wf, rand_bits=self.rand_bits)
         return cl, sums, sel_lab, sel_neg
 
-    def _weights_and_stats(self, progs: DTMProgram, cl, sel_lab, sel_neg,
-                           lab, neg, correct, abs_err,
-                           shard: Optional[Shard] = None):
-        """Alg-4 weight nudges as exact int32 scatter-adds, and the Alg-6
-        group accounting on the engine's y-tile (128-row) groups.
-        Clause-sharded (the JAX ``_weights_and_stats_sharded``), the nudges
-        act on the window's weight columns and the group accounting runs
-        on the selection counts and clause mask gathered to all R rows (a
-        window can be smaller than a group)."""
-        K, B, R = cl.shape
-        d_w = torch.zeros_like(progs.weights)
-        d_w.scatter_add_(1, lab.long()[..., None].expand(K, B, R),
-                         sel_lab * cl)
-        d_w.scatter_add_(1, neg.long()[..., None].expand(K, B, R),
-                         -(sel_neg * cl))
-        clip = progs.w_clip[:, None, None]
-        new_w = torch.where(progs.w_frozen[:, None, None], progs.weights,
-                            torch.clamp(progs.weights + d_w, -clip, clip))
-        d_sel = (sel_lab + sel_neg).sum(dim=1, dtype=torch.int32)     # [K, R]
-        cl_mask = progs.cl_mask
-        if shard is not None:
-            d_sel = gather_dim(d_sel, shard.group, 1)
-            cl_mask = gather_dim(cl_mask, shard.group, 1)
-        y = self.tile.y
-        g = (d_sel > 0).to(torch.int32).reshape(K, -1, y).amax(dim=-1)
-        gmask = cl_mask.reshape(K, -1, y).amax(dim=-1)
-        stats = {"selected": d_sel.sum(dim=-1, dtype=torch.int32),
-                 "active_groups": (g * gmask).sum(dim=-1, dtype=torch.int32),
-                 "total_groups": gmask.sum(dim=-1, dtype=torch.int32),
-                 "correct": correct, "abs_err": abs_err}
-        return new_w, stats
-
     def train_step(self, prog: DTMProgram, prng: PRNG, lits: torch.Tensor,
                    labels: torch.Tensor, donate: bool = False):
         """One train step: packed lits [B, W] and labels [B] (class ids, or
@@ -790,8 +749,7 @@ class DTMEngine:
         new, prngs, stats = self._train_impl(
             prog.map(lambda t: t[None]), prng.map(lambda t: t[None]),
             lits[None], labels[None], lanes=1, stage="train", donate=donate)
-        return (new.map(lambda t: t[0]), prngs[0],
-                {k: v[0] for k, v in stats.items()})
+        return new.map(lambda t: t[0]), prngs[0], stats.program(0)
 
     def _train_conv_impl(self, progs: DTMProgram, prngs: PRNG,
                          plits: torch.Tensor, labels: torch.Tensor,
@@ -880,13 +838,15 @@ class DTMEngine:
                           (progs.n_states - 1)[:, None, None]),
             torch.zeros_like(delta))
 
-        new_w, stats = self._weights_and_stats(
-            progs, cl, sel_lab, sel_neg, labels, neg, correct,
-            torch.zeros_like(correct), shard)
+        new_w, stats = kops.weights_and_stats_plain(
+            progs.weights, progs.w_frozen, progs.w_clip, progs.cl_mask, cl,
+            sel_lab, sel_neg, labels, neg, correct, torch.zeros_like(correct),
+            self.tile.y, None if shard is None
+            else (lambda t: gather_dim(t, shard.group, 1)))
         new = dataclasses.replace(progs, ta=new_ta.to(progs.ta.dtype),
                                   weights=new_w,
                                   inc=pack_include(new_ta, progs.n_states))
-        return new, prngs, stats
+        return new, prngs, StepStats(stats)
 
     def train_conv(self, prog: DTMProgram, prng: PRNG, plits: torch.Tensor,
                    labels: torch.Tensor):
@@ -897,8 +857,7 @@ class DTMEngine:
         new, prngs, stats = self._train_conv_impl(
             prog.map(lambda t: t[None]), prng.map(lambda t: t[None]),
             plits[None], labels[None])
-        return (new.map(lambda t: t[0]), prngs[0],
-                {k: v[0] for k, v in stats.items()})
+        return new.map(lambda t: t[0]), prngs[0], stats.program(0)
 
     # ------------------------------------------------------------------ #
     # clause-sharded stage bodies (one rank each: launch/pod.py ShardedTM) #
@@ -971,8 +930,7 @@ class DTMEngine:
             _one(prog), prng.map(lambda t: t[None]), plits[None],
             labels[None], lanes=1, stage=stage, shard=shard)
         self._sharded(stage, shard)
-        return (new.map(lambda t: t[0]), prngs[0],
-                {k: v[0] for k, v in stats.items()})
+        return new.map(lambda t: t[0]), prngs[0], stats.program(0)
 
     def _train_conv_sharded_impl(self, prog: DTMProgram, prng: PRNG,
                                  plits: torch.Tensor, labels: torch.Tensor,
@@ -986,8 +944,7 @@ class DTMEngine:
             _one(prog), prng.map(lambda t: t[None]), plits[None],
             labels[None], stage=stage, shard=shard)
         self._sharded(stage, shard)
-        return (new.map(lambda t: t[0]), prngs[0],
-                {k: v[0] for k, v in stats.items()})
+        return new.map(lambda t: t[0]), prngs[0], stats.program(0)
 
     def train_bank(self, progs: DTMProgram, prngs: PRNG, lits: torch.Tensor,
                    labels: torch.Tensor):

@@ -28,8 +28,10 @@ which have no compacted kernel); with a shape, a measured plan decides
 between them.  The names are the JAX package's, so
 ``cache_report()["path_per_stage"]`` reads the same in both.
 :func:`launch_counts` also counts the PRNG kernels that ``PRNG.bits``
-launches: ``lfsr_bits`` (the lfsr cluster) and ``threefry_bits``; a
-replayed CUDA graph adds the launches of its capture.
+launches: ``lfsr_bits`` (the lfsr cluster) and ``threefry_bits``, and
+the train step's two glue kernels, ``step_prologue`` and
+``step_epilogue`` (:func:`step_prologue_op`, :func:`step_epilogue_op`);
+a replayed CUDA graph adds the launches of its capture.
 """
 from __future__ import annotations
 
@@ -44,6 +46,9 @@ from .clause_eval import clause_eval
 from .fused_step import fused_step
 from .lfsr import lfsr_bits
 from .packed_clause import packed_clause_eval, packed_clause_tile
+from .step_glue import (active_groups, step_epilogue, step_epilogue_plain,
+                        step_prologue, step_prologue_plain,
+                        weights_and_stats_plain)
 from .ta_update import (GROUP, stream_rands, ta_update, ta_update_plain,
                         ta_update_sparse, ta_update_sparse_plain,
                         ta_update_streamed, ta_update_streamed_plain)
@@ -80,7 +85,9 @@ _WRAPPERS = {"packed_clause_eval": packed_clause_eval,
              "tm_infer": tm_infer,
              "ta_update_streamed": ta_update_streamed,
              "lfsr_bits": lfsr_bits,
-             "threefry_bits": threefry_bits}
+             "threefry_bits": threefry_bits,
+             "step_prologue": step_prologue,
+             "step_epilogue": step_epilogue}
 
 
 def select_path(batch, force: Optional[str] = None, training: bool = False,
@@ -325,43 +332,61 @@ def ta_update_op(ta, lits, cl, t1, t2, l_mask, seed, p_ta, boost, n_states,
     return fn(ta, lits, cl, t1, t2, l_mask, rands, p_ta, boost, n_states)
 
 
-def active_groups(t1: torch.Tensor, t2: torch.Tensor, group: int = GROUP):
-    """The Alg-6 compaction on the device: clause groups of ``group`` rows
-    that get Type I or II feedback from any batch row.  t1/t2 [K, 2B, C]
-    -> (tile_idx int32 [K, G], the active groups first, in order; count
-    int32 [K]).  No host read: cumsum and scatter."""
-    K, _, C = t1.shape
-    G = -(-C // group)
-    rows = torch.zeros((K, G * group), dtype=torch.bool, device=t1.device)
-    rows[:, :C] = ((t1 > 0) | (t2 > 0)).any(dim=1)
-    grp = rows.reshape(K, G, group).any(dim=-1)
-    count = grp.sum(dim=-1, dtype=torch.int32)
-    pos = torch.cumsum(grp.to(torch.int64), dim=-1) - 1
-    dest = torch.where(grp, pos, torch.full_like(pos, G))   # G: a spare slot
-    src = torch.arange(G, dtype=torch.int32, device=t1.device).expand(K, G)
-    idx = torch.zeros((K, G + 1), dtype=torch.int32, device=t1.device)
-    return idx.scatter_(1, dest, src)[:, :G], count
-
-
 def ta_update_compact_op(ta, lits, cl, t1, t2, l_mask, inc, seed, p_ta,
                          boost, n_states, row0=0, rand_bits: int = 16,
                          prng: str = "counter", lfsr_bits: int = 24,
                          seed_refresh: bool = True, inplace: bool = False,
-                         plain: bool = False):
+                         plain: bool = False, groups=None):
     """Clause-skip TA update (Alg 6): the same states and include bitplane
     as :func:`ta_update_op`, but only the 128-row clause groups that get
     feedback are touched (``inc`` must be the include bitplane of ``ta``).
-    The group list and its count are built on the device, and the kernel
-    reads the count there.  Returns ``(new_ta, new_inc)``: with
-    ``inplace``, ``ta`` and ``inc`` themselves, updated in place, so the
-    skipped groups cost nothing; otherwise new tensors.  ``plain`` runs
-    the plain version on any device (the ``ref`` path; it reads the group
-    count on the host)."""
-    idx, count = active_groups(t1, t2)
+    The group list and its count are built on the device
+    (:func:`active_groups`, or ``groups``: the ``(tile_idx, count)`` that
+    :func:`step_epilogue_op` made), and the kernel reads the count there.
+    Returns ``(new_ta, new_inc)``: with ``inplace``, ``ta`` and ``inc``
+    themselves, updated in place, so the skipped groups cost nothing;
+    otherwise new tensors.  ``plain`` runs the plain version on any device
+    (the ``ref`` path; it reads the group count on the host)."""
+    idx, count = active_groups(t1, t2) if groups is None else groups
     fn = ta_update_sparse_plain if plain else ta_update_sparse
     return fn(ta, lits, cl, t1, t2, l_mask, inc, idx, count, seed, p_ta,
               boost, n_states, row0, rand_bits=rand_bits, prng=prng,
               lfsr_bits=lfsr_bits, seed_refresh=seed_refresh, inplace=inplace)
+
+
+def step_prologue_op(labels, c_rand, seed_bits, sel_rand, h_mask,
+                     regression, rand_bits: int = 16, plain: bool = False):
+    """The train step's glue between the draws and the front half, bank
+    form (:func:`repro_torch.kernels.step_glue.step_prologue`: one launch
+    on the card).  ``plain`` runs the plain version on any device (the
+    ``ref`` and clause-sharded steps).  -> (labels, cls_lab, neg,
+    ta_seed, sel_rand int32)."""
+    fn = step_prologue_plain if plain else step_prologue
+    return fn(labels, c_rand, seed_bits, sel_rand, h_mask, regression,
+              rand_bits=rand_bits)
+
+
+def step_epilogue_op(lits, cl, sums, sel_lab, sel_neg, sel_rand, labels,
+                     cls_lab, neg, weights, cl_mask, w_frozen, w_clip, T,
+                     regression, y: int = 128, rand_bits: int = 16,
+                     inplace: bool = False, plain: bool = False,
+                     vote_sum=None, gather=None):
+    """The train step's glue between the front half and the TA update,
+    bank form (:func:`repro_torch.kernels.step_glue.step_epilogue`: one
+    launch on the card; ``inplace`` writes the weights over ``weights``
+    there).  ``plain`` runs the plain version on any device (the ``ref``
+    path and the clause-sharded step, whose collectives ``vote_sum`` and
+    ``gather`` only the plain version takes).  -> (lit2, cl2, t1, t2,
+    tile_idx, count, weights, stats [N_STATS, K])."""
+    args = (lits, cl, sums, sel_lab, sel_neg, sel_rand, labels, cls_lab,
+            neg, weights, cl_mask, w_frozen, w_clip, T, regression)
+    if plain:
+        return step_epilogue_plain(*args, y=y, rand_bits=rand_bits,
+                                   vote_sum=vote_sum, gather=gather)
+    if vote_sum is not None or gather is not None:
+        raise ValueError("the collectives vote_sum and gather need "
+                         "plain=True")
+    return step_epilogue(*args, y=y, rand_bits=rand_bits, inplace=inplace)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -1,14 +1,15 @@
 """Time the class-sum, fused-step, fused-inference, packed clause, lfsr
 cluster and threefry kernels at the main paths' shapes.
 
-    PYTHONPATH=src python3 src/repro_torch/launch/kernel_bench.py
+    PYTHONPATH=src python3 src/repro_torch/launch/kernel_bench.py [name ...]
 
 Times ``class_sum``, ``fused_step``, ``tm_infer``, ``packed_clause_tile``,
-``packed_clause_eval``, ``lfsr_bits`` and ``threefry_bits`` (where the
-tree has them) of
-whichever ``repro_torch`` Python imports: this
+``packed_clause_eval``, ``lfsr_bits``, ``threefry_bits``,
+``step_prologue`` and ``step_epilogue`` (where the tree has them; names
+given, those alone) of whichever ``repro_torch`` Python imports: this
 checkout's, or another's put first on ``PYTHONPATH``, so one run on one
-card can hold two versions of the kernels against each other.  Each call goes through the public wrapper, and each result is
+card can hold two versions of the kernels against each other.  Each
+call goes through the public wrapper, and each result is
 first held against the kernel's plain version (exact); the operands are
 made from seed 0.  Device time per
 call: 200 calls captured in one CUDA graph and replayed (warm), and the
@@ -34,7 +35,14 @@ at the conv flush (K=2, B=32, H=16), and ``lfsr_bits`` (24-bit lanes,
 (2·32·2048 words) and the conv step's patch and TA draws (32·361·2048
 and 2·32·2048·384), and ``threefry_bits`` (one key, 16-bit words) at the
 flat step's selection draw (2·32·2048 words) and the program draw of the
-MNIST CoTM (2000·1568 TA words without the split, 10·2000 weight words).
+MNIST CoTM (2000·1568 TA words without the split, 10·2000 weight words),
+and the train step's glue kernels ``step_prologue`` and ``step_epilogue``
+at the MNIST fit's step (K=1, B=32, R=2048, W=52, H=16), its edge step
+(B=1) and a bank of four at the roster tile (K=4, B=32, R=4224, W=100,
+the last program a regression one), each with ``plain_ms``, its plain
+version's kernels replayed the same way, and the epilogue also in the
+other launch layouts of ``GLUE_LAYOUTS`` (8 and 1 blocks a cluster, the
+wide kernel) at the fit's step.
 Bounds are the bytes each call must move, or for ``threefry_bits`` the
 larger of those and its integer instructions (``THREEFRY_OPS`` a word)
 at the issue rate, 128 a clock an SM, 132 SMs and 1980 MHz.
@@ -59,6 +67,10 @@ CONV_TILE = [(2, 32 * 361, 2048, 12), (1, 361, 2048, 12)]        # K, B, R, W
 LFSR = [2 * 32 * 2048, 32 * 361 * 2048, 2 * 32 * 2048 * 384]     # words
 THREEFRY = [(2 * 32 * 2048, 16, True), (2000 * 1568, 1, False),
             (10 * 2000, 1, True)]                     # words, rand_bits, split
+GLUE = [(1, 32, 2048, 52, 16), (1, 1, 2048, 52, 16),
+        (4, 32, 4224, 100, 16)]                       # K, B, R, W, H
+# the epilogue's launch layouts timed beside its own at the fit's shape
+GLUE_LAYOUTS = [{"cluster": 8}, {"cluster": 1}, {"wide": 1}]
 # 32-bit integer instructions a threefry word: 20 rounds of an add, a
 # funnel-shift rotate and an xor (60), the first and 5 more key injections
 # of two adds (12), the output xor and the shift (2)
@@ -120,7 +132,41 @@ def words(torch, gen, shape, density):
     return torch.where(w >= 2 ** 31, w - 2 ** 32, w).to(torch.int32)
 
 
-def main() -> int:
+def glue_operands(torch, gen, K, B, R, W, H, dev):
+    """The step glue's operands at a shape: the prologue's draws, labels
+    and program leaves, and the epilogue's front-half outputs (0/1 clause
+    outputs and selections, 10 real classes), the last program of a bank
+    a regression one."""
+    h_mask = (torch.arange(H) < 10).to(torch.int32).repeat(K, 1)
+    reg = torch.arange(K) == K - 1 if K > 1 else torch.zeros(1, dtype=bool)
+    labels = torch.randint(0, 10, (K, B), generator=gen, dtype=torch.int32)
+    draws = [labels, torch.randint(0, 1 << 16, (K, B), generator=gen),
+             torch.randint(0, 1 << 16, (K, 2), generator=gen),
+             torch.randint(0, 1 << 16, (K, 2, B, R), generator=gen),
+             h_mask, reg]
+    draws = [t.to(dev) for t in draws]
+    from repro_torch.kernels.step_glue import step_prologue_plain
+    labels, cls_lab, neg, _, sel = step_prologue_plain(*draws)
+
+    def bits(p):
+        return (torch.rand((K, B, R), generator=gen) < p).to(
+            torch.int32).to(dev)
+    epi = [words(torch, gen, (K, B, W), 0.5).to(dev), bits(0.3),
+           torch.randint(-500, 500, (K, B, H), generator=gen,
+                         dtype=torch.int32).to(dev), bits(0.05), bits(0.05),
+           sel, labels, cls_lab, neg,
+           torch.randint(-7, 8, (K, H, R), generator=gen,
+                         dtype=torch.int32).to(dev),
+           torch.ones((K, R), dtype=torch.int32, device=dev),
+           torch.zeros(K, dtype=torch.bool, device=dev),
+           torch.full((K,), 2047, dtype=torch.int32, device=dev),
+           torch.full((K,), 500, dtype=torch.int32, device=dev),
+           draws[5]]
+    return draws, epi
+
+
+def main(argv=None) -> int:
+    only = set(sys.argv[1:] if argv is None else argv)
     import torch
     if not torch.cuda.is_available():
         print("kernel_bench: no CUDA card; nothing was run", file=sys.stderr)
@@ -142,7 +188,10 @@ def main() -> int:
     cold = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
     rows = []
 
-    def timed(name, shape, fn, plain, nbytes, calls=CALLS, nops=0):
+    def timed(name, shape, fn, plain, nbytes, calls=CALLS, nops=0,
+              time_plain=False):
+        if only and name not in only:
+            return
         got, want = fn(), plain()
         torch.cuda.synchronize()  # dtmlint: disable=DTM003 (a timing fence)
         for g, w in zip(got if isinstance(got, tuple) else (got,),
@@ -157,6 +206,8 @@ def main() -> int:
                      "bound_by": ("operations" if nops / ISSUE_OPS_PER_S
                                   > nbytes / HBM_BYTES_PER_S
                                   else "bytes")})
+        if time_plain:      # the plain version's kernels, replayed alike
+            rows[-1]["plain_ms"] = graph_ms(torch, plain, calls // 4)
 
     for K, B, R, H in CLASS_SUM:
         cl = (torch.rand((K, B, R), generator=gen) < 0.3).to(torch.int32)
@@ -254,6 +305,31 @@ def main() -> int:
                   f"split={split}", lambda a=args: threefry_bits(*a),
                   lambda a=args: threefry_bits_plain(*a),
                   8 * size + 4 * 8, calls=20, nops=THREEFRY_OPS * size)
+    try:
+        from repro_torch.kernels import step_glue
+    except ImportError:                  # a tree from before the kernels
+        step_glue = None
+    if step_glue is not None:
+        for K, B, R, W, H in GLUE:
+            draws, epi = glue_operands(torch, gen, K, B, R, W, H, dev)
+            timed("step_prologue", f"K={K} B={B} R={R} H={H}",
+                  lambda a=draws: step_glue.step_prologue(*a),
+                  lambda a=draws: step_glue.step_prologue_plain(*a),
+                  12 * 2 * K * B * R + 8 * 3 * K * B + 4 * K * H + 24 * K,
+                  time_plain=True)
+            # read: cl, both selections, the weights, cl_mask, the sums
+            # and the literals; written: cl2, t1, t2, lit2 and the weights
+            nbytes = 4 * (3 * K * B * R + 2 * K * H * R + K * R
+                          + K * B * H + 3 * K * B * W + 6 * K * B * R)
+            layouts = [None] + (GLUE_LAYOUTS if (K, B, R) == (1, 32, 2048)
+                                else [])
+            for g in layouts:
+                timed("step_epilogue", f"K={K} B={B} R={R} W={W} H={H}"
+                      + ("" if g is None else f" {g}"),
+                      lambda a=epi, g=g: step_glue.step_epilogue(
+                          *a, geometry=g),
+                      lambda a=epi: step_glue.step_epilogue_plain(*a),
+                      nbytes, time_plain=g is None)
     one = torch.zeros(1, dtype=torch.int32, device=dev)
     print(json.dumps({"kernel_bench": {
         "card": card, "repro_torch": repro_torch.__file__, "calls": CALLS,

@@ -117,7 +117,8 @@ def test_wrappers_count_launches_and_never_fall_back(dev):
                                    "fused_step": 0, "ta_update": 0,
                                    "ta_update_sparse": 0, "clause_eval": 0,
                                    "tm_infer": 0, "ta_update_streamed": 0,
-                                   "lfsr_bits": 0, "threefry_bits": 0}
+                                   "lfsr_bits": 0, "threefry_bits": 0,
+                                   "step_prologue": 0, "step_epilogue": 0}
     with pytest.raises(ValueError):
         packed_clause_eval(lit, inc.cpu())
     with pytest.raises(TypeError):

@@ -186,7 +186,8 @@ def test_replayed_epoch_adds_its_captured_launches(dev):
     tm.fit(x, y, epochs=1, batch=16)       # captures
     graph = next(iter(engine._captured["fit_epoch"]))
     assert graph.launches == {"fused_step": 1, "ta_update_sparse": 1,
-                              "lfsr_bits": 3}
+                              "lfsr_bits": 3, "step_prologue": 1,
+                              "step_epilogue": 1}
     ops.reset_launch_counts()
     tm.fit(x, y, epochs=2, batch=16)
     counts = ops.launch_counts()
