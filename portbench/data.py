@@ -18,14 +18,18 @@ yardstick:
   precision changes the answers.
 
 A task (the ``data`` entries of a configuration file) is a dict with the
-fields of the original ``BoolTaskSpec``.  Everything here is numpy on the
-host; the sets are uploaded by the program's own encoders.
+fields of the original ``BoolTaskSpec`` and, optionally, ``shape``
+([h, w]: the rows are images, :func:`shaped`).  Everything here is numpy
+on the host; the sets are uploaded by the program's own encoders.  The
+programs are laid out by the reference module that judges them
+(``ref``): its ``rows_of`` and ``bool_features`` size them, its
+``has_weights`` says whether they carry class weights, and its
+``motif_literals`` puts a motif's features on the clause literals of its
+kind.
 """
 from __future__ import annotations
 
 import numpy as np
-
-from portbench.tm_reference import rows_of
 
 CHUNK = 8192      # rows a step of the vectorised motif union
 
@@ -63,32 +67,46 @@ def make_bool_dataset(task: dict, n: int, seed: int = 0):
     return np.where(flip, 1 - x, x).astype(np.int8), y
 
 
-def initial_program(model: dict, rng: np.random.Generator):
+def shaped(task: dict, x: np.ndarray) -> np.ndarray:
+    """Rows [n, features] as the program takes them: images [n, h, w]
+    where the task states ``shape``, else as they are."""
+    if "shape" not in task:
+        return x
+    h, w = task["shape"]
+    if h * w != task["features"]:
+        raise ValueError(f"task {task['name']!r}: shape {[h, w]} holds "
+                         f"{h * w} features, the task states "
+                         f"{task['features']}")
+    return x.reshape(len(x), h, w)
+
+
+def initial_program(model: dict, rng: np.random.Generator, ref):
     """A program to train from, drawn as the paper's initial state: TA
     states J-1 or J with probability 1/2 each, CoTM weights ±1.
     Returns (ta int32 [rows, 2f], weights int32 [classes, clauses] or
-    None)."""
+    None); f is the reference's ``bool_features``."""
     j = 1 << (model["ta_bits"] - 1)
-    rows, lits = rows_of(model), 2 * model["features"]
+    rows, lits = ref.rows_of(model), 2 * ref.bool_features(model)
     ta = (j - 1 + rng.integers(0, 2, (rows, lits))).astype(np.int32)
     weights = None
-    if model["kind"] == "coalesced":
+    if ref.has_weights(model):
         weights = (1 - 2 * rng.integers(0, 2, (model["classes"],
                                                model["clauses"]))
                    ).astype(np.int32)
     return ta, weights
 
 
-def firing_program(model: dict, task: dict, rng: np.random.Generator,
+def firing_program(model: dict, task: dict, rng: np.random.Generator, ref,
                    n_inc: int = 3):
-    """A served program: every clause row includes ``n_inc`` x-literals of
-    one motif of its class (Vanilla rows of negative polarity: of the next
-    class), its other TA states below J; CoTM weights of magnitude
+    """A served program: every clause row includes the x-literals of
+    ``n_inc`` features of one motif of its class (Vanilla rows of negative
+    polarity: of the next class), placed by ``ref.motif_literals``, its
+    other TA states below J; class weights of magnitude
     1..clip, positive for the row's class and negative for the others.
     Returns (ta int32 [rows, 2f], weights int32 [classes, clauses] or
     None)."""
     j = 1 << (model["ta_bits"] - 1)
-    rows, lits = rows_of(model), 2 * model["features"]
+    rows, lits = ref.rows_of(model), 2 * ref.bool_features(model)
     h, c = model["classes"], model["clauses"]
     mot = motifs(task)
     bits = np.argsort(-mot, axis=-1, kind="stable")[..., :task["motif_bits"]]
@@ -100,10 +118,11 @@ def firing_program(model: dict, task: dict, rng: np.random.Generator,
         cls = r % h
     picks = rng.integers(0, task["motifs_per_class"], rows)
     order = np.argsort(rng.random((rows, task["motif_bits"])), axis=1)
-    on = bits[cls, picks][r[:, None], order[:, :n_inc]]
+    on = ref.motif_literals(model, task,
+                            bits[cls, picks][r[:, None], order[:, :n_inc]])
     ta[r[:, None], on] = rng.integers(j, 2 * j, (rows, n_inc))
     weights = None
-    if model["kind"] == "coalesced":
+    if ref.has_weights(model):
         clip = (1 << (model["weight_bits"] - 1)) - 1
         weights = -rng.integers(1, clip + 1, (h, c))
         weights[cls, r] = rng.integers(1, clip + 1, rows)

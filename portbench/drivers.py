@@ -2,28 +2,55 @@
 program, how its window is timed and how its outputs are judged.
 
 ``fit``          closed loop of ``TM.fit(x, y, epochs, batch)`` passes
-                 over the configuration's training rows.
+                 over the configuration's training rows, from each of
+                 ``programs`` initial programs in turn.
 ``partial_fit``  closed loop of ``TM.partial_fit`` on ``batch`` rows at a
                  time, passes of ``pass_rows`` rows.
 ``serve``        ``api.serve``'s scheduler, driven inline by the client's
                  one thread, under a closed loop of ``outstanding``
                  requests a tenant.
 
-Every training pass starts from the same initial program and PRNG, so
-each pass does the same work.  A driver records its counters for the
+Every training pass starts from an initial program and PRNG drawn from
+the seed, so each pass from one of them does the same work.  A driver records its counters for the
 per-layer readers and keeps what it needs to be judged by the reference
 after the window (:meth:`judge`).
+
+What a driver takes from the configuration file:
+
+``models``     one entry a model (training: exactly one), every key that
+               ``api.TMSpec`` has as a field passed to it (:func:`spec_of`),
+               e.g. ``kind: "conv"`` with ``img_h``, ``img_w``, ``patch``;
+               other keys are ignored.
+``data``       a task a model (``portbench/data.py``); its ``shape``
+               ([h, w]), where stated, makes the rows images [n, h, w]
+               for ``fit``, ``partial_fit`` and the serving pools.
+``engine``     the engine's flags and the geometry it must have
+               (:func:`check_geometry`: L, R, H, W, and P where stated).
+``reference``  the plain reference module (``portbench/run.py``,
+               :func:`portbench.run.reference`): ``KINDS``,
+               ``bool_features(model)`` (sizes the initial and firing
+               programs and the judged snapshots), ``has_weights(model)``
+               (whether a program carries class weights),
+               ``motif_literals(model, task, features)`` (where the firing
+               program's included features lie among the literals),
+               ``model_at``, ``rows_of``, ``held_ta``, ``weight_matrix``,
+               ``Cluster`` (``create(seed, lanes, bits, device)``,
+               ``lanes``, ``master``, ``cycles``), ``train_step(model,
+               engine, ta, weights, cluster, x, y)`` on the rows as the
+               program takes them, and ``predict(model, ta, weights, x,
+               device)``.
 """
 from __future__ import annotations
 
 import collections
+import dataclasses
 import math
 import time
 
 import numpy as np
 import torch
 
-from portbench import data, tm_reference as ref
+from portbench import data
 from portbench.trace import Tracer
 
 STATS_CHUNK = 4096   # partial_fit steps whose stats are summed together
@@ -96,21 +123,20 @@ class AnswerLog:
 
 
 def spec_of(api, model: dict):
-    """The program's model specification of a configuration's model."""
-    return api.TMSpec(kind=model["kind"], features=model["features"],
-                      clauses=model["clauses"], classes=model["classes"],
-                      T=model["T"], s=model["s"], ta_bits=model["ta_bits"],
-                      weight_bits=model["weight_bits"],
-                      rand_bits=model["rand_bits"],
-                      prng_backend=model["prng_backend"],
-                      lfsr_bits=model["lfsr_bits"],
-                      seed_refresh=model["seed_refresh"],
-                      boost_true_positive=model["boost_true_positive"])
+    """The program's model specification of a configuration's model: every
+    key of the entry that ``api.TMSpec`` has as a field."""
+    fields = {f.name for f in dataclasses.fields(api.TMSpec)}
+    return api.TMSpec.from_dict({k: v for k, v in model.items()
+                                 if k in fields})
 
 
 def check_geometry(engine, want: dict) -> None:
+    """The engine has every geometry key the configuration states: L, R,
+    H and W always, the patch slots P where stated."""
     got = {"L": engine.L, "R": engine.R, "H": engine.H,
            "W": engine.tile.packed_words()}
+    if "P" in want:
+        got["P"] = engine.P
     for k, v in got.items():
         if want[k] != v:
             raise RuntimeError(f"engine {k}={v}, the configuration states "
@@ -124,6 +150,7 @@ class Driver:
     def __init__(self, cell):
         self.cell = cell
         self.cfg, self.traffic = cell.config, cell.traffic
+        self.ref = cell.ref
         self.dev = torch.device(cell.device)
         ss = np.random.SeedSequence([int(cell.seed)])
         self.seeds = [int(s) for s in ss.generate_state(8)]
@@ -165,6 +192,7 @@ class _Train(Driver):
         task = self.cfg["data"][self.name]
         self.x, self.y = data.make_bool_dataset(
             task, self.cfg["train_rows"], self.seeds[0])
+        self.x = data.shaped(task, self.x)
         self.phase("data")
         eng_cfg = self.cfg["engine"]
         self.spec = spec_of(api, self.model)
@@ -177,7 +205,7 @@ class _Train(Driver):
         self.prng_seed = self.seeds[1] & 0x7FFFFFFF
         self.tm = api.TM(self.spec, engine=self.engine, seed=self.prng_seed)
         self.ta0, self.w0 = data.initial_program(
-            self.model, np.random.default_rng(self.seeds[2]))
+            self.model, np.random.default_rng(self.seeds[2]), self.ref)
         self.prog0 = self.engine.lower(self.spec, ta=self.ta0,
                                        weights=self.w0)
         self.prng0 = self.tm.prng
@@ -213,6 +241,7 @@ class _Train(Driver):
     def release(self) -> None:
         """Free the program's state before the reference runs."""
         self.tm = self.engine = self.prog0 = self.prng0 = None
+        self.slots = None
 
     def check_rows(self, k: int):
         raise NotImplementedError
@@ -251,6 +280,7 @@ class _Train(Driver):
         phase 0 from the benchmark's initial program and the PRNG's seed,
         phase 1 from the program's own state at the window's close (the
         reference cannot follow the window's thousands of steps)."""
+        ref = self.ref
         m = ref.model_at(self.model, drop)
         eng = self.cfg["engine"]
         if phase == 0:
@@ -264,11 +294,11 @@ class _Train(Driver):
             prng = ref.Cluster(lanes.to(dev), int(master), int(cycles))
         ta = ref.held_ta(m, ta0, dev)
         w = (ref.weight_matrix(m, w0, dev)
-             if m["kind"] == "coalesced" else None)
+             if ref.has_weights(m) else None)
         first = phase * self.traffic["check_steps"]
         states = []
         for k in range(first, first + len(self.snaps[phase])):
-            ta, w, stats = _ref_step(m, eng, ta, w, prng,
+            ta, w, stats = _ref_step(ref, m, eng, ta, w, prng,
                                      *self.check_rows(k), fault)
             states.append({"ta": ta, "weights": w, "stats": stats,
                            "prng": [prng.lanes, prng.master, prng.cycles],
@@ -280,7 +310,7 @@ class _Train(Driver):
         [rows, 2f], weights [classes, clauses] (or nothing), PRNG words,
         stats; from the program's padded leaves or from the reference."""
         m = self.model
-        rows, f = ref.rows_of(m), m["features"]
+        rows, f = self.ref.rows_of(m), self.ref.bool_features(m)
         if "inc" in s:                                   # the program's
             half = self.cfg["engine"]["L"] // 2
             ta = s["ta"].to(torch.int64)[:rows]
@@ -290,7 +320,7 @@ class _Train(Driver):
                 rows, -1).to(torch.int64)
             inc = torch.cat([bits[:, :f], bits[:, half:half + f]], dim=1)
             w = (s["weights"][:m["classes"], :m["clauses"]].to(torch.int64)
-                 if m["kind"] == "coalesced" else torch.zeros(1))
+                 if self.ref.has_weights(m) else torch.zeros(1))
             lanes, master, cycles = s["prng"]
             prng = [lanes.to(torch.int64), torch.tensor([int(master)]),
                     torch.tensor([int(cycles)])]
@@ -301,16 +331,16 @@ class _Train(Driver):
         ta = s["ta"].cpu()
         inc = (ta >= (1 << (mm["ta_bits"] - 1))).to(torch.int64)
         w = (s["weights"].cpu().to(torch.int64)
-             if m["kind"] == "coalesced" else torch.zeros(1))
+             if self.ref.has_weights(m) else torch.zeros(1))
         lanes, master, cycles = s["prng"]
         prng = [lanes.cpu(), torch.tensor([master]), torch.tensor([cycles])]
         return {"ta": ta, "include": inc, "weights": w, "prng": prng,
                 "stats": {k: int(v) for k, v in s["stats"].items()}}
 
 
-def _ref_step(m, eng, ta, w, prng, xb, yb, fault):
-    """One reference step, with ``fault`` (``unchanged``, ``half_batch``)
-    planted in it."""
+def _ref_step(ref, m, eng, ta, w, prng, xb, yb, fault):
+    """One step of the reference module ``ref``, with ``fault``
+    (``unchanged``, ``half_batch``) planted in it."""
     xb = torch.as_tensor(xb, device=ta.device)
     yb = torch.as_tensor(yb, device=ta.device)
     if fault == "half_batch" and len(xb) > 1:
@@ -326,31 +356,59 @@ REC_KEYS = ("selected_clauses", "active_groups", "total_groups", "train_acc")
 
 
 class Fit(_Train):
-    """``TM.fit`` passes of ``epochs`` epochs of ``batch`` rows.  Its check
-    is one more epoch after the window, through the window's own epoch
-    graph (the staged rows and the plan's shape key it), from the initial
-    program with the first epoch's order of every pass; the reference
-    follows every step of it.  Every pass's records must equal the first
-    pass's, and each first epoch's the check's."""
+    """``TM.fit`` passes of ``epochs`` epochs of ``batch`` rows, each from
+    one of ``programs`` initial programs (a traffic key; without it, 1),
+    in turn.  A program comes with its PRNG seed and its epoch order, all
+    drawn from the run's seed; the first is the one every training
+    driver draws.  A pass's work is set by the trajectory it trains
+    (the clause groups that get feedback), which every part of the seed
+    moves, so a run that trains several averages that out of its rate.
+    The check is one more epoch after the window, through the window's
+    own epoch graph (the staged rows and the plan's shape key it), from
+    the first program with its first epoch's order; the reference
+    follows every step of it.  Every pass's records must equal those of
+    the first pass from the same program, and each first epoch of the
+    first program the check's."""
 
     EARLY = False
 
+    def setup(self, api) -> None:
+        self.api = api
+        super().setup(api)
+
     def plan(self) -> np.ndarray:
-        """The first epoch's batches [steps, batch] of every pass: one
-        ``rng.permutation`` of the rows a epoch, as ``TM.fit`` states."""
+        """The first epoch's batches [steps, batch] of the first
+        program's passes: one ``rng.permutation`` of the rows a epoch, as
+        ``TM.fit`` states."""
         b = self.traffic["batch"]
         n = len(self.x) - len(self.x) % b
         rng = np.random.default_rng(self.seeds[4])
         return rng.permutation(len(self.x))[:n].reshape(-1, b)
 
-    def one_pass(self, epochs=None) -> list:
-        self.reset()
+    def one_pass(self, epochs=None, k: int = 0) -> list:
+        """A pass from program ``k``'s initial state."""
+        prog, prng, order = self.slots[k]
+        self.tm.program, self.tm.prng = prog, prng
         return self.tm.fit(self.x, self.y,
                            epochs=epochs or self.traffic["epochs"],
                            batch=self.traffic["batch"],
-                           rng=np.random.default_rng(self.seeds[4]))
+                           rng=np.random.default_rng(order))
 
     def warm(self) -> None:
+        """The window's programs, then a pass of the first, which builds
+        the epoch graph that they all replay (one shape)."""
+        self.slots = [(self.prog0, self.prng0, self.seeds[4])]
+        more = self.traffic.get("programs", 1) - 1
+        ss = np.random.SeedSequence([int(self.cell.seed), 1])
+        for prng_seed, prog_seed, order in ss.generate_state(
+                3 * more).reshape(-1, 3):
+            ta, w = data.initial_program(
+                self.model, np.random.default_rng(int(prog_seed)), self.ref)
+            prng = self.api.TM(self.spec, engine=self.engine,
+                               seed=int(prng_seed) & 0x7FFFFFFF).prng
+            self.slots.append((self.engine.lower(self.spec, ta=ta,
+                                                 weights=w),
+                               prng, int(order)))
         self.one_pass()
 
     def check_late(self) -> None:
@@ -368,20 +426,21 @@ class Fit(_Train):
         stats summed; phase 0 has no steps."""
         if phase == 0:
             return []
+        ref = self.ref
         m = ref.model_at(self.model, drop)
         eng = self.cfg["engine"]
         prng = ref.Cluster.create(self.prng_seed + 1, eng["prng_lanes"],
                                   m["lfsr_bits"], dev)
         ta = ref.held_ta(m, self.ta0, dev)
         w = (ref.weight_matrix(m, self.w0, dev)
-             if m["kind"] == "coalesced" else None)
+             if ref.has_weights(m) else None)
         x = torch.as_tensor(self.x, device=dev)
         y = torch.as_tensor(self.y, device=dev)
         plan = torch.as_tensor(self.plan(), device=dev)
         tot = {}
         for rows in plan:
-            ta, w, stats = _ref_step(m, eng, ta, w, prng, x[rows], y[rows],
-                                     fault)
+            ta, w, stats = _ref_step(ref, m, eng, ta, w, prng, x[rows],
+                                     y[rows], fault)
             for k, v in stats.items():
                 tot[k] = tot.get(k, 0) + v
         return [{"ta": ta, "weights": w, "stats": tot,
@@ -390,16 +449,19 @@ class Fit(_Train):
     def judge(self, drop: int = 0, fault=None) -> dict:
         """The state and stats after the check epoch against the
         reference's; and ``pass_mismatch``: the window's records that
-        differ from the first pass's, or whose first epoch differs from
-        the check epoch's (the program's own, whatever stands in its place
-        for the state)."""
+        differ from those of the first pass from the same program, or, of
+        the first program, whose first epoch differs from the check
+        epoch's (the program's own, whatever stands in its place for the
+        state)."""
         out = super().judge(drop, fault)
-        first = self.pass_recs[0]
-        bad = 0
-        for recs in self.pass_recs:
-            bad += sum(r[k] != f[k] for r, f in zip(recs, first)
-                       for k in REC_KEYS)
-            bad += sum(recs[0][k] != self.check_rec[k] for k in REC_KEYS)
+        firsts, bad = {}, 0
+        for k, recs in self.pass_recs:
+            first = firsts.setdefault(k, recs)
+            bad += sum(r[key] != f[key] for r, f in zip(recs, first)
+                       for key in REC_KEYS)
+            if k == 0:
+                bad += sum(recs[0][key] != self.check_rec[key]
+                           for key in REC_KEYS)
         out["pass_mismatch"] = int(bad)
         return out
 
@@ -409,16 +471,18 @@ class Fit(_Train):
         self.pass_recs = []
         t0 = time.perf_counter()
         while True:
-            self.pass_recs.append(self.one_pass())
+            k = len(self.pass_recs) % len(self.slots)
+            self.pass_recs.append((k, self.one_pass(k=k)))
             if time.perf_counter() - t0 >= seconds:
                 break
         self.sync()
         t = time.perf_counter() - t0
         passes = len(self.pass_recs)
-        recs = [r for p in self.pass_recs for r in p]
+        recs = [r for _, p in self.pass_recs for r in p]
         steps = passes * steps_pass
         self.counters.update(
             window_s=t, steps=steps, rows=steps * b, batch=b, passes=passes,
+            programs=len(self.slots),
             selected=sum(r["selected_clauses"] for r in recs),
             active_groups=sum(r["active_groups"] for r in recs),
             total_groups=sum(r["total_groups"] for r in recs))
@@ -513,10 +577,10 @@ class Serve(Driver):
         self.pools, self.progs = {}, {}
         for i, name in enumerate(self.names):
             task = self.cfg["data"][name]
-            self.pools[name] = data.make_bool_dataset(
-                task, pool, self.seeds[1] + i)[0]
+            self.pools[name] = data.shaped(task, data.make_bool_dataset(
+                task, pool, self.seeds[1] + i)[0])
             self.progs[name] = data.firing_program(
-                self.cfg["models"][name], task, rng)
+                self.cfg["models"][name], task, rng, self.ref)
         self.phase("data and programs")
         eng = self.cfg["engine"]
         sla_of = {n: slas[tr["sla"].get(n, "standard")] for n in self.names}
@@ -668,9 +732,10 @@ class Serve(Driver):
         torch.backends.cudnn.allow_tf32 = False
         want = {}
         for name in self.names:
-            m = ref.model_at(self.cfg["models"][name], drop)
+            m = self.ref.model_at(self.cfg["models"][name], drop)
             ta, w = self.progs[name]
-            want[name] = ref.predict(m, ta, w, self.pools[name], dev).cpu()
+            want[name] = self.ref.predict(m, ta, w, self.pools[name],
+                                          dev).cpu()
         log, n = self.log, self.log.n
         state, size = log.state[:n], log.size[:n]
         ans = log.ans[:n].astype(np.int64)

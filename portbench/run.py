@@ -10,6 +10,18 @@ names, ``portbench/drivers.py``), and each per-layer metric a reader
 ``portbench/metrics/<metric>.py``.  A new cell, configuration, mix or
 metric is new files and manifest entries; nothing here changes.
 
+A configuration file may name its plain reference,
+``"reference": "portbench/<file>.py"`` (without the key,
+``portbench/tm_reference.py``), loaded by path as the metric readers are.
+A reference module declares ``KINDS``, the model kinds it judges, and
+``bool_features(model)``, the Boolean features a clause sees; the
+harness calls its ``has_weights``, ``motif_literals``, ``model_at``,
+``rows_of``, ``held_ta``, ``weight_matrix``, ``Cluster``, ``train_step``
+and ``predict`` (``portbench/drivers.py``).  A model whose kind the
+reference does not declare, or a reference without one of these names,
+stops the run before any data is made.  A task of the configuration's ``data`` may state
+``"shape": [h, w]``: its rows are then handed to the program as images.
+
 A run: set-up (data, programs and the program's kernels and graphs, all
 from ``--seed``; every shape of the cell warmed), a window of
 ``--seconds`` seconds, then the reference judges what the window
@@ -41,6 +53,11 @@ for p in (ROOT, ROOT / "src"):
     if str(p) not in sys.path:
         sys.path.insert(0, str(p))
 
+DEFAULT_REFERENCE = "portbench/tm_reference.py"
+# what the harness calls in a reference module
+REFERENCE_NAMES = ("KINDS", "bool_features", "has_weights", "motif_literals",
+                   "model_at", "rows_of", "held_ta", "weight_matrix",
+                   "Cluster", "train_step", "predict")
 # top-level modules that must not be loaded in a run (the JAX package and
 # JAX itself), compared with each loaded module's top-level name whole
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
@@ -73,6 +90,7 @@ class Cell:
     cache_dir: pathlib.Path
     end_to_end: list
     per_layer: list
+    ref: object                   # the configuration's reference module
     root: pathlib.Path = ROOT
 
 
@@ -108,12 +126,35 @@ def load_cell(name: str, seed: int, device: str, root=ROOT) -> Cell:
                                            or m["moves"] in moves):
                 out.append(m)
         return out
+    ref = reference(config, root)
     e2e = mine(man["end_to_end"])
     per_layer = mine(man["per_layer"], {m["name"] for m in e2e})
     cache = root / "build" / "portbench"
     cache.mkdir(parents=True, exist_ok=True)
     return Cell(name, entry, config, traffic, seed, device, cache, e2e,
-                per_layer, root)
+                per_layer, ref, root)
+
+
+def reference(config: dict, root=ROOT):
+    """The plain reference module that ``config`` names, loaded from its
+    file; raises when it lacks a name of :data:`REFERENCE_NAMES` or does
+    not judge the kind of one of the configuration's models."""
+    rel = config.get("reference", DEFAULT_REFERENCE)
+    name = "portbench_reference_" + "".join(
+        ch if ch.isalnum() else "_" for ch in rel)
+    spec = importlib.util.spec_from_file_location(name, root / rel)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod       # a dataclass looks its module up there
+    spec.loader.exec_module(mod)
+    missing = [n for n in REFERENCE_NAMES if not hasattr(mod, n)]
+    if missing:
+        raise ValueError(f"{rel} lacks {missing} of a reference module")
+    for model, m in config["models"].items():
+        if m["kind"] not in mod.KINDS:
+            raise ValueError(
+                f"{rel} judges the kinds {list(mod.KINDS)}, not model "
+                f"{model!r} of kind {m['kind']!r}")
+    return mod
 
 
 def reader(name: str, root=ROOT):

@@ -41,13 +41,48 @@ CONFIGS = {
                    engine=ENGINE),
 }
 TRAFFIC = {
-    "tfit": dict(driver="fit", epochs=1, batch=32),
+    "tfit": dict(driver="fit", epochs=1, batch=32, programs=3),
     "tonline": dict(driver="partial_fit", rate="online_rows_per_s", batch=1,
                     pass_rows=64, check_steps=3, trace_steps=16),
     "tclosed": dict(driver="serve", outstanding=2,
                     rows=dict(one_p=0.0, min=8, max=8), sla={},
                     pool_rows=256, trace_seconds=0.3),
 }
+
+
+def conv_model(img: int = 12, patch: int = 5, c: int = 64, h: int = 4):
+    """A conv model over ``img`` x ``img`` images; it states no
+    ``features``: its clauses see patch² + 2(img - patch) Boolean ones."""
+    m = dict(model("conv", 0, c, h), img_h=img, img_w=img, patch=patch)
+    del m["features"]
+    return m
+
+
+RATE = {"fit": "train_rows_per_s", "partial_fit": "online_rows_per_s"}
+
+
+def add_config(root: pathlib.Path, cfg: dict, mixes=("tfit",)) -> list:
+    """``cfg`` as a new configuration file of the tree at ``root``, with a
+    cell of it under each traffic mix of ``mixes`` that reports the mix's
+    rate (a serving mix: none in the manifest); returns the cells'
+    names."""
+    name = cfg["name"]
+    (root / "portbench" / "configs" / f"{name}.json").write_text(
+        json.dumps(cfg))
+    man = json.loads((root / "BENCHMARK.json").read_text())
+    man["configs"].append(dict(name=name, source="tiny",
+                               file=f"portbench/configs/{name}.json",
+                               reduced=[], why="tiny"))
+    cells = [f"{name}.{mix}" for mix in mixes]
+    for cell, mix in zip(cells, mixes):
+        man["workloads"].append(dict(name=cell, config=name, traffic=mix,
+                                     chips=1, why="tiny"))
+        rate = RATE.get(TRAFFIC[mix]["driver"])
+        for m in man["end_to_end"]:
+            if m["name"] == rate:
+                m["workloads"].append(cell)
+    (root / "BENCHMARK.json").write_text(json.dumps(man))
+    return cells
 
 
 def make_tree(root: pathlib.Path) -> pathlib.Path:

@@ -74,6 +74,22 @@ def _later_steps_read_the_first_batch(monkeypatch):
     monkeypatch.setattr(dtm.DTMEngine, "_fit_epoch_impl", broken)
 
 
+def _keeps_its_last_state(monkeypatch):
+    """``TM.fit`` trains on from the state its last call left, whatever
+    program it is handed, as a session that kept its state would."""
+    from repro_torch import api
+    fit = api.TM.fit
+    last = []
+
+    def broken(self, x, y, **kw):
+        if last:
+            self.program, self.prng = last[-1]
+        out = fit(self, x, y, **kw)
+        last.append((self.program, self.prng))
+        return out
+    monkeypatch.setattr(api.TM, "fit", broken)
+
+
 def _altered(monkeypatch):
     from repro_torch import api
     predict = api.ProgramBank.predict
@@ -87,6 +103,7 @@ def _altered(monkeypatch):
 @pytest.mark.parametrize("cell,fault", [
     ("tiny_t.tfit", _unchanged), ("tiny_t.tfit", _half_batch),
     ("tiny_t.tfit", _later_steps_read_the_first_batch),
+    ("tiny_t.tfit", _keeps_its_last_state),
     ("tiny_t.tonline", _unchanged), ("tiny_s.tclosed", _altered)])
 def test_a_run_over_a_broken_program_is_not_correct(tree, monkeypatch, cell,
                                                    fault):
@@ -98,6 +115,30 @@ def test_a_run_over_a_broken_program_is_not_correct(tree, monkeypatch, cell,
     res = bench.run(c, 0.3, False, out=out, err=err)
     assert res["correct"] is False, res["checks"]
     assert "limit 0" in err.getvalue().splitlines()[-1]
+
+
+def test_a_fit_window_takes_its_programs_in_turn(tree):
+    """The fit window trains its programs in turn, each pass from its
+    program's own initial state, PRNG and epoch order: the passes of one
+    program agree, the programs' trajectories differ, and the first is
+    the program that every training driver draws and the check judges."""
+    from repro_torch import api
+    from portbench import drivers
+    c = bench.load_cell("tiny_t.tfit", 43, "cpu", root=tree)
+    n = c.traffic["programs"]
+    drv = drivers.Fit(c)
+    drv.setup(api)
+    assert drv.slots[0] == (drv.prog0, drv.prng0, drv.seeds[4])
+    drv.window(4.0, None)
+    ks = [k for k, _ in drv.pass_recs]
+    assert len(ks) > n and ks == [i % n for i in range(len(ks))]
+    assert drv.counters["programs"] == n
+    firsts = {}
+    for k, recs in drv.pass_recs:
+        assert recs == firsts.setdefault(k, recs)
+    assert len({firsts[k][0]["selected_clauses"] for k in range(n)}) == n
+    drv.release()
+    assert all(v == 0 for v in drv.judge().values())
 
 
 MANIFEST = json.loads((REPO / "BENCHMARK.json").read_text())

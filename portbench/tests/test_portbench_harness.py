@@ -45,8 +45,8 @@ def test_generators_follow_the_seed(what):
         if what == "data":
             return data.make_bool_dataset(t, 300, seed)
         if what == "initial":
-            return data.initial_program(m, rng)
-        return data.firing_program(m, t, rng)
+            return data.initial_program(m, rng, ref)
+        return data.firing_program(m, t, rng, ref)
 
     def same(a, b):
         return all(np.array_equal(u, v) for u, v in zip(a, b))
@@ -57,7 +57,7 @@ def test_generators_follow_the_seed(what):
 def test_firing_program_fires_on_its_class():
     m = pb_tiny.CONFIGS["tiny_s"]["models"]["a"]
     t = pb_tiny.CONFIGS["tiny_s"]["data"]["a"]
-    ta, w = data.firing_program(m, t, np.random.default_rng(0))
+    ta, w = data.firing_program(m, t, np.random.default_rng(0), ref)
     inc = ta >= 128
     assert inc.sum(axis=1).tolist() == [3] * 50
     assert not inc[:, 40:].any()                     # x-literals only
@@ -109,7 +109,7 @@ def test_reference_equals_the_program(kind):
     spec = drivers.spec_of(api, m)
     eng = api.compile(api.tile_for(spec), device="cpu")
     tm = api.TM(spec, engine=eng, seed=11)
-    ta0, w0 = data.initial_program(m, np.random.default_rng(3))
+    ta0, w0 = data.initial_program(m, np.random.default_rng(3), ref)
     tm.program = eng.lower(spec, ta=ta0, weights=w0)
     x, y = data.make_bool_dataset(t, 96, 5)
     hist = tm.fit(x, y, epochs=1, batch=32, rng=np.random.default_rng(9))

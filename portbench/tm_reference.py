@@ -18,6 +18,9 @@ operands, so TF32 cannot creep in.
 ``drop`` (on :func:`model_at`) gives the control: the same model with its
 TA registers and weights one bit narrower, the nearest precision below
 the one the configuration states.
+
+The flat kinds' reference: a configuration that names no reference of
+its own is judged by this one, which judges the kinds in :data:`KINDS`.
 """
 from __future__ import annotations
 
@@ -31,6 +34,25 @@ TAPS = {4: 0b1100, 8: 0b10111000, 12: 0b111000001000,
         16: 0b1101000000001000, 20: 0b10010000000000000000,
         24: 0b111000010000000000000000,
         32: 0b10000000001000000000000000000110}
+# the model kinds this reference judges
+KINDS = ("coalesced", "vanilla")
+
+
+def bool_features(model: dict) -> int:
+    """Boolean features a clause sees: the flat kinds' own features."""
+    return model["features"]
+
+
+def has_weights(model: dict) -> bool:
+    """Whether a program carries class weights of its own: the CoTM's;
+    the Vanilla TM's class blocks are a fixed ±1 by clause parity."""
+    return model["kind"] == "coalesced"
+
+
+def motif_literals(model: dict, task: dict, features):
+    """The x-literal columns [rows, n] of a clause that includes the task
+    features ``features`` [rows, n]: a flat clause sees them as they are."""
+    return features
 
 
 def model_at(model: dict, drop: int = 0) -> dict:
