@@ -3434,10 +3434,12 @@ def main(argv=None) -> int:
           and counts_conv_fit["lfsr_bits"] == 4 * steps_c
           and counts_conv_fit["fused_step"] == 0
           and counts_conv_fit["ta_update_sparse"] == 0
-          and counts_conv_fit["ta_update"] == 0,
+          and counts_conv_fit["ta_update"] == 0
+          and counts_conv_fit["conv_ta_update"] == 2 * steps_c,
           f"the conv fit launched {counts_conv_fit}")
     check(eng_cv.cache_report()["path_per_stage"] == {
-        "train_conv": "mxu_popcount"}, f"conv paths {eng_cv.cache_report()}")
+        "train_conv": "mxu_popcount", "train_conv_ta": "conv_ta"},
+        f"conv paths {eng_cv.cache_report()}")
     check(all(0.0 <= h["train_acc"] <= 1.0 for h in hist_c)
           and len(hist_c) == 2, f"conv history {hist_c}")
     test_acc_c = tm_c.score(xc_te, yc_te)

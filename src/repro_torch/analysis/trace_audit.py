@@ -40,6 +40,7 @@ EPOCHS = 2
 STAGE_BATCH = 64        # staged rows per tenant (fit batch 16 -> 4 steps)
 SERVE_BATCH = 8         # scheduler request batch (= batch_slot)
 JAX_KEPT = ("packed_vpu", "mxu_popcount")   # clause paths JAX's ref keeps
+PORT_ONLY = ("conv_ta",)   # kernels of stages that JAX runs as jnp
 
 
 class AuditError(AssertionError):
@@ -75,12 +76,14 @@ def leg_key(engine) -> str:
 def jax_equivalent(entry: dict) -> dict:
     """A golden entry as JAX's ``ref`` backend records it: clause paths
     other than ``packed_vpu`` and ``mxu_popcount`` read ``ref``; the TA
-    (``*_ta``) and PRNG (``*_prng``) entries are unchanged."""
+    (``*_ta``) and PRNG (``*_prng``) entries are unchanged; entries of
+    :data:`PORT_ONLY` kernels (the conv TA stage's) are dropped."""
     def rename(stage, path):
         if stage.endswith(("_ta", "_prng")) or path in JAX_KEPT:
             return path
         return "ref"
-    return {table: {s: rename(s, p) for s, p in paths.items()}
+    return {table: {s: rename(s, p) for s, p in paths.items()
+                    if p not in PORT_ONLY}
             for table, paths in entry.items()}
 
 

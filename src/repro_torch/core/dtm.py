@@ -46,9 +46,11 @@ padded ones), the clause stage runs on the ``[B·P, W]`` view and the
 patches meet in an OR (``infer_conv``, ``infer_conv_bank``).  Its train
 step (``train_conv``, one program) follows the clause stage with class
 sums and both Alg-3 rounds, then gives Type I/II feedback against one
-random matching patch per (datapoint, clause): plain torch ops on the
-device, as the JAX engine's jnp stage, with its random words drawn from
-the PRNG (one ``lfsr_bits`` launch a draw on the card).
+random matching patch per (datapoint, clause), with its random words
+drawn from the PRNG (one ``lfsr_bits`` launch a draw on the card): the
+JAX engine's jnp stage, two kernels on the card
+(:mod:`repro_torch.kernels.conv_ta`: the patch pick and the TA update),
+its plain version elsewhere and on the forced ``ref`` path.
 
 Per stage the engine records the kernels it ran in
 ``cache_report()["path_per_stage"]``: ``packed_vpu``, ``mxu_popcount``,
@@ -57,7 +59,9 @@ Per stage the engine records the kernels it ran in
 ``<family>-stream`` (family ``counter`` or ``lfsr``).  The stages are
 ``infer``, ``infer_bank``, ``train``, ``train_bank``, ``infer_conv``,
 ``infer_conv_bank`` and ``train_conv`` (a forced path records ``ref``
-for its clause stages).
+for its clause stages).  A conv train stage off the forced ``ref`` path
+also records ``<stage>_ta`` = ``conv_ta`` (:func:`kops.conv_ta_update_op`;
+the JAX engine has no such entry: its conv TA stage is jnp).
 
 Every stage executable of the JAX engine runs as a CUDA graph on the
 card (:mod:`repro_torch.core.graph`): an epoch of ``TMSession.fit_epochs``
@@ -763,11 +767,11 @@ class DTMEngine:
         feedback against one random matching patch per (datapoint,
         clause): the patch with the largest ``cl_p·1000 + noise`` (the
         first on a tie, as ``jnp.argmax``), its literals gathered, the
-        deltas summed over the batch as integer products (no int32 GEMM
-        on the card), clipped, and the include bitplane packed anew.
-        The draws come in the JAX engine's order.  ``shard``: the programs
-        hold the rank's clause-row window, and the full-width draws are
-        sliced to it (:meth:`_train_conv_sharded_impl`)."""
+        deltas summed over the batch, clipped, and the include bitplane
+        packed anew (:func:`kops.conv_ta_update_op`).  The draws come in
+        the JAX engine's order.  ``shard``: the programs hold the rank's
+        clause-row window, and the full-width draws are read at its rows
+        (:meth:`_train_conv_sharded_impl`)."""
         K, B, P, W = plits.shape
         L, R = self.L, self.R
         labels = labels.to(torch.int32)
@@ -777,11 +781,10 @@ class DTMEngine:
         prngs, patch_rand = prngs.bits((B, P, R))
         prngs, sel_rand = prngs.bits((2, B, R))
         prngs, ta_rand = prngs.bits((2, B, R, L))
+        row0 = 0
         if shard is not None:       # transient memory scales with the global R
-            rows = slice(shard.row0, shard.row0 + shard.r_loc)
-            patch_rand, sel_rand = patch_rand[..., rows], sel_rand[..., rows]
-            ta_rand = ta_rand[..., rows, :]
-            R = shard.r_loc
+            row0, R = shard.row0, shard.r_loc
+            sel_rand = sel_rand[..., row0:row0 + R]
 
         # uint32 draws held in int64: the remainder is the unsigned one
         rn = (c_rand % torch.clamp(n_cls - 1, min=1)[:, None]).to(torch.int32)
@@ -800,52 +803,24 @@ class DTMEngine:
             sums, neg, 0, sel_rand[:, 1], progs.weights, progs.cl_mask,
             progs.T, wf, rand_bits=self.rand_bits)
 
-        # one random matching patch per (datapoint, clause) and its
-        # literals: an index gather (the reference's one-hot product)
-        noise = (patch_rand % 997).to(torch.int32)                # [K,B,P,R]
-        patch_idx = torch.argmax(cl_p * 1000 + noise, dim=2)      # [K,B,R]
-        pl_dense = unpack_literals(plits, L)                      # [K,B,P,L]
-        litb = torch.gather(pl_dense, 2, patch_idx[..., None].expand(
-            K, B, R, L)) > 0                                      # [K,B,R,L]
-
-        def rows_of(cls):
-            return torch.gather(progs.weights, 1,
-                                cls.long()[..., None].expand(K, B, R))
-        w_lab, w_neg = rows_of(labels), rows_of(neg)
-        rounds = ((sel_lab * (w_lab >= 0), sel_lab * (w_lab < 0),
-                   ta_rand[:, 0]),
-                  (sel_neg * (w_neg < 0), sel_neg * (w_neg >= 0),
-                   ta_rand[:, 1]))
-
-        # Type I/II deltas against the selected patch's literals (Alg 5),
-        # gated by the OR-level clause output; include from the bitplane
-        clb = (cl > 0)[..., None]                                 # [K,B,R,1]
-        incb = (unpack_literals(progs.inc, L) > 0)[:, None]       # [K,1,R,L]
-        cl_and_lit = clb & litb
-        inc2 = (clb & ~litb & ~incb).to(torch.int32)
-        p_ta = (progs.p_ta.to(torch.int64) & M32)[:, None, None, None]
-        boost = progs.boost[:, None, None, None]
-        delta = torch.zeros((K, R, L), dtype=torch.int32, device=plits.device)
-        for t1, t2, tr in rounds:
-            low = tr < p_ta
-            inc1 = torch.where(boost, cl_and_lit, cl_and_lit & ~low)
-            d1 = inc1.to(torch.int32) - (~cl_and_lit & low).to(torch.int32)
-            delta += (t1[..., None] * d1 + t2[..., None] * inc2).sum(
-                dim=1, dtype=torch.int32)
-        delta = delta * progs.l_mask[:, None, :] * progs.cl_mask[:, :, None]
-        new_ta = torch.maximum(
-            torch.minimum(progs.ta.to(torch.int32) + delta,
-                          (progs.n_states - 1)[:, None, None]),
-            torch.zeros_like(delta))
+        # Type I/II feedback against one random matching patch per
+        # (datapoint, clause), the new TA states and include bitplane
+        plain = self.kernel_path == kops.PATH_REF
+        if not plain:
+            self._stage_paths[stage + "_ta"] = "conv_ta"
+        new_ta, new_inc = kops.conv_ta_update_op(
+            progs.ta, progs.inc, plits, cl_p, cl, sel_lab, sel_neg,
+            progs.weights, labels, neg, patch_rand, ta_rand, progs.l_mask,
+            progs.cl_mask, progs.p_ta, progs.boost, progs.n_states,
+            row0=row0, plain=plain)
 
         new_w, stats = kops.weights_and_stats_plain(
             progs.weights, progs.w_frozen, progs.w_clip, progs.cl_mask, cl,
             sel_lab, sel_neg, labels, neg, correct, torch.zeros_like(correct),
             self.tile.y, None if shard is None
             else (lambda t: gather_dim(t, shard.group, 1)))
-        new = dataclasses.replace(progs, ta=new_ta.to(progs.ta.dtype),
-                                  weights=new_w,
-                                  inc=pack_include(new_ta, progs.n_states))
+        new = dataclasses.replace(progs, ta=new_ta, weights=new_w,
+                                  inc=new_inc)
         return new, prngs, StepStats(stats)
 
     def train_conv(self, prog: DTMProgram, prng: PRNG, plits: torch.Tensor,

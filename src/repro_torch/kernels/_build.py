@@ -24,7 +24,7 @@ from typing import Dict, Iterable, Optional
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("packed_clause", "class_sum", "fused_step", "ta_update",
-           "clause_eval", "lfsr", "threefry", "step_glue")
+           "clause_eval", "lfsr", "threefry", "step_glue", "conv_ta")
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

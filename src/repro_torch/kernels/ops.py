@@ -28,10 +28,11 @@ which have no compacted kernel); with a shape, a measured plan decides
 between them.  The names are the JAX package's, so
 ``cache_report()["path_per_stage"]`` reads the same in both.
 :func:`launch_counts` also counts the PRNG kernels that ``PRNG.bits``
-launches: ``lfsr_bits`` (the lfsr cluster) and ``threefry_bits``, and
-the train step's two glue kernels, ``step_prologue`` and
-``step_epilogue`` (:func:`step_prologue_op`, :func:`step_epilogue_op`);
-a replayed CUDA graph adds the launches of its capture.
+launches: ``lfsr_bits`` (the lfsr cluster) and ``threefry_bits``, the
+train step's two glue kernels, ``step_prologue`` and ``step_epilogue``
+(:func:`step_prologue_op`, :func:`step_epilogue_op`), and the conv
+step's TA stage, ``conv_ta_update`` (:func:`conv_ta_update_op`, two
+kernels a call); a replayed CUDA graph adds the launches of its capture.
 """
 from __future__ import annotations
 
@@ -43,6 +44,7 @@ from repro_torch.core.booleanize import unpack_literals
 from . import autotune as _autotune, ref
 from .class_sum import class_sum
 from .clause_eval import clause_eval
+from .conv_ta import conv_ta_update, conv_ta_update_plain
 from .fused_step import fused_step
 from .lfsr import lfsr_bits
 from .packed_clause import packed_clause_eval, packed_clause_tile
@@ -87,7 +89,8 @@ _WRAPPERS = {"packed_clause_eval": packed_clause_eval,
              "lfsr_bits": lfsr_bits,
              "threefry_bits": threefry_bits,
              "step_prologue": step_prologue,
-             "step_epilogue": step_epilogue}
+             "step_epilogue": step_epilogue,
+             "conv_ta_update": conv_ta_update}
 
 
 def select_path(batch, force: Optional[str] = None, training: bool = False,
@@ -387,6 +390,20 @@ def step_epilogue_op(lits, cl, sums, sel_lab, sel_neg, sel_rand, labels,
         raise ValueError("the collectives vote_sum and gather need "
                          "plain=True")
     return step_epilogue(*args, y=y, rand_bits=rand_bits, inplace=inplace)
+
+
+def conv_ta_update_op(ta, inc, plits, cl_p, cl, sel_lab, sel_neg, weights,
+                      labels, neg, patch_rand, ta_rand, l_mask, cl_mask, p_ta,
+                      boost, n_states, row0: int = 0, plain: bool = False):
+    """The conv train step's TA stage, bank form
+    (:func:`repro_torch.kernels.conv_ta.conv_ta_update`: the patch pick
+    and the TA update, two launches on the card).  ``plain`` runs the
+    plain version on any device (the ``ref`` path).  -> (new_ta,
+    new_inc)."""
+    fn = conv_ta_update_plain if plain else conv_ta_update
+    return fn(ta, inc, plits, cl_p, cl, sel_lab, sel_neg, weights, labels,
+              neg, patch_rand, ta_rand, l_mask, cl_mask, p_ta, boost,
+              n_states, row0=row0)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -42,10 +42,15 @@ at the MNIST fit's step (K=1, B=32, R=2048, W=52, H=16), its edge step
 the last program a regression one), each with ``plain_ms``, its plain
 version's kernels replayed the same way, and the epilogue also in the
 other launch layouts of ``GLUE_LAYOUTS`` (8 and 1 blocks a cluster, the
-wide kernel) at the fit's step.
+wide kernel) at the fit's step, and the conv step's TA stage
+``conv_ta_update`` (both its kernels) at the conv cell's step (K=1, B=32
+and 1, P=361, R=2048, L=384, W=12) on the operands of an engine step
+(``conv_ta_operands``), with ``plain_ms`` and ``dense_bound_ms``.
 Bounds are the bytes each call must move, or for ``threefry_bits`` the
 larger of those and its integer instructions (``THREEFRY_OPS`` a word)
-at the issue rate, 128 a clock an SM, 132 SMs and 1980 MHz.
+at the issue rate, 128 a clock an SM, 132 SMs and 1980 MHz; for
+``conv_ta_update`` the bytes its operands need (``conv_ta_bytes``: the
+drawn words that can count), and ``dense_bound_ms`` every drawn word.
 """
 from __future__ import annotations
 
@@ -71,6 +76,7 @@ GLUE = [(1, 32, 2048, 52, 16), (1, 1, 2048, 52, 16),
         (4, 32, 4224, 100, 16)]                       # K, B, R, W, H
 # the epilogue's launch layouts timed beside its own at the fit's shape
 GLUE_LAYOUTS = [{"cluster": 8}, {"cluster": 1}, {"wide": 1}]
+CONV_TA = [32, 1]     # batch rows of the conv step (K=1, P=361, R=2048, L=384)
 # 32-bit integer instructions a threefry word: 20 rounds of an add, a
 # funnel-shift rotate and an xor (60), the first and 5 more key injections
 # of two adds (12), the output xor and the shift (2)
@@ -163,6 +169,77 @@ def glue_operands(torch, gen, K, B, R, W, H, dev):
            torch.full((K,), 500, dtype=torch.int32, device=dev),
            draws[5]]
     return draws, epi
+
+
+def conv_ta_operands(torch, B: int, seed: int = 0):
+    """The conv TA stage's operands of one engine step at the conv cell's
+    shape (the MNIST CoTM's sizes on 28×28 images, a 10×10 window): a
+    program whose clauses include about three literals each, so that they
+    fire on some patches, and B random images; taken from the step's call
+    of ``ops.conv_ta_update_op``."""
+    import numpy as np
+    from repro_torch import api
+    from repro_torch.kernels import ops
+    spec = api.TMSpec.conv(28, 28, 10, classes=10, clauses=2000, T=500,
+                           s=10.0, ta_bits=8, weight_bits=12,
+                           prng_backend="lfsr", lfsr_bits=24, rand_bits=16)
+    eng = api.compile(api.tile_for(spec))
+    cfg = spec.tm_config()
+    gen = torch.Generator().manual_seed(seed)
+    shape = (cfg.total_clauses, cfg.literals)
+    ta = cfg.include_threshold - 1 + (torch.rand(shape, generator=gen)
+                                      < 3 / shape[1]).to(torch.int32)
+    w = torch.randint(-3, 4, (cfg.classes, cfg.clauses), generator=gen,
+                      dtype=torch.int32)
+    prog = eng.lower(spec, ta=ta, weights=w)
+    rng = np.random.default_rng(seed)
+    x = (rng.random((B, 28, 28)) < 0.5).astype(np.int8)
+    y = spec.encode_labels(rng.integers(0, 10, B)).cuda()
+    seen, op = [], ops.conv_ta_update_op
+
+    def spy(*a, **kw):
+        seen.append([t.clone() for t in a])
+        return op(*a, **kw)
+    ops.conv_ta_update_op = spy
+    try:
+        eng.train_conv(prog, api.TM(spec, engine=eng, seed=seed).prng,
+                       eng.encode(spec, x), y)
+    finally:
+        ops.conv_ta_update_op = op
+    return seen[0]
+
+
+def conv_ta_bytes(torch, a):
+    """(bytes these operands need, bytes of the dense stage) of a conv TA
+    stage: the pairs' scalars, the clause outputs of the pairs that need a
+    pick and their draws where the clause fires, the drawn words that can
+    count (t1 ≠ 0, a real literal, not a boosted hit), the patch words and
+    the TA states and include words read and written once; the dense
+    stage reads every clause output and every drawn word."""
+    from repro_torch.core.booleanize import unpack_literals
+    (ta, inc, plits, cl_p, cl, sl, sn, w, lab, neg, pr, tr, lm, cm, _, boost,
+     _) = a
+    K, R, L = ta.shape
+    B, P = plits.shape[1:3]
+    need = (cl > 0) & ((sl != 0) | (sn != 0))
+    pick = (cl_p * 1000 + (pr % 997).to(torch.int32)).argmax(dim=2)
+    lit = torch.gather(unpack_literals(plits, L), 2,
+                       pick[..., None].expand(K, B, R, L)) > 0
+    skip = boost[:, None, None, None] & (cl > 0)[..., None] & lit
+
+    def t1(s, c, neg_round):
+        wr = torch.gather(w, 1, c.long()[..., None].expand(K, B, R))
+        return s * ((wr < 0) if neg_round else (wr >= 0))
+    live = (lm != 0)[:, None, None, :]
+    words = sum(int(((t[..., None] != 0) & live & ~skip).sum())
+                for t in (t1(sl, lab, False), t1(sn, neg, True)))
+    state = (2 * ta.numel() * ta.element_size() + 2 * inc.numel() * 4
+             + 4 * (3 * K * B * R + w.numel() + 2 * K * B + K * L + K * R)
+             + plits.numel() * 4)
+    need_b = (state + 4 * P * int(need.sum())
+              + 8 * int(((cl_p > 0) & need[:, :, None]).sum()) + 8 * words)
+    dense = state + 4 * cl_p.numel() + 8 * pr.numel() + 8 * tr.numel()
+    return need_b, dense
 
 
 def main(argv=None) -> int:
@@ -330,6 +407,21 @@ def main(argv=None) -> int:
                           *a, geometry=g),
                       lambda a=epi: step_glue.step_epilogue_plain(*a),
                       nbytes, time_plain=g is None)
+    try:
+        from repro_torch.kernels import conv_ta
+    except ImportError:                  # a tree from before the kernels
+        conv_ta = None
+    if conv_ta is not None and (not only or "conv_ta_update" in only):
+        for B in CONV_TA:
+            a = conv_ta_operands(torch, B)
+            nbytes, dense = conv_ta_bytes(torch, a)
+            timed("conv_ta_update", f"K=1 B={B} P=361 R=2048 L=384 W=12",
+                  lambda a=a: conv_ta.conv_ta_update(*a),
+                  lambda a=a: conv_ta.conv_ta_update_plain(*a),
+                  nbytes, calls=40, time_plain=True)
+            if rows and rows[-1]["name"] == "conv_ta_update":
+                rows[-1]["dense_bound_ms"] = dense / HBM_BYTES_PER_S * 1e3
+            del a
     one = torch.zeros(1, dtype=torch.int32, device=dev)
     print(json.dumps({"kernel_bench": {
         "card": card, "repro_torch": repro_torch.__file__, "calls": CALLS,

@@ -272,7 +272,7 @@ def test_forced_mxu_conv_matches_jax(engines):
         {k: int(jst[k]) for k in STAT_KEYS}
     _assert_same(tprog, tprng, jprog, jprng)
     assert teng_mxu.cache_report()["path_per_stage"] == {
-        "infer_conv": "mxu", "train_conv": "mxu"}
+        "infer_conv": "mxu", "train_conv": "mxu", "train_conv_ta": "conv_ta"}
 
 
 def test_torch_argmax_takes_the_first_maximum():
